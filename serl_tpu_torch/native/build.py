@@ -1,0 +1,67 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel library is one `csrc/<name>.cu` (plus the `csrc/*.cuh` headers)
+with a plain C interface. It is compiled at first use into
+`serl_tpu_torch/_build/` (listed in .gitignore), under a file name keyed by a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing here runs at import time.
+"""
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+BUILD_DIR = os.path.join(PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    for path in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _source_hash(source: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless a build of the same sources exists;
+    returns the shared library's path."""
+    source = os.path.join(CSRC, f"{name}.cu")
+    out = os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(source)}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}\n{proc.stderr}")
+    with open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)  # -Xptxas -v: registers, spills per kernel
+    os.replace(tmp, out)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(build(name))
