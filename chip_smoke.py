@@ -4,24 +4,38 @@
     python3 chip_smoke.py
 
 Phases, each fatal (non-zero exit, no result line) on failure:
-  1. device: the card's name and power limit; build the control-step kernel
-     (K1, serl_tpu_torch/csrc/control_step.cu) with nvcc from the sources in
-     this checkout, and the host build of its code that counts its operations
-     (tests/k1_host.cpp, g++), and print the build times;
+  1. device: the card's name and power limit; build the CUDA kernels from the
+     sources in this checkout, one nvcc per source started together (K1, the
+     control step, serl_tpu_torch/csrc/control_step.cu; K4, the replay gather,
+     csrc/replay_gather.cu) while Triton compiles K5 (LayerNorm + tanh,
+     serl_tpu_torch/networks/layer_norm_tanh.py), and the host build of K1's
+     code that counts its operations (tests/k1_host.cpp, g++); print the
+     build times;
   2. K1 against control_step_plain at N = 128 and 2048 env states from two
      sources (a plain-version rollout with random actions, and constructed
      grasp states with the cube between the pads), which must include active
      floor and pad contacts: one control step, field by field and env by env,
      and a 100-step kernel-vs-plain rollout, under the tolerance rule of
      tests/torch_k1.py (a tight per-env tolerance that at most N // 100 envs
-     may exceed, and a cap that none may);
-  3. the main path: make_state_sim_experiment with 128 envs and the
+     may exceed, and a cap that none may); K4 against its plain version at
+     the main path's shapes (782 slots x 128 streams, 2048 rows) on a wrapped
+     ring with episode boundaries, next_observations stored and not: exactly
+     equal; K5 forward and backward against its plain version at
+     (10, 256, 256), (10, 2048, 256) and (2048, 256) under stated tolerances;
+  3. the actor path: make_state_sim_experiment with 128 envs and the
      full-width networks, 20 loop iterations (8 random, 12 policy) and a
-     128-episode evaluate, with K1's launch count read around it;
-  4. times on the card: K1 and the plain version at N = 128 and 2048 (calls
-     back to back between one pair of CUDA events, and K1's kernel time from
-     torch.profiler), K1's bound from its counted operations, where an actor
-     step's time goes, and the loop's device busy share (torch.profiler).
+     128-episode evaluate, with every kernel's launch count read around it;
+     then the learner path: bench.py::bench_state's configuration (128 envs,
+     UTD 8, batch 256, 10 critics subsampled to 2, buffer 100,000) warmed up
+     past its training threshold, then 3 chunks of 50 iterations timed as
+     bench.py does (best of 3, ending in a sync), with every launch count
+     read around them and checked against the count that the loss functions
+     give, then a 128-episode evaluate;
+  4. times on the card: each kernel and its plain version at the main path's
+     shapes (calls back to back between one pair of CUDA events, and the
+     kernel's device time from torch.profiler) beside its bound, where an
+     actor step's and a learner iteration's time go, and the device busy
+     share of both loops (torch.profiler).
 It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
 repository around it (serl_tpu_torch/ and tests/torch_k1.py); it never
@@ -35,6 +49,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -44,6 +59,59 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 BOUND_N = (128, 2048)
 MAIN_ENVS = 128
+# bench.py::bench_state's configuration, passed to make_state_sim_experiment
+BENCH_STATE = dict(seed=0, num_envs=128, updates_per_iter=1, utd_ratio=8, training_starts=1000,
+                   random_steps=1000, buffer_capacity=100_000)
+CHUNK = 50  # loop iterations per timed chunk, as bench_state
+K4_SHAPE = dict(slots=782, streams=128, rows_per_stream=16)  # 100,096 rows, batch 2048
+K5_SHAPES = ((10, 256, 256), (10, 2048, 256), (2048, 256))
+K5_MAIN = (10, 256, 256)  # the shape of most K5 launches: the critic updates
+# whether the main path's backward at each shape computes dw and db: not at
+# (10, 2048, 256), the actor loss's pass through the critic's constants
+K5_WEIGHT_GRADS = {(10, 256, 256): True, (10, 2048, 256): False, (2048, 256): True}
+# K5's float operations per element, counted in its kernels' code (the
+# per-row statistics add a few per row, left out): forward 13 (mean and
+# variance sums 3, centre 1, scale and shift 3, tanh by exp 6), backward 16
+K5_OPS_PER_ELEMENT = {"fwd": 13, "bwd": 16}
+
+# Launches per learner-loop iteration, from the loss functions
+# (serl_tpu_torch/agents/sac.py). The policy MLP and the critic EnsembleMLP
+# each run 2 LayerNorm+tanh (K5) pairs per forward pass.
+#   critic update (x utd_ratio): next actions from the policy (2 fwd, no
+#     grad), the target critic (2 fwd, no grad), the critic (2 fwd) and its
+#     backward (2 bwd): 6 fwd, 2 bwd;
+#   actor+temperature update: the policy (2 fwd) and the critic on detached
+#     params (2 fwd), backward through both (4 bwd, the critic's without
+#     weight grads); the temperature loss's next actions (2 fwd, no grad):
+#     6 fwd, 4 bwd;
+#   acting: one policy sample (2 fwd), all iterations being past random_steps.
+# A K5 backward with weight grads launches the column-sum kernel after it:
+# the critic update's 2 and the actor update's 2 through the policy.
+# One sample (1 K4 launch) and one control step (1 K1 launch) per iteration.
+def learner_launches_per_iter(utd_ratio: int, updates_per_iter: int = 1) -> dict:
+    return {"control_step": 1,
+            "replay_gather": updates_per_iter,
+            "layer_norm_tanh_fwd": updates_per_iter * (6 * utd_ratio + 6) + 2,
+            "layer_norm_tanh_bwd": updates_per_iter * (2 * utd_ratio + 4),
+            "layer_norm_tanh_colsum": updates_per_iter * (2 * utd_ratio + 2)}
+
+
+# The actor path (phase 3): 20 control steps + 100 evaluate steps of K1; 2
+# K5 forwards per policy call: 12 policy iterations + 100 evaluate steps.
+ACTOR_LAUNCHES = {"control_step": 120, "replay_gather": 0,
+                  "layer_norm_tanh_fwd": 2 * (12 + 100), "layer_norm_tanh_bwd": 0,
+                  "layer_norm_tanh_colsum": 0}
+# K5 tolerances (kernel against its plain version, both fp32 on the card):
+#   y: 1e-5 abs. Outputs are in (-1, 1); the row sums of 256 floats are
+#     taken in another order and the kernel's exp, sqrt and division are
+#     Triton's fast forms (a few ulp), which moves z = x_hat * w + b by
+#     ~1e-6 where tanh is not saturated.
+#   dx: 1e-4 abs, 2.5e-5 of the largest |dx| (~4 here): the same rounding
+#     through rstd and the two row means of the backward.
+#   dw, db: 5e-5 of the column sums of |g * x_hat| and |g|: sums of up to
+#     20,480 rows in another order (per-program partials, then a column sum)
+#     round like a random walk, ~sqrt(n) * 2^-24 = 8.5e-6 of those sums.
+K5_ATOL_Y, K5_ATOL_DX, K5_REL_DWB = 1e-5, 1e-4, 5e-5
 
 
 def fail(msg: str) -> int:
@@ -96,22 +164,74 @@ def per_call_ms(fn, calls: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def profiled_kernel_ms(fn, calls: int, kernel: str):
-    """Device time per launch of `kernel` in a torch.profiler trace of
-    `calls` calls of fn, or None when the profiler records no device time."""
+def profiled_kernel_ms(fn, calls: int, kernels):
+    """Device time per call of fn spent in kernels whose names contain one
+    of `kernels`, from a torch.profiler trace of `calls` calls, or None when
+    the profiler records no device time for them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
+              if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
     total_us = sum(e.self_device_time_total for e in events)
-    count = sum(e.count for e in events)
-    return total_us / 1e3 / count if count else None
+    return total_us / 1e3 / calls if events and total_us > 0 else None
+
+
+def busy_share(torch, run, iters: int):
+    """(wall ms unprofiled, device busy ms, {kernel name: ms}) of `run(iters)`:
+    kernel time from a torch.profiler trace of the same number of iterations
+    that a host clock times unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(iters)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(iters)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    return wall_ms, sum(by_name.values()), by_name
+
+
+def bound(bytes_moved: float, ops: float):
+    """(bound ms, what bounds it) on an H100 SXM at its data-sheet rates."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def launch_counters():
+    """Every kernel launch counter of the port, (wrapper, attribute) by the
+    kernel's name in the counts. K5's backward wrapper launches two kernels,
+    the backward and (with weight grads) the column sum, and counts each."""
+    from serl_tpu_torch.data import replay_buffer
+    from serl_tpu_torch.envs.physics import engine
+    from serl_tpu_torch.networks import layer_norm_tanh as k5
+
+    return {"control_step": (engine.control_step, "launches"),
+            "replay_gather": (replay_buffer.gather_batch_aligned, "launches"),
+            "layer_norm_tanh_fwd": (k5.layer_norm_tanh_forward, "launches"),
+            "layer_norm_tanh_bwd": (k5.layer_norm_tanh_backward, "launches"),
+            "layer_norm_tanh_colsum": (k5.layer_norm_tanh_backward, "colsum_launches")}
+
+
+def reset_launches() -> None:
+    for wrapper, attr in launch_counters().values():
+        setattr(wrapper, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in launch_counters().items()}
 
 
 # ---------------------------------------------------------------- phases
@@ -175,7 +295,87 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
     return main_path_err
 
 
-def phase_main_path(torch, engine, device):
+def phase_k4_vs_plain(torch, device):
+    """K4 against its plain version at the main path's shapes: a full ring
+    that has wrapped (cursor mid-ring), 100-step episodes that end at
+    another slot in every stream, next_observations stored and not."""
+    from serl_tpu_torch.data import replay_buffer as rbm
+
+    slots, streams, r = K4_SHAPE["slots"], K4_SHAPE["streams"], K4_SHAPE["rows_per_stream"]
+    g = torch.Generator(device=device).manual_seed(4)
+    data = {k: torch.randn((slots, streams) + shape, generator=g, device=device)
+            for k, shape in (("observations", (10,)), ("actions", (4,)),
+                             ("next_observations", (10,)), ("rewards", ()), ("masks", ()),
+                             ("dones", ()))}
+    insert_slot = 300  # slot 299 is the newest, 300 the oldest
+    age = (torch.arange(slots, device=device) - insert_slot) % slots
+    stream = torch.arange(streams, device=device)
+    ep_id = (((age[:, None] + 7 * stream[None, :]) // 100) * streams + stream[None, :]).to(torch.int32)
+    err, boundary_rows = 0.0, 0
+    for store_next_obs in (True, False):
+        fields = data if store_next_obs else {k: v for k, v in data.items()
+                                              if k != "next_observations"}
+        n_valid = slots if store_next_obs else slots - 1
+        u = torch.randint(0, n_valid, (r, streams), generator=g, device=device)
+        s2 = (insert_slot - slots + u) % slots
+        s2[0] = (insert_slot - 1 - int(not store_next_obs)) % slots  # the ring's seam
+        got = rbm.gather_batch_aligned_cuda(fields, ep_id, s2, store_next_obs)
+        want = rbm.gather_batch_aligned_plain(fields, ep_id, s2, store_next_obs)
+        torch.cuda.synchronize()
+        for k in want:
+            if got[k].shape != want[k].shape or not torch.equal(got[k], want[k]):
+                raise AssertionError(f"K4 differs from plain in {k} (store_next_obs="
+                                     f"{store_next_obs})")
+            err = max(err, float((got[k] - want[k]).abs().max()))
+        if not store_next_obs:
+            nxt = (s2 + 1) % slots
+            boundary_rows = int((ep_id[nxt, stream] != ep_id[s2, stream]).sum())
+    if boundary_rows == 0:
+        raise AssertionError("K4 check sampled no episode-boundary row")
+    print(f"K4 vs plain at {slots} slots x {streams} streams, {r * streams} rows, next_obs "
+          f"stored and not ({boundary_rows} rows at an episode boundary): exactly equal")
+    return err
+
+
+def phase_k5_vs_plain(torch, device):
+    """K5 forward and backward against the plain versions, K5_SHAPES."""
+    from serl_tpu_torch.networks import layer_norm_tanh as k5
+
+    g = torch.Generator(device=device).manual_seed(5)
+    worst = {"y": 0.0, "dx": 0.0, "dw": 0.0, "db": 0.0}
+    for shape in K5_SHAPES:
+        d = shape[-1]
+        x = (torch.randn(shape, generator=g, device=device) * 1.5
+             + torch.randn(shape[:-1] + (1,), generator=g, device=device)).reshape(-1, d)
+        w = 1.0 + 0.3 * torch.randn(d, generator=g, device=device)
+        b = 0.2 * torch.randn(d, generator=g, device=device)
+        dy = torch.randn(x.shape, generator=g, device=device)
+        y, mean, rstd = k5.layer_norm_tanh_forward(x, w, b)
+        dx, dw, db = k5.layer_norm_tanh_backward(dy, x, w, mean, rstd, y)
+        dx_only, no_dw, _ = k5.layer_norm_tanh_backward(dy, x, w, mean, rstd, y,
+                                                        need_weight_grads=False)
+        py, pmean, prstd = k5.layer_norm_tanh_forward_plain(x, w, b)
+        pdx, pdw, pdb = k5.layer_norm_tanh_backward_plain(dy, x, w, pmean, prstd, py)
+        gg = dy * (1.0 - py * py)
+        x_hat = (x - pmean[:, None]) * prstd[:, None]
+        errs = {"y": float((y - py).abs().max()),
+                "dx": max(float((dx - pdx).abs().max()), float((dx_only - pdx).abs().max())),
+                "dw": float((dw - pdw).abs().max() / (gg * x_hat).abs().sum(0).max()),
+                "db": float((db - pdb).abs().max() / gg.abs().sum(0).max())}
+        limits = {"y": K5_ATOL_Y, "dx": K5_ATOL_DX, "dw": K5_REL_DWB, "db": K5_REL_DWB}
+        print(f"K5 vs plain at {shape}: max |y err| {errs['y']:.3g}, max |dx err| (with and "
+              f"without weight grads) "
+              f"{errs['dx']:.3g} (max |dx| {float(pdx.abs().max()):.3g}), dw and db err over "
+              f"their column abs sums {errs['dw']:.3g} / {errs['db']:.3g}; limits {limits}")
+        bad = [k for k in errs if not errs[k] <= limits[k]]
+        if bad or no_dw is not None:
+            raise AssertionError(f"K5 differs from plain at {shape}: {bad or 'dx-only pass'}")
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+    return worst
+
+
+def phase_actor_path(torch, device):
     from serl_tpu_torch.envs.panda_pick import STATE_OBS_DIM
     from serl_tpu_torch.training.launcher import make_state_sim_experiment
     from serl_tpu_torch.training.loop import evaluate
@@ -186,21 +386,21 @@ def phase_main_path(torch, engine, device):
     )
     carry = init_fn(agent, torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
-    engine.control_step.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     carry, metrics = run_chunk(carry, 20)
     torch.cuda.synchronize()
     actor_s = time.perf_counter() - t0
     ev = evaluate(env, agent, torch.Generator(device=device).manual_seed(2), num_episodes=128)
     torch.cuda.synchronize()
-    launches = engine.control_step.launches
+    launches = read_launches()
 
-    print(f"main path: 20 loop iterations (8 random, 12 policy) x {MAIN_ENVS} envs + "
-          f"evaluate(num_episodes=128): K1 launches {launches}; actor "
+    print(f"actor path: 20 loop iterations (8 random, 12 policy) x {MAIN_ENVS} envs + "
+          f"evaluate(num_episodes=128): launches {json.dumps(launches)}; actor "
           f"{20 * MAIN_ENVS / actor_s:.1f} env-steps/s (host clock, {actor_s:.3f} s); "
           f"eval {json.dumps(ev)}")
-    if launches != 120:
-        raise AssertionError(f"expected 120 K1 launches on the main path, got {launches}")
+    if launches != ACTOR_LAUNCHES:
+        raise AssertionError(f"expected launches {ACTOR_LAUNCHES} on the actor path, got {launches}")
     buf = carry.rb_state
     obs = buf.data["observations"][: buf.size]
     checks = {
@@ -216,8 +416,70 @@ def phase_main_path(torch, engine, device):
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"main path output checks failed: {bad}")
+        raise AssertionError(f"actor path output checks failed: {bad}")
     return launches, env, agent, carry, run_chunk
+
+
+def phase_learner_path(torch, device, card):
+    """bench_state's configuration end to end, timed as bench.py's
+    _bench_fused times it: best of 3 chunks of CHUNK iterations, each ending
+    in a device-to-host read of a metric."""
+    from serl_tpu_torch.training.launcher import make_state_sim_experiment
+    from serl_tpu_torch.training.loop import evaluate
+
+    env, agent, rb, config, init_fn, run_chunk = make_state_sim_experiment(device="cuda",
+                                                                           **BENCH_STATE)
+    carry = init_fn(agent, torch.Generator(device=device).manual_seed(6))
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = -(-threshold // config.num_envs)  # its last iteration runs the first update
+    carry, m = run_chunk(carry, warmup)
+    if int(m["buffer_size"][-1]) < threshold or float(m["critic_loss"][-1]) == 0.0:
+        raise AssertionError("the learner did not start at the training threshold")
+    before = [p.detach().clone() for p in agent.parameters()]
+    torch.cuda.synchronize()
+    reset_launches()
+    best, chunks = float("inf"), []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        carry, m = run_chunk(carry, CHUNK)
+        float(m["reward_mean"][-1])  # waits for the chunk, as bench.py's fetch
+        best = min(best, time.perf_counter() - t0)
+        chunks.append(m)
+    launches = read_launches()
+    iters = 3 * CHUNK
+    per_iter = learner_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    want = {k: v * iters for k, v in per_iter.items()}
+    env_steps_s = CHUNK * config.num_envs / best
+    updates_s = CHUNK * config.updates_per_iter * config.utd_ratio / best
+    print(f"learner path (bench_state: {json.dumps(BENCH_STATE)}, {warmup} warm-up iterations, "
+          f"then 3 chunks of {CHUNK}): best chunk {best:.4f} s (host clock ending in a sync): "
+          f"{env_steps_s:.1f} env-steps/s, {updates_s:.1f} critic updates/s; launches over the "
+          f"{iters} iterations {json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the learner path, got {launches}")
+    ev = evaluate(env, agent, torch.Generator(device=device).manual_seed(7), num_episodes=128)
+    metrics = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+    learner = {k: metrics[k] for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+    params = list(agent.parameters())
+    checks = {
+        "losses finite": all(bool(torch.isfinite(v).all()) for v in learner.values()),
+        "losses non-zero": all(bool((v != 0).all()) for v in learner.values()),
+        "temperature > 0": bool((learner["temperature"] > 0).all()),
+        "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+        "targets finite": all(bool(torch.isfinite(p).all())
+                              for p in agent.state.target_params["critic"]),
+        "params moved": all(not torch.equal(p, q) for p, q in zip(params, before)),
+        "eval finite": all(math.isfinite(v) and 0 <= v <= 100 for v in ev.values()),
+    }
+    print(f"learner path outputs: critic_loss {float(learner['critic_loss'][-1]):.5g}, "
+          f"actor_loss {float(learner['actor_loss'][-1]):.5g}, temperature "
+          f"{float(learner['temperature'][-1]):.5g}, entropy {float(learner['entropy'][-1]):.5g} "
+          f"(last iteration); optimizer steps {agent.state.step}; eval {json.dumps(ev)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"learner path output checks failed: {bad}")
+    return launches, dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best), \
+        env, agent, rb, config, carry, run_chunk
 
 
 def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk):
@@ -227,20 +489,18 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
         s = checks.rollout_states(n, g, device, steps=5)
         step = lambda: engine.control_step_cuda(s)
         ms = per_call_ms(step, calls=50)
-        prof_ms = profiled_kernel_ms(step, calls=50, kernel="control_step_kernel")
+        prof_ms = profiled_kernel_ms(step, calls=50, kernels="control_step_kernel")
         plain_ms = per_call_ms(lambda: engine.control_step_plain(s), calls=2, repeats=3)
         ops_per_env = checks.op_counts(s)
         ops = int(ops_per_env.sum())
         bytes_moved = 2 * sum(x.numel() * 4 for x in s) + engine.kernel_constants().nbytes
-        t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(bytes_moved, ops)
         rows[n] = dict(ms=ms, profiler_ms=prof_ms, plain_ms=plain_ms, ops=ops,
-                       bytes=bytes_moved, bound_ms=max(t_bytes, t_ops),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+                       bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by)
         prof_text = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms"
         print(f"K1 time, N={n}: kernel {ms:.4f} ms per launch (50 back to back, CUDA events; "
               f"torch.profiler kernel time {prof_text}), plain {plain_ms:.3f} ms per control "
-              f"step; bound {rows[n]['bound_ms']:.6f} ms by {rows[n]['bound_by']} ({ops} fp32 ops "
+              f"step; bound {bound_ms:.6f} ms by {bound_by} ({ops} fp32 ops "
               f"= {ops_per_env.min()}-{ops_per_env.max()} per env, counted in the kernel's code "
               f"by tests/k1_host.cpp; {bytes_moved} bytes); no single PyTorch call computes K1, "
               f"so library_ms is null [{card}]")
@@ -262,40 +522,201 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
     split = {k: per_call_ms(fn, calls=1, repeats=20) for k, fn in parts.items()}
     box = [carry]
 
-    def one_iter():
-        box[0], _ = run_chunk(box[0], 1)
+    def run(iters):
+        box[0], _ = run_chunk(box[0], iters)
 
-    split["whole loop iteration"] = per_call_ms(one_iter, calls=1, repeats=10)
+    split["whole loop iteration"] = per_call_ms(lambda: run(1), calls=1, repeats=10)
     print(f"actor step at N={MAIN_ENVS}, ms per call (median of 20 single calls between CUDA "
           "events, host launch time included): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}) + f" [{card}]")
-
-    # device busy share of the loop: kernel time from a torch.profiler trace
-    # over the same number of iterations that a host clock times unprofiled
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    iters = 10
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    box[0], _ = run_chunk(box[0], iters)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        box[0], _ = run_chunk(box[0], iters)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in kernels if "control_step_kernel" in e.key) / 1e3
-    if busy_ms > 0:
-        print(f"actor loop, {iters} iterations at N={MAIN_ENVS}: wall {wall_ms:.2f} ms "
-              f"(host clock, unprofiled), device busy {busy_ms:.3f} ms (torch.profiler), "
-              f"busy share {busy_ms / wall_ms:.4f}, idle share {1 - busy_ms / wall_ms:.4f}; "
-              f"K1 {k1_ms:.3f} ms = {k1_ms / busy_ms:.4f} of device time [{card}]")
-    else:
-        print("actor loop device busy share: not measured (the profiler recorded no "
-              "device time)")
+    print_busy_share(torch, "actor loop", run, card)
     return rows
+
+
+def print_busy_share(torch, what: str, run, card: str, iters: int = 10) -> None:
+    wall_ms, busy_ms, by_name = busy_share(torch, run, iters)
+    if busy_ms <= 0:
+        print(f"{what} device busy share: not measured (the profiler recorded no device time)")
+        return
+    ours = {name: sum(ms for k, ms in by_name.items() if kernel in k)
+            for name, kernel in (("K1", "control_step_kernel"), ("K4", "replay_gather_kernel"),
+                                 ("K5", "layer_norm_tanh_"))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{what}, {iters} iterations: wall {wall_ms:.2f} ms (host clock, unprofiled), device "
+          f"busy {busy_ms:.3f} ms (torch.profiler), busy share {busy_ms / wall_ms:.4f}, idle "
+          f"share {1 - busy_ms / wall_ms:.4f}; device ms of our kernels "
+          f"{json.dumps({k: round(v, 4) for k, v in ours.items()})}; largest kernels "
+          f"{json.dumps([(k[:60], round(v, 4)) for k, v in top])} [{card}]")
+
+
+def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk):
+    """K4 and K5 at the main path's shapes, and where a learner iteration's
+    time goes."""
+    import torch.nn.functional as F
+
+    from serl_tpu_torch.data import replay_buffer as rbm
+    from serl_tpu_torch.networks import layer_norm_tanh as k5
+
+    g = torch.Generator(device=device).manual_seed(8)
+    rows = {}
+    # K4 on the learner's own ring (782 x 128, next_observations stored)
+    buf = carry.rb_state
+    batch = config.batch_size * config.utd_ratio
+    s2 = (buf.insert_slot - buf.size
+          + torch.randint(0, buf.size, (batch // config.num_envs, config.num_envs),
+                          generator=g, device=device)) % buf.ep_id.shape[0]
+    gather = lambda: rbm.gather_batch_aligned_cuda(buf.data, buf.ep_id, s2, True)
+    width = sum(v[0, 0].numel() for v in buf.data.values())
+    bytes_moved = 2 * batch * width * 4 + s2.numel() * 8
+    bound_ms, bound_by = bound(bytes_moved, 0)
+    rows["replay_gather"] = dict(
+        ms=per_call_ms(gather, calls=50),
+        profiler_ms=profiled_kernel_ms(gather, 50, "replay_gather_kernel"),
+        plain_ms=per_call_ms(lambda: rbm.gather_batch_aligned_plain(buf.data, buf.ep_id, s2, True),
+                             calls=10),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, library_ms=None)
+
+    # K5 forward and backward at each main-path shape
+    for shape in K5_SHAPES:
+        d = shape[-1]
+        m = math.prod(shape[:-1])
+        x = (torch.randn(shape, generator=g, device=device) * 1.5
+             + torch.randn(shape[:-1] + (1,), generator=g, device=device)).reshape(-1, d)
+        w = 1.0 + 0.3 * torch.randn(d, generator=g, device=device)
+        b = 0.2 * torch.randn(d, generator=g, device=device)
+        dy = torch.randn(x.shape, generator=g, device=device)
+        y, mean, rstd = k5.layer_norm_tanh_forward(x, w, b)
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y_lib = torch.tanh(F.layer_norm(xr, (d,), wr, br, k5.LAYER_NORM_EPS))
+        wg = K5_WEIGHT_GRADS[shape]
+        fwd_bytes = 2 * m * d * 4 + 2 * d * 4 + 2 * m * 4  # x in, y out, w b in, mean rstd out
+        # dy x y in, dx out, mean rstd w in, dw db out
+        bwd_bytes = 4 * m * d * 4 + 2 * m * 4 + d * 4 + (2 * d * 4 if wg else 0)
+        lib_inputs = (xr, wr, br) if wg else (xr,)
+        for direction, fn, plain, library, nbytes, kernels in (
+            ("fwd", lambda: k5.layer_norm_tanh_forward(x, w, b),
+             lambda: k5.layer_norm_tanh_forward_plain(x, w, b),
+             lambda: torch.tanh(F.layer_norm(x, (d,), w, b, k5.LAYER_NORM_EPS)),
+             fwd_bytes, ("layer_norm_tanh_fwd_kernel",)),
+            ("bwd", lambda: k5.layer_norm_tanh_backward(dy, x, w, mean, rstd, y, wg),
+             lambda: k5.layer_norm_tanh_backward_plain(dy, x, w, mean, rstd, y, wg),
+             lambda: torch.autograd.grad(y_lib, lib_inputs, dy, retain_graph=True),
+             bwd_bytes, ("layer_norm_tanh_bwd_kernel", "layer_norm_tanh_colsum_kernel")),
+        ):
+            bound_ms, bound_by = bound(nbytes, K5_OPS_PER_ELEMENT[direction] * m * d)
+            rows[(direction, shape)] = dict(
+                ms=per_call_ms(fn, calls=50), profiler_ms=profiled_kernel_ms(fn, 50, kernels),
+                plain_ms=per_call_ms(plain, calls=20), library_ms=per_call_ms(library, calls=50),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    for key, row in rows.items():
+        name = key if isinstance(key, str) else f"layer_norm_tanh_{key[0]} at {key[1]}" + (
+            "" if key[0] == "fwd" or K5_WEIGHT_GRADS[key[1]] else " (no dw, db: as on the main path)")
+        prof = "not measured" if row["profiler_ms"] is None else f"{row['profiler_ms']:.4f} ms"
+        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"{name} time: kernel {row['ms']:.4f} ms per call (50 back to back, CUDA events; "
+              f"torch.profiler kernel time {prof}), plain {row['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} "
+              f"bytes) [{card}]")
+
+    # where a learner iteration's time goes: single calls between CUDA events
+    full = rb.sample(buf, batch, generator=g)
+    mini = {k: v[: config.batch_size] for k, v in full.items()}
+    parts = {
+        "sample (K4)": lambda: rb.sample(buf, batch, generator=g),
+        "critic update (1 of utd_ratio)": lambda: agent.update(
+            mini, networks_to_update=frozenset({"critic"}), generator=g),
+        "actor+temperature update": lambda: agent.update(
+            full, networks_to_update=frozenset({"actor", "temperature"}), generator=g),
+        "update_high_utd": lambda: agent.update_high_utd(full, utd_ratio=config.utd_ratio,
+                                                         generator=g),
+    }
+    split = {k: per_call_ms(fn, calls=1, repeats=10) for k, fn in parts.items()}
+    box = [carry]
+
+    def run(iters):
+        box[0], _ = run_chunk(box[0], iters)
+
+    split["whole loop iteration"] = per_call_ms(lambda: run(1), calls=1, repeats=10)
+    print("learner iteration, ms per call (median of 10 single calls between CUDA events, host "
+          "launch time included): " + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f" [{card}]")
+    # the learner's step never waits for the device: a synchronizing call
+    # raises in this mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        agent.update_high_utd(rb.sample(buf, batch, generator=g), utd_ratio=config.utd_ratio,
+                              generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("sample + update_high_utd ran under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync in the learner step")
+    print_busy_share(torch, "learner loop", run, card)
+    return rows
+
+
+def kernel_table(rows, lrows, errs, actor_launches, learner_launches, per_iter):
+    """The kernel table's entries: `launches` is each kernel's count over the
+    learner path's timed iterations; the actor path's count stands beside."""
+
+    def launches(name):
+        return {"launches": learner_launches[name],
+                "launches_by_path": {"actor": actor_launches[name],
+                                     "learner": learner_launches[name]},
+                "launches_per_learner_iteration": per_iter[name]}
+
+    main = rows[MAIN_ENVS]
+    kernels = [{
+        "name": "control_step",
+        "route": "cuda",
+        "source": "serl_tpu_torch/csrc/control_step.cu",
+        "replaces": "serl_tpu/envs/physics/engine.py:348",
+        **launches("control_step"),
+        "max_abs_err": errs["K1"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "profiler_ms": main["profiler_ms"],
+        "ms_by_envs": {str(n): rows[n]["ms"] for n in BOUND_N},
+        "profiler_ms_by_envs": {str(n): rows[n]["profiler_ms"] for n in BOUND_N},
+        "plain_ms_by_envs": {str(n): rows[n]["plain_ms"] for n in BOUND_N},
+        "bound_ms_by_envs": {str(n): rows[n]["bound_ms"] for n in BOUND_N},
+    }]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "profiler_ms")
+    kernels.append({
+        "name": "replay_gather",
+        "route": "cuda",
+        "source": "serl_tpu_torch/csrc/replay_gather.cu",
+        "replaces": "serl_tpu/data/replay_buffer.py:317",
+        **launches("replay_gather"),
+        "max_abs_err": errs["K4"],
+        **{k: lrows["replay_gather"][k] for k in timed},
+    })
+    for direction, err in (("fwd", errs["K5"]["y"]), ("bwd", errs["K5"]["dx"])):
+        kernels.append({
+            "name": f"layer_norm_tanh_{direction}",
+            "route": "triton",
+            "source": "serl_tpu_torch/networks/layer_norm_tanh.py",
+            "replaces": "serl_tpu/networks/mlp.py:95",
+            **launches(f"layer_norm_tanh_{direction}"),
+            "max_abs_err": err,
+            **{k: lrows[(direction, K5_MAIN)][k] for k in timed},
+            "shape": list(K5_MAIN),
+            "by_shape": {str(shape): {k: lrows[(direction, shape)][k]
+                                      for k in ("ms", "profiler_ms", "plain_ms", "library_ms",
+                                                "bound_ms")}
+                         for shape in K5_SHAPES},
+        })
+    # the backward row's times cover both of its kernels; its column-sum
+    # launches (calls with weight grads) are counted apart
+    kernels[-1]["rel_err_dw_db"] = [errs["K5"]["dw"], errs["K5"]["db"]]
+    kernels[-1]["colsum_launches"] = learner_launches["layer_norm_tanh_colsum"]
+    kernels[-1]["colsum_launches_by_path"] = {"actor": actor_launches["layer_norm_tanh_colsum"],
+                                              "learner": learner_launches["layer_norm_tanh_colsum"]}
+    kernels[-1]["colsum_launches_per_learner_iteration"] = per_iter["layer_norm_tanh_colsum"]
+    return kernels
 
 
 def main() -> int:
@@ -314,50 +735,71 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    # phase 1: device and builds
+    # phase 1: device and builds (nvcc for K1 and K4 in a thread, one
+    # process each, while Triton compiles K5 here)
     card = card_line()
     print(f"card: {card}")
+    from serl_tpu_torch.data import replay_buffer as rbm
     from serl_tpu_torch.envs.physics import engine
     from serl_tpu_torch.native import build
+    from serl_tpu_torch.networks import layer_norm_tanh as k5
 
     checks = load_checks()
     t0 = time.perf_counter()
+    built = {}
+
+    def nvcc():
+        try:
+            build.build_all(["control_step", "replay_gather"])
+            built["s"] = time.perf_counter() - t0
+        except Exception as exc:  # re-raised below, after the join
+            built["error"] = exc
+
+    thread = threading.Thread(target=nvcc)
+    thread.start()
+    x = torch.randn(64, 256, device=device)
+    w, b = torch.ones(256, device=device), torch.zeros(256, device=device)
+    y, mean, rstd = k5.layer_norm_tanh_forward(x, w, b)
+    for need in (True, False):
+        k5.layer_norm_tanh_backward(x, x, w, mean, rstd, y, need_weight_grads=need)
+    torch.cuda.synchronize()
+    triton_s = time.perf_counter() - t0
+    thread.join()
+    if "error" in built:
+        raise built["error"]
     engine._kernel_library()
+    rbm._gather_library()
     t1 = time.perf_counter()
     checks.op_counts(checks.reset_states(1, torch.Generator().manual_seed(0), "cpu"))
     t2 = time.perf_counter()
-    with open(os.path.join(build.BUILD_DIR, "control_step.ptxas.txt")) as f:
-        ptxas = " | ".join(line.strip() for line in f if "registers" in line or "spill" in line)
-    print(f"K1 built with nvcc and loaded in {t1 - t0:.2f} s; ptxas: {ptxas}; its op-counting "
-          f"host build (g++) in {t2 - t1:.2f} s")
+    ptxas = {}
+    for name in ("control_step", "replay_gather"):
+        with open(os.path.join(build.BUILD_DIR, f"{name}.ptxas.txt")) as f:
+            ptxas[name] = " | ".join(line.strip() for line in f
+                                     if "registers" in line or "spill" in line)
+    print(f"K1 and K4 built with nvcc (in parallel) in {built['s']:.2f} s, K5's Triton kernels "
+          f"compiled and run in {triton_s:.2f} s, all loaded after {t1 - t0:.2f} s; ptxas "
+          f"{json.dumps(ptxas)}; K1's op-counting host build (g++) in {t2 - t1:.2f} s")
 
-    # phase 2: K1 against its plain version
-    max_abs_err = phase_kernel_vs_plain(torch, engine, checks, device)
+    # phase 2: every kernel against its plain version
+    k1_err = phase_kernel_vs_plain(torch, engine, checks, device)
+    k4_err = phase_k4_vs_plain(torch, device)
+    k5_err = phase_k5_vs_plain(torch, device)
 
-    # phase 3: the main path, through K1
-    launches, env, agent, carry, run_chunk = phase_main_path(torch, engine, device)
+    # phase 3: the actor path, then the learner path
+    actor_launches, env, agent, carry, run_chunk = phase_actor_path(torch, device)
+    learner_launches, rates, l_env, l_agent, l_rb, l_config, l_carry, l_run = \
+        phase_learner_path(torch, device, card)
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
+    lrows = phase_learner_times(torch, device, card, l_agent, l_rb, l_config, l_carry, l_run)
 
-    main = rows[MAIN_ENVS]
-    kernels = [{
-        "name": "control_step",
-        "route": "cuda",
-        "source": "serl_tpu_torch/csrc/control_step.cu",
-        "replaces": "serl_tpu/envs/physics/engine.py:348",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-        "ms_by_envs": {str(n): rows[n]["ms"] for n in BOUND_N},
-        "profiler_ms_by_envs": {str(n): rows[n]["profiler_ms"] for n in BOUND_N},
-        "plain_ms_by_envs": {str(n): rows[n]["plain_ms"] for n in BOUND_N},
-        "bound_ms_by_envs": {str(n): rows[n]["bound_ms"] for n in BOUND_N},
-    }]
+    kernels = kernel_table(rows, lrows, {"K1": k1_err, "K4": k4_err, "K5": k5_err},
+                           actor_launches, learner_launches,
+                           learner_launches_per_iter(l_config.utd_ratio, l_config.updates_per_iter))
+    print(f"learner rates: {rates['env_steps_s']:.1f} env-steps/s, {rates['updates_s']:.1f} "
+          f"critic updates/s [{card}]")
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
            or m == "serl_tpu"]
     if bad:

@@ -1,0 +1,71 @@
+"""Multi-group train state for RL agents.
+
+Port of `serl_tpu/common/train_state.py`. Parameters are partitioned into
+named groups ("actor", "critic", "temperature"), each a list of the agent's
+own parameter tensors with its own optimizer; "critic" also has a polyak
+target copy. Unlike the JAX package's pure pytree, the state updates the
+tensors in place.
+
+`apply_loss_fns` evaluates every group's loss at the same pre-step params,
+differentiates each with `torch.autograd.grad` w.r.t. its own group only
+(never `.backward()`, which would also fill the grads of every other group
+that a loss passes through), and only then steps all groups.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from serl_tpu_torch.common.optimizers import OptState, Optimizer
+
+# A loss function takes no arguments (it closes over its batch and draws) and
+# returns (scalar loss, info dict). None stands for the JAX package's
+# zero loss: the group's optimizer steps with zero gradients.
+LossFn = Optional[Callable[[], Tuple[torch.Tensor, Dict]]]
+
+
+class TrainState:
+    """step: optimizer applications so far. params: group -> list of the
+    agent's parameter tensors. target_params: group -> detached copies.
+    opt_states: group -> OptState. txs: group -> Optimizer."""
+
+    def __init__(self, params: Dict[str, List[torch.Tensor]], txs: Dict[str, Optimizer],
+                 target_groups: Sequence[str] = ()):
+        if not set(txs) <= set(params):
+            raise ValueError(f"optimizers {sorted(txs)} for groups {sorted(params)}")
+        self.step = 0
+        self.params = {g: list(p) for g, p in params.items()}
+        self.txs = dict(txs)
+        self.opt_states: Dict[str, OptState] = {g: tx.init(self.params[g]) for g, tx in txs.items()}
+        self.target_params = {g: [p.detach().clone() for p in self.params[g]] for g in target_groups}
+
+    @torch.no_grad()
+    def target_update(self, tau: float) -> None:
+        """target = tau * params + (1 - tau) * target, in place."""
+        for g, targets in self.target_params.items():
+            torch._foreach_mul_(targets, 1.0 - tau)
+            torch._foreach_add_(targets, self.params[g], alpha=tau)
+
+    def apply_gradients(self, grads: Dict[str, Optional[List[torch.Tensor]]]) -> None:
+        """Step each named group with its own optimizer (None: zero grads)."""
+        for g, grad in grads.items():
+            self.opt_states[g] = self.txs[g].step(self.params[g], grad, self.opt_states[g])
+        self.step += 1
+
+    def apply_loss_fns(self, loss_fns: Dict[str, LossFn]) -> Dict[str, Dict]:
+        """Differentiate each loss w.r.t. its own group at the current params,
+        then step every group; returns the infos by group name."""
+        grads: Dict[str, Optional[List[torch.Tensor]]] = {}
+        infos: Dict[str, Dict] = {}
+        for g in sorted(loss_fns):
+            if loss_fns[g] is None:
+                grads[g], infos[g] = None, {}
+                continue
+            loss, info = loss_fns[g]()
+            grads[g] = list(torch.autograd.grad(loss, self.params[g], allow_unused=True,
+                                                materialize_grads=True))
+            infos[g] = info
+        self.apply_gradients(grads)
+        return infos

@@ -1,20 +1,37 @@
-"""Device-resident circular replay buffer: layout, init and insert.
+"""Device-resident circular replay buffer: layout, insert and sampling.
 
-Port of the insert side of `serl_tpu/data/replay_buffer.py`. The layout is
-the same: every array is (slots, streams, ...), where `streams` is the number
-of lockstep envs and `slots` the per-stream ring length; an insert writes
-one full slot at the ring cursor, and `ep_id` records each row's episode so
-successors and frame stacks can stop at episode boundaries. Unlike the JAX
-package's pure functions, `insert` writes the state's tensors in place and
-returns the same state. The cursor and size are host integers, so an insert
-never waits for the device. Sampling belongs to the learner and is not
-ported yet.
+Port of `serl_tpu/data/replay_buffer.py` for flat observations. The layout
+is the same: every array is (slots, streams, ...), where `streams` is the
+number of lockstep envs and `slots` the per-stream ring length; an insert
+writes one full slot at the ring cursor, and `ep_id` records each row's
+episode so successors stop at episode boundaries. Unlike the JAX package's
+pure functions, `insert` writes the state's tensors in place and returns the
+same state. The cursor and size are host integers, so neither an insert nor
+a sample waits for the device.
+
+`sample` is the JAX package's: stream-aligned when the batch divides over
+the streams (exactly batch/streams uniform rows per stream, gathered by K4,
+`gather_batch_aligned`), uniform over (slot, stream) pairs otherwise (plain
+torch). Without stored next_observations the newest slot is not sampled and
+a row's successor falls back to the row itself across an episode boundary.
+
+K4 sits beside its plain version: `gather_batch_aligned_plain` (CPU tensors;
+on the card only tests and chip_smoke.py call it) and the CUDA kernel in
+`serl_tpu_torch/csrc/replay_gather.cu`, which `gather_batch_aligned`
+launches for CUDA tensors, counting its launches in
+`gather_batch_aligned.launches`.
+
+Not ported yet: image keys and frame stacks (the pixel slice; `sample`
+raises for them), and `sample_mixed`, `init_from_episodes` and
+`load_transitions` (the demo path).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -112,3 +129,134 @@ class ReplayBuffer:
         state.insert_slot = (slot + 1) % slots
         state.size = min(state.size + 1, slots)
         return state
+
+    # ------------------------------------------------------------------ #
+
+    def sample(self, state: ReplayBufferState, batch_size: int, *,
+               generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
+               e: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """A uniform batch of `batch_size` transitions. The slot offsets `u`
+        ((R, streams) when aligned, (batch,) otherwise) and the unaligned
+        stream indices `e` are drawn from `generator` unless given."""
+        if self.image_keys or isinstance(state.data["observations"], dict):
+            raise NotImplementedError("dict observations and frame stacks are not ported yet")
+        slots, streams = state.ep_id.shape
+        n_valid = max(state.size if self.store_next_obs else state.size - 1, 1)
+        device = state.ep_id.device
+        if batch_size % streams == 0:
+            if u is None:
+                u = torch.randint(0, n_valid, (batch_size // streams, streams),
+                                  generator=generator, device=device)
+            s2 = (state.insert_slot - state.size + u) % slots
+            return gather_batch_aligned(state.data, state.ep_id, s2, self.store_next_obs)
+        if u is None:
+            u = torch.randint(0, n_valid, (batch_size,), generator=generator, device=device)
+        if e is None:
+            e = torch.randint(0, streams, (batch_size,), generator=generator, device=device)
+        # the valid window is the `size` newest slots ending at insert_slot - 1
+        s = (state.insert_slot - state.size + u) % slots
+        out = {k: v[s, e] for k, v in state.data.items()}
+        if not self.store_next_obs:
+            nxt = (s + 1) % slots
+            same_ep = state.ep_id[nxt, e] == state.ep_id[s, e]
+            out["next_observations"] = state.data["observations"][torch.where(same_ep, nxt, s), e]
+        return out
+
+
+# ---------------------------------------------------------------- K4
+
+
+def gather_batch_aligned_plain(data: Dict[str, torch.Tensor], ep_id: torch.Tensor,
+                               s2: torch.Tensor, store_next_obs: bool) -> Dict[str, torch.Tensor]:
+    """Rows (s2[r, j], j) of every (slots, streams, ...) field, stream-major:
+    out[j * R + r]. Without stored next_observations, next_observations is
+    observations at the successor slot, or at s2 across an episode boundary."""
+    slots, streams = ep_id.shape
+    rows = s2.shape[0] * streams
+    cols = torch.arange(streams, device=s2.device)
+
+    def gather(buf, idx):
+        return buf[idx, cols].transpose(0, 1).reshape((rows,) + tuple(buf.shape[2:]))
+
+    out = {k: gather(v, s2) for k, v in data.items()}
+    if not store_next_obs:
+        nxt = (s2 + 1) % slots
+        same_ep = ep_id[nxt, cols] == ep_id[s2, cols]
+        out["next_observations"] = gather(data["observations"], torch.where(same_ep, nxt, s2))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_library():
+    """Build (once per source hash) and bind the replay-gather kernel."""
+    from serl_tpu_torch.native.build import load_library
+
+    lib = load_library("replay_gather")
+    lib.serl_replay_gather.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.serl_replay_gather.restype = ctypes.c_int
+    lib.serl_replay_gather_max_fields.argtypes = []
+    lib.serl_replay_gather_max_fields.restype = ctypes.c_int
+    lib.serl_replay_gather_error_string.argtypes = [ctypes.c_int]
+    lib.serl_replay_gather_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gather_batch_aligned_cuda(data: Dict[str, torch.Tensor], ep_id: torch.Tensor,
+                              s2: torch.Tensor, store_next_obs: bool) -> Dict[str, torch.Tensor]:
+    """`gather_batch_aligned_plain` by the CUDA kernel, in one launch."""
+    slots, streams = ep_id.shape
+    device = ep_id.device
+    if device.type != "cuda":
+        raise ValueError(f"gather_batch_aligned_cuda needs CUDA tensors, got {device}")
+    if ep_id.dtype != torch.int32 or not ep_id.is_contiguous():
+        raise ValueError(f"ep_id: want contiguous int32, got {ep_id.dtype}")
+    if (s2.dtype != torch.int64 or s2.device != device or s2.dim() != 2
+            or s2.shape[1] != streams or not s2.is_contiguous()):
+        raise ValueError(f"s2: want contiguous int64 (R, {streams}) on {device}, got "
+                         f"{s2.dtype} {tuple(s2.shape)} on {s2.device}")
+    rows_per_stream = s2.shape[0]
+    jobs = []  # (key, source, successor?)
+    for k, buf in data.items():
+        if buf.dtype != torch.float32 or buf.device != device or not buf.is_contiguous():
+            raise ValueError(f"data[{k!r}]: want contiguous float32 on {device}, got "
+                             f"{buf.dtype} on {buf.device}")
+        if tuple(buf.shape[:2]) != (slots, streams) or buf.dim() > 3:
+            raise ValueError(f"data[{k!r}]: want ({slots}, {streams}[, width]), got "
+                             f"{tuple(buf.shape)}")
+        jobs.append((k, buf, 0))
+    if not store_next_obs:
+        jobs.append(("next_observations", data["observations"], 1))
+    lib = _gather_library()
+    if len(jobs) > lib.serl_replay_gather_max_fields():
+        raise ValueError(f"{len(jobs)} fields, the kernel takes at most "
+                         f"{lib.serl_replay_gather_max_fields()}")
+    rows = rows_per_stream * streams
+    out = {k: torch.empty((rows,) + tuple(buf.shape[2:]), dtype=torch.float32, device=device)
+           for k, buf, _ in jobs}
+    n = len(jobs)
+    src = (ctypes.c_void_p * n)(*(buf.data_ptr() for _, buf, _ in jobs))
+    dst = (ctypes.c_void_p * n)(*(out[k].data_ptr() for k, _, _ in jobs))
+    width = (ctypes.c_int * n)(*(buf[0, 0].numel() for _, buf, _ in jobs))
+    successor = (ctypes.c_int * n)(*(flag for _, _, flag in jobs))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.serl_replay_gather(src, dst, width, successor, n, s2.data_ptr(),
+                                    ep_id.data_ptr(), slots, streams, rows_per_stream, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"replay gather kernel launch failed: {lib.serl_replay_gather_error_string(rc).decode()}")
+    gather_batch_aligned.launches += 1
+    return out
+
+
+def gather_batch_aligned(data: Dict[str, torch.Tensor], ep_id: torch.Tensor, s2: torch.Tensor,
+                         store_next_obs: bool) -> Dict[str, torch.Tensor]:
+    """K4: the stream-aligned batch gather. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, or raise."""
+    if ep_id.device.type == "cpu":
+        return gather_batch_aligned_plain(data, ep_id, s2, store_next_obs)
+    return gather_batch_aligned_cuda(data, ep_id, s2, store_next_obs)
+
+
+gather_batch_aligned.launches = 0

@@ -42,25 +42,43 @@ def _source_hash(source: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _output(name: str):
+    source = os.path.join(CSRC, f"{name}.cu")
+    return source, os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(source)}.so")
+
+
+def build_all(names) -> dict:
+    """Compile every csrc/<name>.cu that has no build of the same sources
+    yet, one nvcc per source, all started together; returns {name: shared
+    library path}. Waits for every nvcc before it raises for any."""
+    started = {}
+    for name in names:
+        source, out = _output(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        started[name] = (subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True), source, tmp, out)
+    failed = []
+    for name, (proc, source, tmp, out) in started.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source}:\n{stdout}\n{stderr}")
+            continue
+        with open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w") as f:
+            f.write(stdout + stderr)  # -Xptxas -v: registers, spills per kernel
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _output(name)[1] for name in names}
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless a build of the same sources exists;
     returns the shared library's path."""
-    source = os.path.join(CSRC, f"{name}.cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(source)}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}\n{proc.stderr}")
-    with open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w") as f:
-        f.write(proc.stdout + proc.stderr)  # -Xptxas -v: registers, spills per kernel
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[name]
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,6 +1,7 @@
 """Policy and critic networks.
 
-Port of `serl_tpu/networks/actor_critic.py` (PolicyNet, CriticNet). As in
+Port of `serl_tpu/networks/actor_critic.py` (PolicyNet, CriticNet,
+subsample_ensemble). As in
 the JAX package, the critic ensemble is an `EnsembleMLP` with a leading
 ensemble axis on the kernels, and encoders live outside these modules.
 """
@@ -103,3 +104,17 @@ class CriticNet(nn.Module):
     def forward(self, features: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
         x = self.trunk(torch.cat([features, actions], -1))
         return self.head(x, member_inputs=True).squeeze(-1)
+
+
+def subsample_ensemble(qs: torch.Tensor, subsample_size: Optional[int], ensemble_size: int,
+                       *, idx: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """REDQ ensemble subsampling: `subsample_size` member indices drawn with
+    replacement (`idx` when given, else from `generator`); all of `qs` when
+    `subsample_size` is None."""
+    if subsample_size is None:
+        return qs
+    if idx is None:
+        idx = torch.randint(0, ensemble_size, (subsample_size,), generator=generator,
+                            device=qs.device)
+    return qs[idx.to(qs.device)]

@@ -32,3 +32,8 @@ def lagrange_value(params, parameterization: str = "softplus") -> torch.Tensor:
     if parameterization == "softplus":
         return F.softplus(raw)
     return torch.exp(raw)
+
+
+def lagrange_penalty(params, lhs: torch.Tensor, rhs) -> torch.Tensor:
+    """multiplier * (lhs - rhs): the penalty of the constraint lhs >= rhs."""
+    return lagrange_value(params) * (lhs - rhs)

@@ -6,6 +6,10 @@ package's (E, in, out) kernel layout and contracts it with one batched
 matmul. Two flax conventions are kept on purpose:
   * LayerNorm epsilon is flax's 1e-6, not torch's 1e-5;
   * `EnsembleMLP` has ONE LayerNorm per layer, shared by all members.
+A LayerNorm followed by tanh goes through K5, `layer_norm_tanh` (one
+autograd op; a Triton kernel on the card). The `nn.LayerNorm` modules hold
+its weight and bias. Any other activation after a LayerNorm runs as plain
+torch ops: it is another function, not a fallback.
 Weights are initialized like flax's defaults (xavier-uniform kernels, zero
 biases) from an explicit `torch.Generator`.
 """
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
+from serl_tpu_torch.networks.layer_norm_tanh import LAYER_NORM_EPS, layer_norm_tanh
 
 _ACTIVATIONS = {"tanh": torch.tanh, "swish": F.silu}  # flax's names
 
@@ -39,6 +43,21 @@ def dense(in_features: int, out_features: int, generator=None) -> nn.Linear:
         xavier_uniform_(layer.weight, in_features, out_features, generator)
         layer.bias.zero_()
     return layer
+
+
+def _norm_act(x: torch.Tensor, norm: Optional[nn.LayerNorm], act: Callable) -> torch.Tensor:
+    """Optional LayerNorm, then the activation (Dense -> LayerNorm -> act)."""
+    if norm is None:
+        return act(x)
+    if act is torch.tanh:
+        return layer_norm_tanh(x, norm.weight, norm.bias)
+    return act(norm(x))
+
+
+def _layer_norms(hidden_dims: Sequence[int], n_act: int, use_layer_norm: bool):
+    if not use_layer_norm:
+        return None
+    return nn.ModuleList(nn.LayerNorm(d, eps=LAYER_NORM_EPS) for d in hidden_dims[:n_act])
 
 
 class MLP(nn.Module):
@@ -63,18 +82,14 @@ class MLP(nn.Module):
             dense(i, o, generator) for i, o in zip(sizes[:-1], sizes[1:])
         )
         n_act = len(hidden_dims) if activate_final else len(hidden_dims) - 1
-        self.norms = nn.ModuleList(
-            nn.LayerNorm(d, eps=LAYER_NORM_EPS) for d in hidden_dims[:n_act]
-        ) if use_layer_norm else None
+        self.norms = _layer_norms(hidden_dims, n_act, use_layer_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.dense)
         for i, layer in enumerate(self.dense):
             x = layer(x)
             if i + 1 < n or self.activate_final:
-                if self.norms is not None:
-                    x = self.norms[i](x)
-                x = self.act(x)
+                x = _norm_act(x, None if self.norms is None else self.norms[i], self.act)
         return x
 
 
@@ -125,16 +140,12 @@ class EnsembleMLP(nn.Module):
             for i, o in zip(sizes[:-1], sizes[1:])
         )
         n_act = len(hidden_dims) if activate_final else len(hidden_dims) - 1
-        self.norms = nn.ModuleList(
-            nn.LayerNorm(d, eps=LAYER_NORM_EPS) for d in hidden_dims[:n_act]
-        ) if use_layer_norm else None
+        self.norms = _layer_norms(hidden_dims, n_act, use_layer_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.dense)
         for i, layer in enumerate(self.dense):
             x = layer(x, member_inputs=i > 0)
             if i + 1 < n or self.activate_final:
-                if self.norms is not None:
-                    x = self.norms[i](x)
-                x = self.act(x)
+                x = _norm_act(x, None if self.norms is None else self.norms[i], self.act)
         return x

@@ -1,16 +1,18 @@
-"""Actor/learner training loop over N lockstep envs: the actor side.
+"""Actor/learner training loop over N lockstep envs.
 
 Port of `serl_tpu/training/loop.py::make_fused_loop` and `evaluate` for
 state observations. Per iteration every env takes one step (uniform random
 actions while `env_steps < random_steps`, policy samples after), the
 transitions go into the (slots, streams) replay ring, and the episode
-statistics are kept on the device. The JAX package runs a chunk of
+statistics are kept on the device. Once the buffer holds
+max(training_starts, batch_size * utd_ratio) rows, counted after the
+insert on host integers, the learner runs `updates_per_iter` x (sample ->
+`update_high_utd`) every iteration. The JAX package runs a chunk of
 iterations as one jitted `lax.scan`; here it is a Python loop over eager
-PyTorch and the control-step kernel.
+PyTorch and the kernels, with no host sync inside an iteration.
 
-Not ported yet, and raising rather than passing silently: the learner
-branch (the iteration at which the buffer reaches the training threshold),
-pixel buffers, demo buffers and interventions.
+Not ported yet, and raising rather than passing silently: pixel buffers,
+demo buffers and interventions.
 """
 
 from __future__ import annotations
@@ -25,12 +27,13 @@ from serl_tpu_torch.envs.panda_pick import ACTION_DIM, PandaPickCubeEnv, flatten
 
 
 class LoopConfig(NamedTuple):
-    """The JAX package's LoopConfig, cut to the fields this slice reads:
-    the learner, demo and intervention settings come with their code."""
+    """The JAX package's LoopConfig, cut to the fields the port reads: the
+    demo and intervention settings come with their code."""
 
     num_envs: int = 128
     batch_size: int = 256
     utd_ratio: int = 8  # critic updates per actor update (critic_actor_ratio)
+    updates_per_iter: int = 1  # update_high_utd calls per env sweep
     training_starts: int = 1000  # transitions before learning
     random_steps: int = 1000  # uniform-random action warmup
     buffer_capacity: int = 200_000
@@ -97,12 +100,6 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         )
 
     def iter_body(carry: LoopCarry):
-        slots = carry.rb_state.ep_id.shape[0]
-        if min(carry.rb_state.size + 1, slots) * num_envs >= train_threshold:
-            raise NotImplementedError(
-                "learner: slice 2 (the buffer reached the training threshold, and "
-                "SAC updates are not ported yet)"
-            )
         g = carry.rng
 
         # ---- actor: one step for every env ----
@@ -138,15 +135,28 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         ep_return = torch.where(done_mask, 0.0, ep_return)
         env_steps = carry.env_steps + num_envs
 
-        zero = torch.zeros((), device=device)  # no learner update ran
+        # ---- learner ----
+        if rb_state.size * num_envs >= train_threshold:
+            infos = []
+            for _ in range(config.updates_per_iter):
+                batch = rb.sample(rb_state, config.batch_size * config.utd_ratio, generator=g)
+                _, update_info = carry.agent.update_high_utd(batch, utd_ratio=config.utd_ratio,
+                                                             generator=g)
+                infos.append(update_info)
+            learner = {
+                "critic_loss": torch.stack([i["critic"]["critic_loss"] for i in infos]).mean(),
+                **{k: torch.stack([i["actor"][k] for i in infos]).mean()
+                   for k in ("actor_loss", "temperature", "entropy")},
+            }
+        else:
+            zero = torch.zeros((), device=device)  # no learner update ran
+            learner = dict.fromkeys(("critic_loss", "actor_loss", "temperature", "entropy"), zero)
+
         metrics = {
             "reward_mean": rewards.mean(),
             "env_steps": torch.tensor(env_steps, dtype=torch.int32),
             "buffer_size": torch.tensor(rb_state.size * num_envs, dtype=torch.int32),
-            "critic_loss": zero,
-            "actor_loss": zero,
-            "temperature": zero,
-            "entropy": zero,
+            **learner,
             "ep_count": ep_count,
             "ret_sum": ret_sum,
             "succ_sum": succ_sum,

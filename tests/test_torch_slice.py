@@ -98,13 +98,16 @@ def carry_obs(states, i, env):
 
 
 def test_torch_loop_raises_where_the_slice_ends():
-    # the learner: the buffer reaches the training threshold at iteration 2
+    # the learner runs: the insert of iteration 2 reaches the training
+    # threshold of 8 rows, and from then on the loss metrics are non-zero
     _, agent, _, _, init_fn, run_chunk = make_state_sim_experiment(
         device="cpu", num_envs=4, training_starts=8, batch_size=2, utd_ratio=1,
         buffer_capacity=64)
-    carry, _ = run_chunk(init_fn(agent, 0), 1)
-    with pytest.raises(NotImplementedError, match="learner"):
-        run_chunk(carry, 1)
+    carry, metrics = run_chunk(init_fn(agent, 0), 3)
+    for k in ("critic_loss", "actor_loss", "temperature", "entropy"):
+        assert metrics[k][0] == 0 and (metrics[k][1:] != 0).all(), k
+        assert torch.isfinite(metrics[k]).all(), k
+    assert agent.state.step == 2 * 2  # 2 learner iterations x (1 critic + 1 actor update)
     env, _, rb, config, *_ = make_state_sim_experiment(device="cpu", num_envs=4)
     with pytest.raises(NotImplementedError):
         make_fused_loop(env, rb, config._replace(intervention_prob=0.5))
