@@ -6,40 +6,51 @@
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. device: the card's name and power limit; build the CUDA kernels from the
      sources in this checkout, one nvcc per source started together (K1, the
-     control step, serl_tpu_torch/csrc/control_step.cu; K4, the replay gather,
-     csrc/replay_gather.cu) while Triton compiles K5 (LayerNorm + tanh,
-     serl_tpu_torch/networks/layer_norm_tanh.py), and the host build of K1's
-     code that counts its operations (tests/k1_host.cpp, g++); print the
-     build times;
-  2. K1 against control_step_plain at N = 128 and 2048 env states from two
-     sources (a plain-version rollout with random actions, and constructed
-     grasp states with the cube between the pads), which must include active
-     floor and pad contacts: one control step, field by field and env by env,
-     and a 100-step kernel-vs-plain rollout, under the tolerance rule of
-     tests/torch_k1.py (a tight per-env tolerance that at most N // 100 envs
-     may exceed, and a cap that none may); K4 against its plain version at
-     the main path's shapes (782 slots x 128 streams, 2048 rows) on a wrapped
-     ring with episode boundaries, next_observations stored and not: exactly
-     equal; K5 forward and backward against its plain version at
-     (10, 256, 256), (10, 2048, 256) and (2048, 256) under stated tolerances;
+     control step, serl_tpu_torch/csrc/control_step.cu; K2, the renderer,
+     csrc/render.cu; K3, the random crop, csrc/random_crop.cu; K4, the replay
+     gather, csrc/replay_gather.cu) while Triton compiles K5 (LayerNorm +
+     tanh, serl_tpu_torch/networks/layer_norm_tanh.py), and the host builds
+     of K1's and K2's code that count their operations (tests/k1_host.cpp,
+     tests/k2_host.cpp, g++); print the build times and ptxas lines;
+  2. every kernel against its plain version on the card: K1 at N = 128 and
+     2048 env states from two sources (a plain-version rollout with random
+     actions, and constructed grasp states with the cube between the pads),
+     which must include active floor and pad contacts: one control step,
+     field by field and env by env, and a 100-step kernel-vs-plain rollout,
+     under the tolerance rule of tests/torch_k1.py; K2 at N = 16 and 128,
+     128 px, on rollout and grasp states (cube in the wrist camera's view)
+     under the pixel rule of tests/torch_k2.py; K3 at (1024, 1, 128, 128, 3)
+     and (1024, 3, 128, 128, 3), four image batches per launch: exactly
+     equal; K4 at the state path's shapes (782 slots x 128 streams, 2048
+     rows, next_observations stored and not) and at the pixel path's (625 x
+     16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
+     rings with episode boundaries and the seam: exactly equal; K5 forward
+     and backward at (10, 256, 256), (10, 2048, 256) and (2048, 256) under
+     stated tolerances;
   3. the actor path: make_state_sim_experiment with 128 envs and the
      full-width networks, 20 loop iterations (8 random, 12 policy) and a
-     128-episode evaluate, with every kernel's launch count read around it;
-     then the learner path: bench.py::bench_state's configuration (128 envs,
-     UTD 8, batch 256, 10 critics subsampled to 2, buffer 100,000) warmed up
-     past its training threshold, then 3 chunks of 50 iterations timed as
-     bench.py does (best of 3, ending in a sync), with every launch count
-     read around them and checked against the count that the loss functions
-     give, then a 128-episode evaluate;
-  4. times on the card: each kernel and its plain version at the main path's
+     128-episode evaluate; the state learner path: bench.py::bench_state's
+     configuration (128 envs, UTD 8, batch 256, 10 critics subsampled to 2,
+     buffer 100,000) warmed up past its training threshold, then 3 chunks of
+     50 iterations timed as bench.py does (best of 3, ending in a sync), then
+     a 128-episode evaluate; the pixel learner path: bench.py::bench_pixels'
+     configuration through make_drq_sim_experiment (16 envs, two 128 px
+     cameras, small encoders, UTD 4, batch 256, 2 updates per iteration,
+     buffer 10,000) warmed up in chunks of 25 past its threshold, then 3
+     chunks of 25 timed, then a 16-episode evaluate. Around each path every
+     launch count is read and checked against the count that its loss
+     functions and loop give; outputs must be finite and non-zero and the
+     params must move;
+  4. times on the card: each kernel and its plain version at its path's
      shapes (calls back to back between one pair of CUDA events, and the
      kernel's device time from torch.profiler) beside its bound, where an
-     actor step's and a learner iteration's time go, and the device busy
-     share of both loops (torch.profiler).
+     actor step's, a state learner iteration's and a pixel iteration's time
+     go, the learner steps run under torch.cuda.set_sync_debug_mode("error"),
+     and the device busy share of the loops (torch.profiler).
 It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
-repository around it (serl_tpu_torch/ and tests/torch_k1.py); it never
-imports JAX or serl_tpu.
+repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py);
+it never imports JAX or serl_tpu.
 """
 
 import importlib.util
@@ -64,6 +75,16 @@ BENCH_STATE = dict(seed=0, num_envs=128, updates_per_iter=1, utd_ratio=8, traini
                    random_steps=1000, buffer_capacity=100_000)
 CHUNK = 50  # loop iterations per timed chunk, as bench_state
 K4_SHAPE = dict(slots=782, streams=128, rows_per_stream=16)  # 100,096 rows, batch 2048
+K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows, batch 1024
+# bench.py::bench_pixels' configuration, passed to make_drq_sim_experiment
+BENCH_PIXELS = dict(seed=0, encoder_type="small", num_envs=16, batch_size=256, utd_ratio=4,
+                    updates_per_iter=2, training_starts=0, random_steps=0,
+                    buffer_capacity=10_000)
+PIXEL_CHUNK = 25  # loop iterations per timed chunk, as bench_pixels
+PIXEL_SIZE = 128
+IMAGE_KEYS = ("front", "wrist")
+K2_N = (16, 128)
+K3_SHAPES = ((1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3), (1024, 3, PIXEL_SIZE, PIXEL_SIZE, 3))
 K5_SHAPES = ((10, 256, 256), (10, 2048, 256), (2048, 256))
 K5_MAIN = (10, 256, 256)  # the shape of most K5 launches: the critic updates
 # whether the main path's backward at each shape computes dw and db: not at
@@ -89,7 +110,7 @@ K5_OPS_PER_ELEMENT = {"fwd": 13, "bwd": 16}
 # the critic update's 2 and the actor update's 2 through the policy.
 # One sample (1 K4 launch) and one control step (1 K1 launch) per iteration.
 def learner_launches_per_iter(utd_ratio: int, updates_per_iter: int = 1) -> dict:
-    return {"control_step": 1,
+    return {"control_step": 1, "render": 0, "random_crop": 0,
             "replay_gather": updates_per_iter,
             "layer_norm_tanh_fwd": updates_per_iter * (6 * utd_ratio + 6) + 2,
             "layer_norm_tanh_bwd": updates_per_iter * (2 * utd_ratio + 4),
@@ -98,9 +119,37 @@ def learner_launches_per_iter(utd_ratio: int, updates_per_iter: int = 1) -> dict
 
 # The actor path (phase 3): 20 control steps + 100 evaluate steps of K1; 2
 # K5 forwards per policy call: 12 policy iterations + 100 evaluate steps.
-ACTOR_LAUNCHES = {"control_step": 120, "replay_gather": 0,
+ACTOR_LAUNCHES = {"control_step": 120, "render": 0, "random_crop": 0, "replay_gather": 0,
                   "layer_norm_tanh_fwd": 2 * (12 + 100), "layer_norm_tanh_bwd": 0,
                   "layer_norm_tanh_colsum": 0}
+
+
+# Launches per pixel-loop iteration (DrQ, serl_tpu_torch/agents/{drq,sac}.py).
+# An ObsEncoder pass runs 3 K5 forwards: one bottleneck LayerNorm+tanh per
+# camera and the proprio's; a policy or critic MLP pass runs 2.
+#   critic update (x utd_ratio): next actions (encode 3 + policy 2, no
+#     grad), the target critic on next_obs (target encoder 3 + critic 2, no
+#     grad), the critic on obs (encoder 3 + critic 2) and its backward
+#     through the critic (2) and the encoder (3), all with weight grads:
+#     15 fwd, 5 bwd, 5 column sums;
+#   actor+temperature update: the policy (encode 3 under no_grad + policy 2),
+#     the critic on detached params (encode 3 + critic 2), backward through
+#     the critic (2, no weight grads) and the policy (2, weight grads); the
+#     temperature loss's next actions (encode 3 + policy 2): 15 fwd, 4 bwd,
+#     2 column sums;
+#   acting: one policy sample (encode 3 + policy 2), random_steps being 0.
+# Per update_high_utd one sample (K4) and one crop launch (K3: obs and
+# next_obs of both cameras); per iteration one control step (K1) and one
+# render (K2: the post-reset observation; the terminal one is not rendered,
+# as the pixel buffer does not store next observations).
+def pixel_launches_per_iter(utd_ratio: int, updates_per_iter: int) -> dict:
+    return {"control_step": 1, "render": 1, "random_crop": updates_per_iter,
+            "replay_gather": updates_per_iter,
+            "layer_norm_tanh_fwd": updates_per_iter * (15 * utd_ratio + 15) + 5,
+            "layer_norm_tanh_bwd": updates_per_iter * (5 * utd_ratio + 4),
+            "layer_norm_tanh_colsum": updates_per_iter * (5 * utd_ratio + 2)}
+
+
 # K5 tolerances (kernel against its plain version, both fp32 on the card):
 #   y: 1e-5 abs. Outputs are in (-1, 1); the row sums of 256 floats are
 #     taken in another order and the kernel's exp, sqrt and division are
@@ -127,11 +176,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def load_checks():
-    """tests/torch_k1.py, loaded by its path (a package named `tests` that is
-    installed elsewhere must not shadow it)."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_k1", os.path.join(HERE, "tests", "torch_k1.py"))
+def load_checks(name: str = "torch_k1"):
+    """tests/<name>.py (torch_k1 or torch_k2), loaded by its path (a package
+    named `tests` that is installed elsewhere must not shadow it)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "tests", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -184,9 +232,10 @@ def profiled_kernel_ms(fn, calls: int, kernels):
 
 
 def busy_share(torch, run, iters: int):
-    """(wall ms unprofiled, device busy ms, {kernel name: ms}) of `run(iters)`:
-    kernel time from a torch.profiler trace of the same number of iterations
-    that a host clock times unprofiled."""
+    """(wall ms unprofiled, device busy ms, {kernel name: ms}, {host op name:
+    device ms of the kernels it launched}) of `run(iters)`: kernel time from
+    a torch.profiler trace of the same number of iterations that a host
+    clock times unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,9 +247,12 @@ def busy_share(torch, run, iters: int):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(iters)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-    return wall_ms, sum(by_name.values()), by_name
+    events = prof.key_averages()
+    by_name = {e.key: e.self_device_time_total / 1e3 for e in events
+               if e.device_type == DeviceType.CUDA}
+    by_op = {e.key: getattr(e, "device_time_total", 0.0) / 1e3 for e in events
+             if e.device_type == DeviceType.CPU and e.key.startswith("aten::")}
+    return wall_ms, sum(by_name.values()), by_name, by_op
 
 
 def bound(bytes_moved: float, ops: float):
@@ -215,10 +267,14 @@ def launch_counters():
     kernel's name in the counts. K5's backward wrapper launches two kernels,
     the backward and (with weight grads) the column sum, and counts each."""
     from serl_tpu_torch.data import replay_buffer
+    from serl_tpu_torch.envs import rendering
     from serl_tpu_torch.envs.physics import engine
     from serl_tpu_torch.networks import layer_norm_tanh as k5
+    from serl_tpu_torch.vision import augmentations
 
     return {"control_step": (engine.control_step, "launches"),
+            "render": (rendering.render_cameras, "launches"),
+            "random_crop": (augmentations.crop_images, "launches"),
             "replay_gather": (replay_buffer.gather_batch_aligned, "launches"),
             "layer_norm_tanh_fwd": (k5.layer_norm_tanh_forward, "launches"),
             "layer_norm_tanh_bwd": (k5.layer_norm_tanh_backward, "launches"),
@@ -534,19 +590,23 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
 
 
 def print_busy_share(torch, what: str, run, card: str, iters: int = 10) -> None:
-    wall_ms, busy_ms, by_name = busy_share(torch, run, iters)
+    wall_ms, busy_ms, by_name, by_op = busy_share(torch, run, iters)
     if busy_ms <= 0:
         print(f"{what} device busy share: not measured (the profiler recorded no device time)")
         return
     ours = {name: sum(ms for k, ms in by_name.items() if kernel in k)
-            for name, kernel in (("K1", "control_step_kernel"), ("K4", "replay_gather_kernel"),
+            for name, kernel in (("K1", "control_step_kernel"), ("K2", "render_kernel"),
+                                 ("K3", "random_crop_kernel"), ("K4", "replay_gather_kernel"),
                                  ("K5", "layer_norm_tanh_"))}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
     print(f"{what}, {iters} iterations: wall {wall_ms:.2f} ms (host clock, unprofiled), device "
           f"busy {busy_ms:.3f} ms (torch.profiler), busy share {busy_ms / wall_ms:.4f}, idle "
           f"share {1 - busy_ms / wall_ms:.4f}; device ms of our kernels "
           f"{json.dumps({k: round(v, 4) for k, v in ours.items()})}; largest kernels "
-          f"{json.dumps([(k[:60], round(v, 4)) for k, v in top])} [{card}]")
+          f"{json.dumps([(k[:60], round(v, 4)) for k, v in top])}; host ops by the device ms "
+          f"of their kernels (nested ops count again) "
+          f"{json.dumps([(k, round(v, 4)) for k, v in top_ops])} [{card}]")
 
 
 def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk):
@@ -655,15 +715,314 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
     return rows
 
 
-def kernel_table(rows, lrows, errs, actor_launches, learner_launches, per_iter):
-    """The kernel table's entries: `launches` is each kernel's count over the
-    learner path's timed iterations; the actor path's count stands beside."""
+def phase_k2_vs_plain(torch, checks, k2, device):
+    """K2 against its plain version at K2_N envs, 128 px, on rollout and
+    grasp states, under the pixel rule of tests/torch_k2.py."""
+    from serl_tpu_torch.envs import rendering
 
-    def launches(name):
-        return {"launches": learner_launches[name],
-                "launches_by_path": {"actor": actor_launches[name],
-                                     "learner": learner_launches[name]},
-                "launches_per_learner_iteration": per_iter[name]}
+    g = torch.Generator(device=device).manual_seed(2)
+    worst = 0
+    for n in K2_N:
+        for source, make in (("rollout", checks.rollout_states), ("grasp", checks.grasp_states)):
+            s = make(n, g, device)
+            got = rendering.render_cameras_cuda(s, PIXEL_SIZE)
+            want = rendering.render_cameras_plain(s, PIXEL_SIZE)
+            torch.cuda.synchronize()
+            for cam, a, b in zip(IMAGE_KEYS, got, want):
+                failures, summary = k2.pixel_rule(a, b)
+                print(f"K2 vs plain, N={n}, {source} states, {cam}: {json.dumps(summary)}")
+                if failures:
+                    raise AssertionError(f"K2 N={n} {source} {cam}: " + "; ".join(failures))
+                worst = max(worst, summary["max_level_diff"])
+            if source == "grasp":
+                # the cube (purple: red = blue > green) is in the wrist camera's view
+                w = want[1].to(torch.int16)
+                cube = ((w[..., 0] - w[..., 2]).abs() <= 2) & (w[..., 0] > w[..., 1] + 10)
+                envs = int(cube.flatten(1).any(1).sum())
+                print(f"K2 grasp states at N={n}: the cube is in {envs} of {n} wrist frames")
+                if envs < n // 2:
+                    raise AssertionError(f"the cube is in view in only {envs} of {n} grasp frames")
+    print(f"K2 vs plain: at most {k2.FLIP_SHARE:.3%} of the pixels may differ by more than one "
+          f"level, each on an edge (3x3 span > {k2.EDGE_LEVELS} levels); worst level "
+          f"difference {worst}")
+    return worst
+
+
+def phase_k3_vs_plain(torch, device):
+    """K3 against its plain version: four image batches per launch (obs and
+    next_obs of both cameras, as DrQ crops them) at K3_SHAPES: exactly equal."""
+    from serl_tpu_torch.vision import augmentations as aug
+
+    g = torch.Generator(device=device).manual_seed(3)
+    for shape in K3_SHAPES:
+        imgs = [torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.uint8)
+                for _ in range(4)]
+        offs = [aug.crop_offsets(shape[0] * shape[1], 4, g, device) for _ in imgs]
+        got = aug.crop_images(imgs, offs, padding=4, num_batch_dims=2)
+        for img, off, out in zip(imgs, offs, got):
+            want = aug.batched_random_crop_gather(img, off, padding=4, num_batch_dims=2)
+            if not torch.equal(out, want):
+                raise AssertionError(f"K3 differs from plain at {shape}")
+        print(f"K3 vs plain at 4 x {shape} uint8, one launch: exactly equal")
+    return 0.0
+
+
+def _pixel_ring(torch, device, g):
+    """A full, wrapped ring at K4_PIXEL_SHAPE with 100-slot episodes that end
+    at another slot in every stream: (data, ep_id, insert_slot)."""
+    slots, streams = K4_PIXEL_SHAPE["slots"], K4_PIXEL_SHAPE["streams"]
+    frame = (PIXEL_SIZE, PIXEL_SIZE, 3)
+    data = {"observations": {"state": torch.randn((slots, streams, 7), generator=g, device=device),
+                             **{k: torch.randint(0, 256, (slots, streams) + frame, generator=g,
+                                                 device=device, dtype=torch.uint8)
+                                for k in IMAGE_KEYS}},
+            **{k: torch.randn((slots, streams) + shape, generator=g, device=device)
+               for k, shape in (("actions", (4,)), ("rewards", ()), ("masks", ()), ("dones", ()))}}
+    insert_slot = 300  # slot 299 is the newest, 300 the oldest
+    age = (torch.arange(slots, device=device) - insert_slot) % slots
+    stream = torch.arange(streams, device=device)
+    ep_id = (((age[:, None] + 7 * stream[None, :]) // 100) * streams
+             + stream[None, :]).to(torch.int32)
+    return data, ep_id, insert_slot
+
+
+def phase_k4_pixel_vs_plain(torch, device):
+    """K4's pixel gather against its plain version at the pixel path's
+    shapes: T = 1 and 3, rows at episode starts (clamped stacks), at episode
+    ends (successor fallback) and at the ring's seam: exactly equal."""
+    from serl_tpu_torch.data import replay_buffer as rbm
+
+    slots, streams, r = (K4_PIXEL_SHAPE[k] for k in ("slots", "streams", "rows_per_stream"))
+    g = torch.Generator(device=device).manual_seed(44)
+    data, ep_id, insert_slot = _pixel_ring(torch, device, g)
+    stream = torch.arange(streams, device=device)
+    starts = ((ep_id != ep_id.roll(1, 0)).to(torch.int32).argmax(0))  # an episode's first slot
+    u = torch.randint(0, slots - 1, (r, streams), generator=g, device=device)
+    s2 = (insert_slot - slots + u) % slots
+    s2[0] = (insert_slot - 2) % slots  # the seam: the newest sampleable slot
+    s2[1], s2[2], s2[3] = starts, (starts + 1) % slots, (starts - 1) % slots
+    for num_stack in (1, 3):
+        got = rbm.gather_batch_aligned_cuda(data, ep_id, s2, False, IMAGE_KEYS, num_stack)
+        want = rbm.gather_batch_aligned_plain(data, ep_id, s2, False, IMAGE_KEYS, num_stack)
+        torch.cuda.synchronize()
+        for part in want:
+            for k, w in (want[part].items() if isinstance(want[part], dict) else [(None, want[part])]):
+                x = got[part] if k is None else got[part][k]
+                if x.shape != w.shape or x.dtype != w.dtype or not torch.equal(x, w):
+                    raise AssertionError(f"K4 pixel differs from plain in {part}/{k} (T={num_stack})")
+    raw = (s2[:, :, None] - torch.arange(2, -1, -1, device=device)) % slots
+    clamped = int((ep_id[raw, stream[None, :, None]] != ep_id[s2, stream][..., None]).sum())
+    boundary = int((ep_id[(s2 + 1) % slots, stream] != ep_id[s2, stream]).sum())
+    if clamped == 0 or boundary == 0:
+        raise AssertionError("K4 pixel check sampled no clamped stack or no episode end")
+    print(f"K4 pixel vs plain at {slots} slots x {streams} streams, {r * streams} rows of "
+          f"{PIXEL_SIZE} px frames, T = 1 and 3 ({clamped} clamped stack frames at T = 3, "
+          f"{boundary} rows at an episode end): exactly equal")
+    return 0.0
+
+
+def phase_pixel_path(torch, device, card):
+    """bench_pixels' configuration end to end, timed as bench.py's
+    _bench_fused times it: warm-up chunks of PIXEL_CHUNK iterations until the
+    buffer holds the training threshold, then the best of 3 chunks, each
+    ending in a device-to-host read of a metric."""
+    from serl_tpu_torch.training.launcher import make_drq_sim_experiment
+    from serl_tpu_torch.training.loop import evaluate
+
+    env, agent, rb, config, init_fn, run_chunk = make_drq_sim_experiment(device=device,
+                                                                         **BENCH_PIXELS)
+    carry = init_fn(agent, torch.Generator(device=device).manual_seed(9))
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = 0
+    while True:
+        carry, m = run_chunk(carry, PIXEL_CHUNK)
+        warmup += PIXEL_CHUNK
+        if int(m["buffer_size"][-1]) >= threshold:
+            break
+    if float(m["critic_loss"][-1]) == 0.0:
+        raise AssertionError("the pixel learner did not start at the training threshold")
+    before = [p.detach().clone() for p in agent.parameters()]
+    torch.cuda.synchronize()
+    reset_launches()
+    best, chunks = float("inf"), []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        carry, m = run_chunk(carry, PIXEL_CHUNK)
+        float(m["reward_mean"][-1])  # waits for the chunk, as bench.py's fetch
+        best = min(best, time.perf_counter() - t0)
+        chunks.append(m)
+    launches = read_launches()
+    iters = 3 * PIXEL_CHUNK
+    per_iter = pixel_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    want = {k: v * iters for k, v in per_iter.items()}
+    env_steps_s = PIXEL_CHUNK * config.num_envs / best
+    updates_s = PIXEL_CHUNK * config.updates_per_iter * config.utd_ratio / best
+    print(f"pixel path (bench_pixels: {json.dumps(BENCH_PIXELS)}, {warmup} warm-up iterations, "
+          f"then 3 chunks of {PIXEL_CHUNK}): best chunk {best:.4f} s (host clock ending in a "
+          f"sync): {env_steps_s:.1f} env-steps/s, {updates_s:.1f} critic updates/s; launches "
+          f"over the {iters} iterations {json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the pixel path, got {launches}")
+    ev = evaluate(env, agent, torch.Generator(device=device).manual_seed(10), num_episodes=16,
+                  pixel_keys=rb.image_keys)
+    metrics = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+    learner = {k: metrics[k] for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+    params = list(agent.parameters())
+    buf = carry.rb_state
+    frames = [buf.data["observations"][k][: buf.size] for k in rb.image_keys]
+    checks = {
+        "losses finite": all(bool(torch.isfinite(v).all()) for v in learner.values()),
+        "losses non-zero": all(bool((v != 0).all()) for v in learner.values()),
+        "temperature > 0": bool((learner["temperature"] > 0).all()),
+        "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+        "targets finite": all(bool(torch.isfinite(p).all())
+                              for p in agent.state.target_params["critic"]),
+        "params moved, the encoders' included": all(not torch.equal(p, q)
+                                                    for p, q in zip(params, before)),
+        "frames rendered": all(f.dtype == torch.uint8 and float(f[:, :2].float().std()) > 1
+                               for f in frames),
+        "eval finite": all(math.isfinite(v) and 0 <= v <= 100 for v in ev.values()),
+    }
+    print(f"pixel path outputs: critic_loss {float(learner['critic_loss'][-1]):.5g}, actor_loss "
+          f"{float(learner['actor_loss'][-1]):.5g}, temperature "
+          f"{float(learner['temperature'][-1]):.5g}, entropy {float(learner['entropy'][-1]):.5g} "
+          f"(last iteration); optimizer steps {agent.state.step}; buffer {buf.size} slots; eval "
+          f"(16 episodes) {json.dumps(ev)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"pixel path output checks failed: {bad}")
+    return launches, dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best), \
+        env, agent, rb, config, carry, run_chunk
+
+
+def phase_pixel_times(torch, device, card, k2, env, agent, rb, config, carry, run_chunk):
+    """K2, K3 and K4's pixel gather at the pixel path's shapes, and where a
+    pixel iteration's time goes."""
+    from serl_tpu_torch.data import replay_buffer as rbm
+    from serl_tpu_torch.envs import rendering
+    from serl_tpu_torch.vision import augmentations as aug
+
+    g = torch.Generator(device=device).manual_seed(11)
+    rows = {}
+    # K2 on the loop's own states (16 envs, both cameras, 128 px)
+    s = carry.env_states.physics
+    n, pixels = s.qpos.shape[0], PIXEL_SIZE * PIXEL_SIZE
+    render = lambda: rendering.render_cameras_cuda(s, PIXEL_SIZE)
+    ops = k2.render_ops(s, PIXEL_SIZE)
+    nbytes = (n * rendering.SCENE_FLOATS * 4 + 2 * 2 * pixels * 4 + rendering.RENDER_CONSTANTS.nbytes
+              + 2 * n * pixels * 3)
+    bound_ms, bound_by = bound(nbytes, ops)
+    rows["render"] = dict(
+        ms=per_call_ms(render, calls=50), profiler_ms=profiled_kernel_ms(render, 50, "render_kernel"),
+        plain_ms=per_call_ms(lambda: rendering.render_cameras_plain(s, PIXEL_SIZE), calls=5),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops, library_ms=None)
+
+    # K3 at the main path's call: obs and next_obs of both cameras, 1024 x T = 1
+    buf = carry.rb_state
+    batch_rows = config.batch_size * config.utd_ratio
+    batch = rb.sample(buf, batch_rows, generator=g)
+    parts = ("observations", "next_observations")
+    imgs = [batch[p][k] for p in parts for k in rb.image_keys]
+    offs = [aug.crop_offsets(batch_rows, 4, g, device) for _ in imgs]
+    crop = lambda: aug.crop_images(imgs, offs, padding=4, num_batch_dims=2)
+    nbytes = 2 * sum(i.numel() for i in imgs) + sum(o.numel() * 8 for o in offs)
+    bound_ms, bound_by = bound(nbytes, 0)
+    rows["random_crop"] = dict(
+        ms=per_call_ms(crop, calls=50), profiler_ms=profiled_kernel_ms(crop, 50, "random_crop_kernel"),
+        plain_ms=per_call_ms(lambda: [aug.batched_random_crop_gather(i, o, padding=4,
+                                                                     num_batch_dims=2)
+                                      for i, o in zip(imgs, offs)], calls=10),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=None)
+
+    # K4's pixel gather at the main path's sample: 1024 rows, T = 1, on the loop's ring
+    slots, streams = buf.ep_id.shape
+    s2 = (buf.insert_slot - buf.size
+          + torch.randint(0, buf.size - 1, (batch_rows // streams, streams), generator=g,
+                          device=device)) % slots
+    gather = lambda: rbm.gather_batch_aligned_cuda(buf.data, buf.ep_id, s2, False, rb.image_keys,
+                                                   rb.num_stack)
+    out = gather()
+    row_bytes = sum(v.numel() * v.element_size() for v in
+                    [out[k] for k in out if not isinstance(out[k], dict)]
+                    + list(out["observations"].values()) + list(out["next_observations"].values()))
+    nbytes = 2 * row_bytes + s2.numel() * 8
+    bound_ms, bound_by = bound(nbytes, 0)
+    rows["replay_gather_pixel"] = dict(
+        ms=per_call_ms(gather, calls=50),
+        profiler_ms=profiled_kernel_ms(gather, 50, "replay_gather_kernel"),
+        plain_ms=per_call_ms(lambda: rbm.gather_batch_aligned_plain(
+            buf.data, buf.ep_id, s2, False, rb.image_keys, rb.num_stack), calls=10),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=None)
+    for name, row in rows.items():
+        prof = "not measured" if row["profiler_ms"] is None else f"{row['profiler_ms']:.4f} ms"
+        print(f"{name} time: kernel {row['ms']:.4f} ms per call (50 back to back, CUDA events; "
+              f"torch.profiler kernel time {prof}), plain {row['plain_ms']:.4f} ms, library null "
+              f"(no single PyTorch call computes it), bound {row['bound_ms']:.6f} ms by "
+              f"{row['bound_by']} ({row['bytes']} bytes"
+              + (f", {row['ops']} fp32 ops counted in the kernel's code by tests/k2_host.cpp"
+                 if "ops" in row else "") + f") [{card}]")
+
+    # where a pixel iteration's time goes: single calls between CUDA events
+    mini = rbm._map(lambda v: v[: config.batch_size], batch)
+    obs = carry.obs
+    states = carry.env_states
+    from serl_tpu_torch.envs.wrappers import add_stack_axis
+
+    act = agent.sample_actions(add_stack_axis(obs, rb.image_keys), generator=g)
+
+    def encode():
+        with torch.no_grad():
+            return agent.encoder(mini["observations"])
+
+    parts = {
+        "render (K2, both cameras)": render,
+        "env step_auto_reset (K1 + K2 + obs, reward, reset)": lambda: env.step_auto_reset(
+            states, act, generator=g, final_obs=False),
+        "policy sample_actions (encoder + policy)": lambda: agent.sample_actions(
+            add_stack_axis(obs, rb.image_keys), generator=g),
+        "sample (K4, 1024 rows)": lambda: rb.sample(buf, batch_rows, generator=g),
+        "crop (K3, one update's 4 image batches)": crop,
+        "encoder forward (256-row minibatch, no grad)": encode,
+        "critic update (1 of utd_ratio, minibatch 256)": lambda: agent.update(
+            mini, networks_to_update=frozenset({"critic"}), generator=g),
+        "actor+temperature update (batch 1024)": lambda: agent.update(
+            batch, networks_to_update=frozenset({"actor", "temperature"}), generator=g),
+        "update_high_utd (crop + 4 critic + 1 actor)": lambda: agent.update_high_utd(
+            batch, utd_ratio=config.utd_ratio, generator=g),
+    }
+    split = {k: per_call_ms(fn, calls=1, repeats=10) for k, fn in parts.items()}
+    box = [carry]
+
+    def run(iters):
+        box[0], _ = run_chunk(box[0], iters)
+
+    split["whole loop iteration"] = per_call_ms(lambda: run(1), calls=1, repeats=10)
+    print("pixel iteration, ms per call (median of 10 single calls between CUDA events, host "
+          "launch time included): " + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f" [{card}]")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        agent.update_high_utd(rb.sample(buf, batch_rows, generator=g), utd_ratio=config.utd_ratio,
+                              generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("pixel sample + update_high_utd (crop included) ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync in the learner step")
+    print_busy_share(torch, "pixel loop", run, card)
+    return rows
+
+
+def kernel_table(rows, lrows, prows, errs, launches_by_path, per_iter):
+    """The kernel table's entries. `launches` is each kernel's count over the
+    timed iterations of the path its row describes: the state learner path
+    for K1, K4's state row and K5 (as in earlier runs), the pixel path for
+    K2, K3 and K4's pixel row; every path's count stands beside it."""
+
+    def launches(name, path):
+        return {"launches": launches_by_path[path][name],
+                "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
+                "launches_per_iteration": {p: per_iter[p][name] for p in per_iter}}
 
     main = rows[MAIN_ENVS]
     kernels = [{
@@ -671,7 +1030,7 @@ def kernel_table(rows, lrows, errs, actor_launches, learner_launches, per_iter):
         "route": "cuda",
         "source": "serl_tpu_torch/csrc/control_step.cu",
         "replaces": "serl_tpu/envs/physics/engine.py:348",
-        **launches("control_step"),
+        **launches("control_step", "learner"),
         "max_abs_err": errs["K1"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -686,13 +1045,46 @@ def kernel_table(rows, lrows, errs, actor_launches, learner_launches, per_iter):
     }]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "profiler_ms")
     kernels.append({
+        "name": "render",
+        "route": "cuda",
+        "source": "serl_tpu_torch/csrc/render.cu",
+        "replaces": "serl_tpu/envs/rendering.py:329",
+        **launches("render", "pixel"),
+        "max_abs_err": errs["K2"],  # uint8 levels, under the pixel rule of tests/torch_k2.py
+        **{k: prows["render"][k] for k in timed},
+        "shape": [BENCH_PIXELS["num_envs"], 2, PIXEL_SIZE, PIXEL_SIZE, 3],
+        "ops": prows["render"]["ops"],
+    })
+    kernels.append({
+        "name": "random_crop",
+        "route": "cuda",
+        "source": "serl_tpu_torch/csrc/random_crop.cu",
+        "replaces": "serl_tpu/vision/augmentations.py:34",
+        **launches("random_crop", "pixel"),
+        "max_abs_err": errs["K3"],
+        **{k: prows["random_crop"][k] for k in timed},
+        "shape": [4, 1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3],
+    })
+    kernels.append({
         "name": "replay_gather",
         "route": "cuda",
         "source": "serl_tpu_torch/csrc/replay_gather.cu",
         "replaces": "serl_tpu/data/replay_buffer.py:317",
-        **launches("replay_gather"),
+        **launches("replay_gather", "learner"),
         "max_abs_err": errs["K4"],
         **{k: lrows["replay_gather"][k] for k in timed},
+        "shape": "2048 rows x 6 fp32 fields (state path)",
+    })
+    kernels.append({
+        "name": "replay_gather_pixel",
+        "route": "cuda",
+        "source": "serl_tpu_torch/csrc/replay_gather.cu",
+        "replaces": "serl_tpu/data/replay_buffer.py:317",
+        **launches("replay_gather", "pixel"),
+        "max_abs_err": errs["K4 pixel"],
+        **{k: prows["replay_gather_pixel"][k] for k in timed},
+        "shape": "1024 rows of state, two 128 px uint8 frames (T = 1) for obs and next_obs, "
+                 "actions, rewards, masks, dones (pixel path)",
     })
     for direction, err in (("fwd", errs["K5"]["y"]), ("bwd", errs["K5"]["dx"])):
         kernels.append({
@@ -700,7 +1092,7 @@ def kernel_table(rows, lrows, errs, actor_launches, learner_launches, per_iter):
             "route": "triton",
             "source": "serl_tpu_torch/networks/layer_norm_tanh.py",
             "replaces": "serl_tpu/networks/mlp.py:95",
-            **launches(f"layer_norm_tanh_{direction}"),
+            **launches(f"layer_norm_tanh_{direction}", "learner"),
             "max_abs_err": err,
             **{k: lrows[(direction, K5_MAIN)][k] for k in timed},
             "shape": list(K5_MAIN),
@@ -712,10 +1104,8 @@ def kernel_table(rows, lrows, errs, actor_launches, learner_launches, per_iter):
     # the backward row's times cover both of its kernels; its column-sum
     # launches (calls with weight grads) are counted apart
     kernels[-1]["rel_err_dw_db"] = [errs["K5"]["dw"], errs["K5"]["db"]]
-    kernels[-1]["colsum_launches"] = learner_launches["layer_norm_tanh_colsum"]
-    kernels[-1]["colsum_launches_by_path"] = {"actor": actor_launches["layer_norm_tanh_colsum"],
-                                              "learner": learner_launches["layer_norm_tanh_colsum"]}
-    kernels[-1]["colsum_launches_per_learner_iteration"] = per_iter["layer_norm_tanh_colsum"]
+    colsum = launches("layer_norm_tanh_colsum", "learner")
+    kernels[-1].update({f"colsum_{k}": v for k, v in colsum.items()})
     return kernels
 
 
@@ -724,7 +1114,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    for part in ("serl_tpu_torch", os.path.join("tests", "torch_k1.py")):
+    for part in ("serl_tpu_torch", os.path.join("tests", "torch_k1.py"),
+                 os.path.join("tests", "torch_k2.py")):
         if not os.path.exists(os.path.join(HERE, part)):
             return fail(f"{part} is not beside chip_smoke.py: run it from the repository")
     sys.path.insert(0, HERE)
@@ -735,22 +1126,26 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    # phase 1: device and builds (nvcc for K1 and K4 in a thread, one
+    # phase 1: device and builds (nvcc for K1, K2, K3 and K4 in a thread, one
     # process each, while Triton compiles K5 here)
     card = card_line()
     print(f"card: {card}")
     from serl_tpu_torch.data import replay_buffer as rbm
+    from serl_tpu_torch.envs import rendering
     from serl_tpu_torch.envs.physics import engine
     from serl_tpu_torch.native import build
     from serl_tpu_torch.networks import layer_norm_tanh as k5
+    from serl_tpu_torch.vision import augmentations
 
-    checks = load_checks()
+    checks = load_checks("torch_k1")
+    k2 = load_checks("torch_k2")
     t0 = time.perf_counter()
     built = {}
+    sources = ("control_step", "render", "random_crop", "replay_gather")
 
     def nvcc():
         try:
-            build.build_all(["control_step", "replay_gather"])
+            build.build_all(sources)
             built["s"] = time.perf_counter() - t0
         except Exception as exc:  # re-raised below, after the join
             built["error"] = exc
@@ -768,42 +1163,61 @@ def main() -> int:
     if "error" in built:
         raise built["error"]
     engine._kernel_library()
+    rendering._render_library()
+    augmentations._crop_library()
     rbm._gather_library()
     t1 = time.perf_counter()
-    checks.op_counts(checks.reset_states(1, torch.Generator().manual_seed(0), "cpu"))
+    s1 = checks.reset_states(1, torch.Generator().manual_seed(0), "cpu")
+    checks.op_counts(s1)
+    k2.render_ops(s1, 8)
     t2 = time.perf_counter()
     ptxas = {}
-    for name in ("control_step", "replay_gather"):
+    for name in sources:
         with open(os.path.join(build.BUILD_DIR, f"{name}.ptxas.txt")) as f:
             ptxas[name] = " | ".join(line.strip() for line in f
                                      if "registers" in line or "spill" in line)
-    print(f"K1 and K4 built with nvcc (in parallel) in {built['s']:.2f} s, K5's Triton kernels "
-          f"compiled and run in {triton_s:.2f} s, all loaded after {t1 - t0:.2f} s; ptxas "
-          f"{json.dumps(ptxas)}; K1's op-counting host build (g++) in {t2 - t1:.2f} s")
+    print(f"K1, K2, K3 and K4 built with nvcc (in parallel) in {built['s']:.2f} s, K5's Triton "
+          f"kernels compiled and run in {triton_s:.2f} s, all loaded after {t1 - t0:.2f} s; "
+          f"ptxas {json.dumps(ptxas)}; K1's and K2's op-counting host builds (g++) in "
+          f"{t2 - t1:.2f} s")
 
     # phase 2: every kernel against its plain version
-    k1_err = phase_kernel_vs_plain(torch, engine, checks, device)
-    k4_err = phase_k4_vs_plain(torch, device)
-    k5_err = phase_k5_vs_plain(torch, device)
+    errs = {"K1": phase_kernel_vs_plain(torch, engine, checks, device),
+            "K2": phase_k2_vs_plain(torch, checks, k2, device),
+            "K3": phase_k3_vs_plain(torch, device),
+            "K4": phase_k4_vs_plain(torch, device),
+            "K4 pixel": phase_k4_pixel_vs_plain(torch, device),
+            "K5": phase_k5_vs_plain(torch, device)}
 
-    # phase 3: the actor path, then the learner path
+    # phase 3: the actor path, the state learner path, the pixel path
     actor_launches, env, agent, carry, run_chunk = phase_actor_path(torch, device)
     learner_launches, rates, l_env, l_agent, l_rb, l_config, l_carry, l_run = \
         phase_learner_path(torch, device, card)
+    pixel_launches, p_rates, p_env, p_agent, p_rb, p_config, p_carry, p_run = \
+        phase_pixel_path(torch, device, card)
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
     lrows = phase_learner_times(torch, device, card, l_agent, l_rb, l_config, l_carry, l_run)
+    prows = phase_pixel_times(torch, device, card, k2, p_env, p_agent, p_rb, p_config, p_carry,
+                              p_run)
 
-    kernels = kernel_table(rows, lrows, {"K1": k1_err, "K4": k4_err, "K5": k5_err},
-                           actor_launches, learner_launches,
-                           learner_launches_per_iter(l_config.utd_ratio, l_config.updates_per_iter))
+    per_iter = {"actor": ACTOR_LAUNCHES,  # the whole actor path, not per iteration
+                "learner": learner_launches_per_iter(l_config.utd_ratio,
+                                                     l_config.updates_per_iter),
+                "pixel": pixel_launches_per_iter(p_config.utd_ratio, p_config.updates_per_iter)}
+    kernels = kernel_table(rows, lrows, prows, errs,
+                           {"actor": actor_launches, "learner": learner_launches,
+                            "pixel": pixel_launches}, per_iter)
     print(f"learner rates: {rates['env_steps_s']:.1f} env-steps/s, {rates['updates_s']:.1f} "
+          f"critic updates/s [{card}]")
+    print(f"pixel rates: {p_rates['env_steps_s']:.1f} env-steps/s, {p_rates['updates_s']:.1f} "
           f"critic updates/s [{card}]")
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
            or m == "serl_tpu"]
     if bad:
         return fail(f"the port pulled in JAX or serl_tpu modules: {bad[:5]}")
+    print(f"total {time.perf_counter() - t0:.1f} s from the first build")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,162 @@
+"""DrQ: SAC from pixels with random-crop augmentation of the update batches.
+
+Port of `serl_tpu/agents/drq.py`: the encoder registry (`make_image_encoders`,
+"small"), `DrQAgent.data_augmentation_fn`, `_augment_batch`,
+`update_high_utd` and `create_drq`. The per-camera encoders, wrapped in an
+`ObsEncoder`, live in the "critic" group (agents/sac.py).
+
+The augmentation runs once on the whole UTD batch, before it is split into
+minibatches: every image key of obs and of next_obs gets its own crops, one
+window offset per (batch, stack) image, all cut by one K3 launch
+(`vision/augmentations.py::crop_images`). Its offsets are part of the
+update's draws, so the tests can feed the JAX package's.
+
+Not ported yet, and raising: the "resnet" and "resnet-pretrained" encoders,
+and `update_critics` (the fused loop does not call it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from serl_tpu_torch.agents.sac import SACAgent
+from serl_tpu_torch.vision.augmentations import crop_images, crop_offsets
+from serl_tpu_torch.vision.encoders import SmallEncoder
+from serl_tpu_torch.vision.encoding import ObsEncoder
+
+CROP_PADDING = 4
+
+
+def make_image_encoders(encoder_type: str, image_keys: Iterable[str], shared: bool = False,
+                        in_channels: int = 3,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.nn.Module]:
+    """Encoder registry: image key -> encoder module (`shared=True` maps one
+    module to every key). `in_channels` is each camera's channels times its
+    frame stack."""
+    image_keys = tuple(image_keys)
+    if encoder_type == "small":
+        def small():
+            return SmallEncoder(in_channels, features=(32, 64, 128, 256), kernel_sizes=(3, 3, 3, 3),
+                                strides=(2, 2, 2, 2), padding="VALID", pool_method="avg",
+                                bottleneck_dim=256, compute_dtype=torch.bfloat16,
+                                generator=generator)
+
+        if shared:
+            enc = small()
+            return {key: enc for key in image_keys}
+        return {key: small() for key in image_keys}
+    if encoder_type in ("resnet", "resnet-pretrained"):
+        raise NotImplementedError(f"the {encoder_type!r} encoder is not ported yet")
+    raise NotImplementedError(f"unknown encoder type {encoder_type}")
+
+
+def _images(observations: Dict) -> Dict:
+    return observations["images"] if "images" in observations else observations
+
+
+class DrQAgent(SACAgent):
+    def augment_draws(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict:
+        """Crop offsets for `batch`: {"observations" | "next_observations":
+        {image key: (B * T, 2) int64}}, uniform in [0, 2 * CROP_PADDING]."""
+        out = {}
+        for part in ("observations", "next_observations"):
+            images = _images(batch[part])
+            out[part] = {k: crop_offsets(math.prod(images[k].shape[:-3]), CROP_PADDING, generator,
+                                         images[k].device)
+                         for k in self.config.image_keys}
+        return out
+
+    def data_augmentation_fn(self, observations: Dict, offsets: Dict) -> Dict:
+        """Random-crop every image key of one observation batch, pad 4, one
+        window per (batch, stack) image; `offsets`: {key: (B * T, 2)}."""
+        return self._crop({"o": observations}, {"o": offsets})["o"]
+
+    def _crop(self, parts: Dict, offsets: Dict) -> Dict:
+        """Crop the image keys of several observation batches in one K3
+        launch: parts {name: observations}, offsets {name: {key: offsets}}."""
+        jobs = [(name, key) for name in parts for key in self.config.image_keys]
+        if not jobs:
+            return parts
+        imgs = [_images(parts[name])[key] for name, key in jobs]
+        num_batch_dims = 2 if imgs[0].dim() == 5 else 1
+        cropped = crop_images(imgs, [offsets[name][key] for name, key in jobs],
+                              padding=CROP_PADDING, num_batch_dims=num_batch_dims)
+        out = {}
+        for name, obs in parts.items():
+            obs = dict(obs)
+            images = dict(_images(obs))
+            for (n, key), img in zip(jobs, cropped):
+                if n == name:
+                    images[key] = img
+            if "images" in obs:
+                obs["images"] = images
+            else:
+                obs = images
+            out[name] = obs
+        return out
+
+    def _augment_batch(self, batch: Dict, offsets: Dict) -> Dict:
+        if not self.config.augment:
+            return batch
+        parts = ("observations", "next_observations")
+        cropped = self._crop({p: batch[p] for p in parts}, offsets)
+        return {**batch, **cropped}
+
+    def drq_draws(self, batch: Dict, utd_ratio: int,
+                  generator: Optional[torch.Generator] = None) -> Dict:
+        """The draws of one `update_high_utd` of `batch`: {"augment": crop
+        offsets (see `augment_draws`), "updates": SAC's per-update draws}."""
+        return {"augment": self.augment_draws(batch, generator) if self.config.augment else {},
+                "updates": self.high_utd_draws(batch["rewards"].shape[0], utd_ratio, generator)}
+
+    def update_high_utd(self, batch: Dict, *, utd_ratio: int, draws: Optional[Dict] = None,
+                        generator: Optional[torch.Generator] = None):
+        """Augment the whole batch once, then SAC's `update_high_utd` on it
+        (`utd_ratio` critic updates on contiguous minibatches, then one
+        actor+temperature update); returns (self, info). `draws` as
+        `drq_draws` gives them."""
+        if draws is None:
+            draws = self.drq_draws(batch, utd_ratio, generator)
+        batch = self._augment_batch(batch, draws["augment"])
+        return SACAgent.update_high_utd(self, batch, utd_ratio=utd_ratio, draws=draws["updates"])
+
+    @classmethod
+    def create_drq(
+        cls,
+        observations: Dict,
+        actions: torch.Tensor,
+        *,
+        encoder_type: str = "small",
+        shared_encoder: bool = False,
+        shared_batch_concat: bool = True,
+        use_proprio: bool = True,
+        custom_encoders: Optional[Dict[str, torch.nn.Module]] = None,
+        augment: bool = True,
+        image_keys: Iterable[str] = ("image",),
+        generator: Optional[torch.Generator] = None,
+        device=None,
+        **kwargs,
+    ) -> "DrQAgent":
+        """A DrQ agent for the example batch `observations` ({"state": (B, S),
+        "<key>": (B, T, H, W, C) uint8}); weights from `generator` on the CPU,
+        then moved to `device`. `custom_encoders` (image key -> module)
+        replaces the registry's. kwargs as `SACAgent.create`."""
+        image_keys = tuple(image_keys)
+        first = _images(observations)[image_keys[0]]
+        in_channels = first.shape[-1] * (first.shape[-4] if first.dim() == 5 else 1)
+        encoders = custom_encoders or make_image_encoders(
+            encoder_type, image_keys, shared=shared_encoder, in_channels=in_channels,
+            generator=generator)
+        state = observations["state"]
+        state_dim = (sum(v.shape[-1] for v in state.values()) if isinstance(state, dict)
+                     else state.shape[-1])
+        encoder = ObsEncoder(encoders, image_keys, state_dim, use_proprio=use_proprio,
+                             enable_stacking=True, shared_batch_concat=shared_batch_concat,
+                             generator=generator)
+        agent = cls.create_pixels(observations, actions, encoder=encoder, image_keys=image_keys,
+                                  generator=generator, device=device, **kwargs)
+        agent.config = agent.config._replace(augment=bool(augment))
+        return agent

@@ -1,11 +1,17 @@
-"""Soft Actor-Critic for state observations: acting and learning.
+"""Soft Actor-Critic: acting and learning, from states or through an encoder.
 
-Port of `serl_tpu/agents/sac.py` for state agents. The agent holds the same
-three parameter groups as the JAX package: "actor" (PolicyNet), "critic"
-(the ensemble CriticNet; its "encoder" group is empty for state
-observations) and "temperature" (one softplus-parameterized scalar). Its
-`state` (common/train_state.py) keeps one optimizer per group and the target
-critic. Updates change the agent's tensors in place.
+Port of `serl_tpu/agents/sac.py`. The agent holds the same three parameter
+groups as the JAX package: "actor" (PolicyNet), "critic" (the observation
+encoder, if any, then the ensemble CriticNet) and "temperature" (one
+softplus-parameterized scalar). Its `state` (common/train_state.py) keeps
+one optimizer per group and the target critic, which carries a target
+encoder. Updates change the agent's tensors in place.
+
+With an encoder (pixel agents, `create_pixels`), only the critic loss
+trains it: the policy encodes with the current critic encoder under
+no_grad (JAX's stop_gradient), and the policy loss's pass through the
+critic runs on detached params. As in the JAX package, the actor update
+encodes its observations twice (for the policy, then for the critic).
 
 The learner's traps, kept as in the JAX package:
   * the critic target's next actions come from the pre-step actor and carry
@@ -27,7 +33,7 @@ JAX package's draws that way) and from a `torch.Generator` otherwise.
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, FrozenSet, List, NamedTuple, Optional
+from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,8 +53,8 @@ NETWORKS = frozenset({"actor", "critic", "temperature"})
 
 
 class SACConfig(NamedTuple):
-    """Static agent configuration: the JAX package's SACConfig for state
-    agents (its image-key and encoder fields wait for the pixel agents)."""
+    """Static agent configuration: the JAX package's SACConfig (its VICE
+    and BC-regularisation fields come with their agents)."""
 
     discount: float = 0.95
     soft_target_update_rate: float = 0.005
@@ -56,18 +62,41 @@ class SACConfig(NamedTuple):
     backup_entropy: bool = False
     critic_ensemble_size: int = 2
     critic_subsample_size: Optional[int] = None
+    image_keys: Tuple[str, ...] = ()
+    has_encoder: bool = False
+    augment: bool = True  # DrQ random crop of update batches
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 class SACAgent(nn.Module):
     def __init__(self, actor: PolicyNet, critic: CriticNet, temperature_init: float,
-                 config: SACConfig):
+                 config: SACConfig, encoder: Optional[nn.Module] = None):
         super().__init__()
         self.actor = actor
         self.critic = critic
+        self.encoder = encoder
         self.temperature_raw = nn.Parameter(init_lagrange_params(temperature_init)["raw"])
         self.config = config
         self.state: Optional[TrainState] = None  # set by init_train_state
         self._critic_names = [name for name, _ in critic.named_parameters()]
+        self._encoder_names = ([] if encoder is None
+                               else [name for name, _ in encoder.named_parameters()])
+
+    def critic_group(self) -> List[nn.Parameter]:
+        """The "critic" group's tensors: the encoder's, then the head's."""
+        enc = [] if self.encoder is None else list(self.encoder.parameters())
+        return enc + list(self.critic.parameters())
 
     def init_train_state(self, actor_optimizer_kwargs: dict, critic_optimizer_kwargs: dict,
                          temperature_optimizer_kwargs: dict) -> "SACAgent":
@@ -75,7 +104,7 @@ class SACAgent(nn.Module):
         (call it after moving the agent to its device)."""
         self.state = TrainState(
             params={"actor": list(self.actor.parameters()),
-                    "critic": list(self.critic.parameters()),
+                    "critic": self.critic_group(),
                     "temperature": [self.temperature_raw]},
             txs={"actor": make_optimizer(**actor_optimizer_kwargs),
                  "critic": make_optimizer(**critic_optimizer_kwargs),
@@ -88,16 +117,31 @@ class SACAgent(nn.Module):
     # Forward passes
     # ------------------------------------------------------------------ #
 
-    def forward_policy(self, obs: torch.Tensor, *, temperature: float = 1.0):
-        return self.actor(obs, temperature=temperature)
-
-    def forward_critic(self, obs: torch.Tensor, actions: torch.Tensor,
-                       params: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-        """(E, B) Q-values; `params` (in `critic.parameters()` order) replaces
-        the critic's own tensors, as for the target critic."""
+    def _encode(self, obs, params: Optional[List[torch.Tensor]] = None):
+        """Observations -> flat features through the encoder, if any, with
+        `params` (the encoder's tensors) in place of its own when given."""
+        if self.encoder is None:
+            return obs
         if params is None:
-            return self.critic(obs, actions)
-        return functional_call(self.critic, dict(zip(self._critic_names, params)), (obs, actions))
+            return self.encoder(obs)
+        return functional_call(self.encoder, dict(zip(self._encoder_names, params)), (obs,))
+
+    def forward_policy(self, obs, *, temperature: float = 1.0):
+        with torch.no_grad():  # the actor never trains the encoder
+            feats = self._encode(obs)
+        return self.actor(feats, temperature=temperature)
+
+    def forward_critic(self, obs, actions: torch.Tensor,
+                       params: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """(E, B) Q-values; `params` (in `critic_group()` order: encoder,
+        then head) replaces the critic's own tensors, as for the target
+        critic."""
+        if params is None:
+            return self.critic(self._encode(obs), actions)
+        n = len(self._encoder_names)
+        feats = self._encode(obs, params[:n])
+        return functional_call(self.critic, dict(zip(self._critic_names, params[n:])),
+                               (feats, actions))
 
     def temperature(self) -> torch.Tensor:
         return lagrange_value({"raw": self.temperature_raw})
@@ -105,7 +149,7 @@ class SACAgent(nn.Module):
     @torch.no_grad()
     def sample_actions(
         self,
-        observations: torch.Tensor,
+        observations,
         *,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
@@ -210,8 +254,9 @@ class SACAgent(nn.Module):
         with zero gradients."""
         batch_size = batch["rewards"].shape[0]
         for k, v in batch.items():
-            if v.shape[0] != batch_size:
-                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, rewards {batch_size}")
+            if any(x.shape[0] != batch_size for x in _leaves(v)):
+                raise ValueError(f"batch[{k!r}] has a leaf whose rows differ from rewards' "
+                                 f"{batch_size}")
         networks_to_update = frozenset(networks_to_update)
         if not networks_to_update <= NETWORKS:
             raise ValueError(f"unknown networks {sorted(networks_to_update - NETWORKS)}")
@@ -245,7 +290,7 @@ class SACAgent(nn.Module):
         critic_infos = []
         for i in range(utd_ratio):
             rows = slice(i * minibatch_size, (i + 1) * minibatch_size)
-            _, info = self.update({k: v[rows] for k, v in batch.items()},
+            _, info = self.update(_map(lambda v: v[rows], batch),
                                   networks_to_update=frozenset({"critic"}), draws=draws[i])
             critic_infos.append(info)
         critic_info = _mean_infos(critic_infos)
@@ -261,11 +306,13 @@ class SACAgent(nn.Module):
     # ------------------------------------------------------------------ #
 
     @classmethod
-    def create_states(
+    def create(
         cls,
-        observations: torch.Tensor,
-        actions: torch.Tensor,
+        features_dim: int,
+        action_dim: int,
         *,
+        encoder: Optional[nn.Module] = None,
+        image_keys: Tuple[str, ...] = (),
         generator: Optional[torch.Generator] = None,
         critic_network_kwargs: Optional[dict] = None,
         policy_network_kwargs: Optional[dict] = None,
@@ -282,13 +329,13 @@ class SACAgent(nn.Module):
         backup_entropy: bool = False,
         device=None,
     ) -> "SACAgent":
-        """Flat-state agent. `observations`/`actions` are example batches
-        that give the widths; weights are drawn from `generator` on the CPU,
-        then moved to `device` (default "cuda"). A kwargs dict left as None
-        takes the JAX package's defaults: hidden (256, 256), a tanh-squashed
-        policy with uniform std, lr 3e-4 and 2000 warmup steps for actor and
-        critic, lr 3e-4 for the temperature."""
-        obs_dim, action_dim = observations.shape[-1], actions.shape[-1]
+        """An agent whose networks read `features_dim` features (the
+        observation width, or the encoder's output); weights are drawn from
+        `generator` on the CPU, then everything moves to `device` (default
+        "cuda"). A kwargs dict left as None takes the JAX package's defaults:
+        hidden (256, 256), a tanh-squashed policy with uniform std, lr 3e-4
+        and 2000 warmup steps for actor and critic, lr 3e-4 for the
+        temperature."""
         if target_entropy is None:
             target_entropy = -action_dim / 2
         critic_network_kwargs = critic_network_kwargs or {}
@@ -301,7 +348,7 @@ class SACAgent(nn.Module):
         if temperature_optimizer_kwargs is None:
             temperature_optimizer_kwargs = {"learning_rate": 3e-4}
         actor = PolicyNet(
-            obs_dim,
+            features_dim,
             action_dim,
             hidden_dims=tuple(policy_network_kwargs.get("hidden_dims", (256, 256))),
             activations=policy_network_kwargs.get("activations", "swish"),
@@ -314,7 +361,7 @@ class SACAgent(nn.Module):
             generator=generator,
         )
         critic = CriticNet(
-            obs_dim + action_dim,
+            features_dim + action_dim,
             critic_ensemble_size,
             hidden_dims=tuple(critic_network_kwargs.get("hidden_dims", (256, 256))),
             activations=critic_network_kwargs.get("activations", "swish"),
@@ -328,10 +375,33 @@ class SACAgent(nn.Module):
             backup_entropy=backup_entropy,
             critic_ensemble_size=critic_ensemble_size,
             critic_subsample_size=critic_subsample_size,
+            image_keys=tuple(image_keys),
+            has_encoder=encoder is not None,
         )
-        agent = cls(actor, critic, temperature_init, config).to(resolve_device(device))
+        agent = cls(actor, critic, temperature_init, config, encoder).to(resolve_device(device))
         return agent.init_train_state(actor_optimizer_kwargs, critic_optimizer_kwargs,
                                       temperature_optimizer_kwargs)
+
+    @classmethod
+    def create_states(cls, observations: torch.Tensor, actions: torch.Tensor,
+                      **kwargs) -> "SACAgent":
+        """Flat-state agent; `observations`/`actions` are example batches
+        that give the widths. kwargs as `create`."""
+        return cls.create(observations.shape[-1], actions.shape[-1], **kwargs)
+
+    @classmethod
+    def create_pixels(cls, observations: Dict, actions: torch.Tensor, *, encoder: nn.Module,
+                      image_keys: Tuple[str, ...] = ("image",), **kwargs) -> "SACAgent":
+        """Pixel agent whose networks read `encoder`'s features of dict
+        observations (the encoder joins the "critic" group). `observations`
+        is an example batch, run once through the encoder to check that it
+        takes it. kwargs as `create`."""
+        with torch.no_grad():
+            feats = encoder(observations)
+        if feats.shape[-1] != encoder.out_features:
+            raise ValueError(f"encoder gives {feats.shape[-1]} features, says {encoder.out_features}")
+        return cls.create(encoder.out_features, actions.shape[-1], encoder=encoder,
+                          image_keys=tuple(image_keys), **kwargs)
 
 
 def _mean_infos(infos: List[Dict]) -> Dict:

@@ -1,29 +1,35 @@
 """Device-resident circular replay buffer: layout, insert and sampling.
 
-Port of `serl_tpu/data/replay_buffer.py` for flat observations. The layout
-is the same: every array is (slots, streams, ...), where `streams` is the
-number of lockstep envs and `slots` the per-stream ring length; an insert
-writes one full slot at the ring cursor, and `ep_id` records each row's
-episode so successors stop at episode boundaries. Unlike the JAX package's
-pure functions, `insert` writes the state's tensors in place and returns the
-same state. The cursor and size are host integers, so neither an insert nor
-a sample waits for the device.
+Port of `serl_tpu/data/replay_buffer.py`. The layout is the same: every
+array is (slots, streams, ...), where `streams` is the number of lockstep
+envs and `slots` the per-stream ring length; an insert writes one full slot
+at the ring cursor, and `ep_id` records each row's episode so successors and
+frame stacks stop at episode boundaries. Observations may be flat or a dict
+(the pixel path: {"state": (7,) fp32, "<image key>": (H, W, 3) uint8}).
+Unlike the JAX package's pure functions, `insert` writes the state's tensors
+in place and returns the same state. The cursor and size are host integers,
+so neither an insert nor a sample waits for the device.
 
 `sample` is the JAX package's: stream-aligned when the batch divides over
 the streams (exactly batch/streams uniform rows per stream, gathered by K4,
 `gather_batch_aligned`), uniform over (slot, stream) pairs otherwise (plain
 torch). Without stored next_observations the newest slot is not sampled and
 a row's successor falls back to the row itself across an episode boundary.
+Sampled image keys always carry a frame-stack axis T = `num_stack`, even at
+T = 1 ((B, T, H, W, C)); the "state" key does not. A stack holds slots
+s - (T - 1) .. s of the same stream, each frame from another episode
+replaced by the stack's first frame of the anchor's episode.
 
 K4 sits beside its plain version: `gather_batch_aligned_plain` (CPU tensors;
 on the card only tests and chip_smoke.py call it) and the CUDA kernel in
 `serl_tpu_torch/csrc/replay_gather.cu`, which `gather_batch_aligned`
-launches for CUDA tensors, counting its launches in
-`gather_batch_aligned.launches`.
+launches for CUDA tensors (one launch for every field of obs and next_obs),
+counting its launches in `gather_batch_aligned.launches`.
 
-Not ported yet: image keys and frame stacks (the pixel slice; `sample`
-raises for them), and `sample_mixed`, `init_from_episodes` and
-`load_transitions` (the demo path).
+Not ported yet: `sample_mixed`, `init_from_episodes` and `load_transitions`
+(the demo path). Image keys with stored next_observations raise: the JAX
+package stacks those from the observations ring, a quirk nothing on the
+path reaches.
 """
 
 from __future__ import annotations
@@ -77,11 +83,15 @@ class ReplayBuffer:
         capacity: int,
         store_next_obs: bool = True,
         image_keys: Tuple[str, ...] = (),
+        num_stack: int = 1,
         device=None,
     ):
         self.capacity = int(capacity)
         self.store_next_obs = bool(store_next_obs)
-        self.image_keys = tuple(image_keys)  # pixel sampling is not ported yet
+        self.image_keys = tuple(image_keys)
+        self.num_stack = int(num_stack)
+        if self.num_stack < 1:
+            raise ValueError(f"num_stack must be >= 1, got {num_stack}")
         self.device = resolve_device(device)
         example = dict(example_transition)
         if not store_next_obs:
@@ -138,8 +148,8 @@ class ReplayBuffer:
         """A uniform batch of `batch_size` transitions. The slot offsets `u`
         ((R, streams) when aligned, (batch,) otherwise) and the unaligned
         stream indices `e` are drawn from `generator` unless given."""
-        if self.image_keys or isinstance(state.data["observations"], dict):
-            raise NotImplementedError("dict observations and frame stacks are not ported yet")
+        if self.image_keys and self.store_next_obs:
+            raise NotImplementedError("image keys with stored next_observations are not ported")
         slots, streams = state.ep_id.shape
         n_valid = max(state.size if self.store_next_obs else state.size - 1, 1)
         device = state.ep_id.device
@@ -148,29 +158,53 @@ class ReplayBuffer:
                 u = torch.randint(0, n_valid, (batch_size // streams, streams),
                                   generator=generator, device=device)
             s2 = (state.insert_slot - state.size + u) % slots
-            return gather_batch_aligned(state.data, state.ep_id, s2, self.store_next_obs)
+            return gather_batch_aligned(state.data, state.ep_id, s2, self.store_next_obs,
+                                        self.image_keys, self.num_stack)
         if u is None:
             u = torch.randint(0, n_valid, (batch_size,), generator=generator, device=device)
         if e is None:
             e = torch.randint(0, streams, (batch_size,), generator=generator, device=device)
         # the valid window is the `size` newest slots ending at insert_slot - 1
         s = (state.insert_slot - state.size + u) % slots
-        out = {k: v[s, e] for k, v in state.data.items()}
+        out = _map(lambda v: v[s, e], state.data)
         if not self.store_next_obs:
             nxt = (s + 1) % slots
             same_ep = state.ep_id[nxt, e] == state.ep_id[s, e]
-            out["next_observations"] = state.data["observations"][torch.where(same_ep, nxt, s), e]
+            safe_nxt = torch.where(same_ep, nxt, s)
+            out["next_observations"] = _map(lambda v: v[safe_nxt, e], state.data["observations"])
+            if isinstance(out["next_observations"], dict):
+                out["next_observations"].update(self._stack_obs(state, safe_nxt, e))
+        if isinstance(out["observations"], dict):
+            out["observations"].update(self._stack_obs(state, s, e))
         return out
+
+    def _stack_obs(self, state: ReplayBufferState, s: torch.Tensor, e: torch.Tensor) -> Dict:
+        """(B, T, ...) frame stacks of the image keys anchored at rows (s, e)."""
+        slots = state.ep_id.shape[0]
+        raw = (s[:, None] - torch.arange(self.num_stack - 1, -1, -1, device=s.device)) % slots
+        ep = state.ep_id[raw, e[:, None]]
+        safe = _clamp_stack(raw, ep, state.ep_id[s, e])
+        return {k: state.data["observations"][k][safe, e[:, None]] for k in self.image_keys}
+
+
+def _clamp_stack(raw: torch.Tensor, ep: torch.Tensor, anchor_ep: torch.Tensor) -> torch.Tensor:
+    """Frame slots `raw` (..., T) with each frame of another episode than
+    `anchor_ep` (...) replaced by the stack's first frame of the anchor's episode."""
+    valid = ep == anchor_ep[..., None]
+    first = valid.to(torch.int32).argmax(-1, keepdim=True)  # argmax returns the first maximum
+    return torch.where(valid, raw, raw.gather(-1, first))
 
 
 # ---------------------------------------------------------------- K4
 
 
-def gather_batch_aligned_plain(data: Dict[str, torch.Tensor], ep_id: torch.Tensor,
-                               s2: torch.Tensor, store_next_obs: bool) -> Dict[str, torch.Tensor]:
+def gather_batch_aligned_plain(data: Dict, ep_id: torch.Tensor, s2: torch.Tensor,
+                               store_next_obs: bool, image_keys: Tuple[str, ...] = (),
+                               num_stack: int = 1) -> Dict:
     """Rows (s2[r, j], j) of every (slots, streams, ...) field, stream-major:
     out[j * R + r]. Without stored next_observations, next_observations is
-    observations at the successor slot, or at s2 across an episode boundary."""
+    observations at the successor slot, or at s2 across an episode boundary.
+    Image keys of dict observations get (rows, T, ...) frame stacks."""
     slots, streams = ep_id.shape
     rows = s2.shape[0] * streams
     cols = torch.arange(streams, device=s2.device)
@@ -178,11 +212,22 @@ def gather_batch_aligned_plain(data: Dict[str, torch.Tensor], ep_id: torch.Tenso
     def gather(buf, idx):
         return buf[idx, cols].transpose(0, 1).reshape((rows,) + tuple(buf.shape[2:]))
 
-    out = {k: gather(v, s2) for k, v in data.items()}
+    def stack(anchor):
+        raw = (anchor[:, :, None] - torch.arange(num_stack - 1, -1, -1, device=s2.device)) % slots
+        safe = _clamp_stack(raw, ep_id[raw, cols[None, :, None]], ep_id[anchor, cols])
+        return {k: torch.stack([gather(data["observations"][k], safe[:, :, t])
+                                for t in range(num_stack)], 1) for k in image_keys}
+
+    out = _map(lambda v: gather(v, s2), data)
     if not store_next_obs:
         nxt = (s2 + 1) % slots
         same_ep = ep_id[nxt, cols] == ep_id[s2, cols]
-        out["next_observations"] = gather(data["observations"], torch.where(same_ep, nxt, s2))
+        safe_nxt = torch.where(same_ep, nxt, s2)
+        out["next_observations"] = _map(lambda v: gather(v, safe_nxt), data["observations"])
+        if isinstance(out["next_observations"], dict):
+            out["next_observations"].update(stack(safe_nxt))
+    if isinstance(out["observations"], dict):
+        out["observations"].update(stack(s2))
     return out
 
 
@@ -192,7 +237,7 @@ def _gather_library():
     from serl_tpu_torch.native.build import load_library
 
     lib = load_library("replay_gather")
-    lib.serl_replay_gather.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
+    lib.serl_replay_gather.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.serl_replay_gather.restype = ctypes.c_int
     lib.serl_replay_gather_max_fields.argtypes = []
@@ -202,8 +247,9 @@ def _gather_library():
     return lib
 
 
-def gather_batch_aligned_cuda(data: Dict[str, torch.Tensor], ep_id: torch.Tensor,
-                              s2: torch.Tensor, store_next_obs: bool) -> Dict[str, torch.Tensor]:
+def gather_batch_aligned_cuda(data: Dict, ep_id: torch.Tensor, s2: torch.Tensor,
+                              store_next_obs: bool, image_keys: Tuple[str, ...] = (),
+                              num_stack: int = 1) -> Dict:
     """`gather_batch_aligned_plain` by the CUDA kernel, in one launch."""
     slots, streams = ep_id.shape
     device = ep_id.device
@@ -215,34 +261,50 @@ def gather_batch_aligned_cuda(data: Dict[str, torch.Tensor], ep_id: torch.Tensor
             or s2.shape[1] != streams or not s2.is_contiguous()):
         raise ValueError(f"s2: want contiguous int64 (R, {streams}) on {device}, got "
                          f"{s2.dtype} {tuple(s2.shape)} on {s2.device}")
-    rows_per_stream = s2.shape[0]
-    jobs = []  # (key, source, successor?)
-    for k, buf in data.items():
-        if buf.dtype != torch.float32 or buf.device != device or not buf.is_contiguous():
-            raise ValueError(f"data[{k!r}]: want contiguous float32 on {device}, got "
-                             f"{buf.dtype} on {buf.device}")
-        if tuple(buf.shape[:2]) != (slots, streams) or buf.dim() > 3:
-            raise ValueError(f"data[{k!r}]: want ({slots}, {streams}[, width]), got "
-                             f"{tuple(buf.shape)}")
-        jobs.append((k, buf, 0))
+    rows = s2.shape[0] * streams
+    jobs = []  # (output path, source, successor?, stacked?)
+
+    def add(path, buf, successor):
+        if isinstance(buf, dict):
+            for k, v in buf.items():
+                add(path + (k,), v, successor)
+            return
+        if buf.device != device or not buf.is_contiguous() or tuple(buf.shape[:2]) != (slots,
+                                                                                         streams):
+            raise ValueError(f"data{list(path)}: want contiguous ({slots}, {streams}, ...) on "
+                             f"{device}, got {tuple(buf.shape)} on {buf.device}")
+        stacked = len(path) == 2 and path[1] in image_keys
+        jobs.append((path, buf, successor, stacked))
+
+    for k, v in data.items():
+        add((k,), v, 0)
     if not store_next_obs:
-        jobs.append(("next_observations", data["observations"], 1))
+        add(("next_observations",), data["observations"], 1)
     lib = _gather_library()
     if len(jobs) > lib.serl_replay_gather_max_fields():
         raise ValueError(f"{len(jobs)} fields, the kernel takes at most "
                          f"{lib.serl_replay_gather_max_fields()}")
-    rows = rows_per_stream * streams
-    out = {k: torch.empty((rows,) + tuple(buf.shape[2:]), dtype=torch.float32, device=device)
-           for k, buf, _ in jobs}
+    out: Dict = {}
+    dsts = []
+    for path, buf, _, stacked in jobs:
+        shape = (rows,) + ((num_stack,) if stacked else ()) + tuple(buf.shape[2:])
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.empty(shape, dtype=buf.dtype, device=device)
+        dsts.append(node[path[-1]])
     n = len(jobs)
-    src = (ctypes.c_void_p * n)(*(buf.data_ptr() for _, buf, _ in jobs))
-    dst = (ctypes.c_void_p * n)(*(out[k].data_ptr() for k, _, _ in jobs))
-    width = (ctypes.c_int * n)(*(buf[0, 0].numel() for _, buf, _ in jobs))
-    successor = (ctypes.c_int * n)(*(flag for _, _, flag in jobs))
+    src = (ctypes.c_void_p * n)(*(buf.data_ptr() for _, buf, _, _ in jobs))
+    dst = (ctypes.c_void_p * n)(*(t.data_ptr() for t in dsts))
+    row_bytes = (ctypes.c_int64 * n)(*(buf[0, 0].numel() * buf.element_size()
+                                       for _, buf, _, _ in jobs))
+    successor = (ctypes.c_int * n)(*(flag for _, _, flag, _ in jobs))
+    stacked = (ctypes.c_int * n)(*(int(flag) for _, _, _, flag in jobs))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.serl_replay_gather(src, dst, width, successor, n, s2.data_ptr(),
-                                    ep_id.data_ptr(), slots, streams, rows_per_stream, stream)
+        rc = lib.serl_replay_gather(src, dst, row_bytes, successor, stacked, n, int(num_stack),
+                                    s2.data_ptr(), ep_id.data_ptr(), slots, streams, s2.shape[0],
+                                    stream)
     if rc != 0:
         raise RuntimeError(
             f"replay gather kernel launch failed: {lib.serl_replay_gather_error_string(rc).decode()}")
@@ -250,13 +312,13 @@ def gather_batch_aligned_cuda(data: Dict[str, torch.Tensor], ep_id: torch.Tensor
     return out
 
 
-def gather_batch_aligned(data: Dict[str, torch.Tensor], ep_id: torch.Tensor, s2: torch.Tensor,
-                         store_next_obs: bool) -> Dict[str, torch.Tensor]:
+def gather_batch_aligned(data: Dict, ep_id: torch.Tensor, s2: torch.Tensor, store_next_obs: bool,
+                         image_keys: Tuple[str, ...] = (), num_stack: int = 1) -> Dict:
     """K4: the stream-aligned batch gather. CPU tensors take the plain
     version; CUDA tensors launch the kernel, or raise."""
     if ep_id.device.type == "cpu":
-        return gather_batch_aligned_plain(data, ep_id, s2, store_next_obs)
-    return gather_batch_aligned_cuda(data, ep_id, s2, store_next_obs)
+        return gather_batch_aligned_plain(data, ep_id, s2, store_next_obs, image_keys, num_stack)
+    return gather_batch_aligned_cuda(data, ep_id, s2, store_next_obs, image_keys, num_stack)
 
 
 gather_batch_aligned.launches = 0

@@ -9,8 +9,17 @@ Where the JAX env is a single-env function that the loop vmaps, this env
 steps all N envs of a structure-of-arrays `EnvState` at once. JAX keeps a
 per-env PRNG key in the state for auto-reset; here the reset cube positions
 come from the `torch.Generator` the caller passes, or are given explicitly
-as `reset_xy` (the tests feed the JAX draws that way). State observations
-only: `image_obs=True` raises until the renderer is ported.
+as `reset_xy` (the tests feed the JAX draws that way). With `image_obs=True`
+the observation carries the front and wrist camera frames (K2,
+`envs/rendering.py`) and its state part drops `block_pos`, as in the JAX
+package.
+
+JAX's `step_auto_reset` always returns the pre-reset observation in
+info["final_obs"] and leaves XLA to drop its render when the caller never
+reads it; eager PyTorch would really render twice. So the caller says
+whether it needs it (`final_obs=`), and the pixel loop, whose buffer
+rebuilds next observations from the ring, asks only for the one render of
+the post-reset state.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -20,6 +29,7 @@ import torch
 
 from serl_tpu_torch import resolve_device
 from serl_tpu_torch.envs.physics import engine
+from serl_tpu_torch.envs.rendering import render_cameras
 
 # reference constants (panda_pick_gym_env.py:21-23)
 CARTESIAN_BOUNDS = np.asarray([[0.2, -0.3, 0.0], [0.6, 0.3, 0.5]], np.float32)
@@ -28,6 +38,7 @@ ACTION_SCALE = np.asarray([0.1, 1.0], np.float32)
 TIME_LIMIT_STEPS = 100  # 10 s / 0.02 s
 ACTION_DIM = 4
 STATE_OBS_DIM = 10  # tcp_pos(3) + tcp_vel(3) + gripper(1) + block_pos(3)
+PIXEL_STATE_DIM = 7  # with images: tcp_pos(3) + tcp_vel(3) + gripper(1)
 
 
 class EnvState(NamedTuple):
@@ -45,9 +56,9 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 class PandaPickCubeEnv:
     """Batched env: every method steps all envs of the state at once."""
 
-    def __init__(self, image_obs: bool = False, device=None):
-        if image_obs:
-            raise NotImplementedError("pixel observations are not ported yet")
+    def __init__(self, image_obs: bool = False, render_size: int = 128, device=None):
+        self.image_obs = bool(image_obs)
+        self.render_size = int(render_size)
         self.device = resolve_device(device)
         self._bounds = torch.as_tensor(CARTESIAN_BOUNDS, device=self.device)
         self._sampling = torch.as_tensor(SAMPLING_BOUNDS, device=self.device)
@@ -115,15 +126,17 @@ class PandaPickCubeEnv:
         action: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         reset_xy: Optional[torch.Tensor] = None,
+        final_obs: bool = True,
     ):
         """Step; where an episode ends, swap in a freshly reset env.
 
         Returns (state, obs, reward, done, info) where `obs` is the reset
-        observation for ended envs (gym vector-env autoreset) and
-        info["final_obs"] the pre-reset terminal observation. Every state
-        field is swapped and the ep_id of a reset env is the old one + 1.
-        Reset positions are drawn for all envs every step from `generator`
-        (no host sync on `done`), unless `reset_xy` gives them."""
+        observation for ended envs (gym vector-env autoreset) and, when
+        `final_obs`, info["final_obs"] the pre-reset terminal observation
+        (with images, a second render). Every state field is swapped and the
+        ep_id of a reset env is the old one + 1. Reset positions are drawn
+        for all envs every step from `generator` (no host sync on `done`),
+        unless `reset_xy` gives them."""
         stepped, reward, done, info = self._step_state(state, action)
         n = action.shape[0]
         if reset_xy is None:
@@ -140,21 +153,24 @@ class PandaPickCubeEnv:
         )
         out_obs = self._obs(new_state)
         info = dict(info)
-        info["final_obs"] = self._obs(stepped)
+        if final_obs:
+            info["final_obs"] = self._obs(stepped)
         return new_state, out_obs, reward, done, info
 
     # ------------------------------------------------------------------ #
 
     def _obs(self, state: EnvState) -> Dict:
         tcp_pos, tcp_vel, block_pos = engine.observe(state.physics)
-        return {
-            "state": {
-                "panda/tcp_pos": tcp_pos,
-                "panda/tcp_vel": tcp_vel,
-                "panda/gripper_pos": (state.physics.grip_ctrl / 255.0)[:, None],
-                "block_pos": block_pos,
-            }
+        obs_state = {
+            "panda/tcp_pos": tcp_pos,
+            "panda/tcp_vel": tcp_vel,
+            "panda/gripper_pos": (state.physics.grip_ctrl / 255.0)[:, None],
         }
+        if self.image_obs:
+            front, wrist = render_cameras(state.physics, self.render_size)
+            return {"state": obs_state, "images": {"front": front, "wrist": wrist}}
+        obs_state["block_pos"] = block_pos
+        return {"state": obs_state}
 
     def _reward(self, state: EnvState) -> torch.Tensor:
         """0.3 * exp(-20 dist(tcp, block)) + 0.7 * lift progress."""

@@ -6,6 +6,7 @@ linkage, the MuJoCo `fingers_actuator` acts on theta, and contact forces on
 the pads feed back through d(pad pos)/d(theta). Batched over leading axes.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -66,17 +67,23 @@ def pad_kinematics(theta: torch.Tensor) -> PadKin:
     dz = polyval(DZ_POLY, theta)
     y_face = y - PAD_HALF_Y  # inner face of the pad box
     zero = torch.zeros_like(y)
-    pts, norms, jacs = [], [], []
+    pts, jacs = [], []
     for side in (+1.0, -1.0):  # right (+y), left (-y)
         for dzb in PAD_BOX_DZ:
             pts.append(torch.stack([zero, side * y_face, z + dzb], -1))
-            norms.append([0.0, -side, 0.0])
             jacs.append(torch.stack([zero, side * dy, dz], -1))
     return PadKin(
         points=torch.stack(pts, -2),
-        normals=theta.new_tensor(norms),
+        normals=_pad_normals(theta.device, theta.dtype),
         dpoint_dtheta=torch.stack(jacs, -2),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _pad_normals(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """(4, 3) inward pad normals, made once per device (no copy per call)."""
+    norms = [[0.0, -side, 0.0] for side in (+1.0, -1.0) for _ in PAD_BOX_DZ]
+    return torch.tensor(norms, dtype=dtype, device=device)
 
 
 def actuator_force(ctrl, theta, dtheta):

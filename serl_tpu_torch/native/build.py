@@ -21,6 +21,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Flags of one source only. The renderer must round where its plain version
+# rounds, so no multiply-add is fused there (render.cuh says why).
+EXTRA_FLAGS = {"render": ("-fmad=false",)}
 
 
 def find_nvcc() -> str:
@@ -34,8 +37,12 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _source_hash(source: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def _source_hash(name: str, source: str) -> str:
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -44,7 +51,7 @@ def _source_hash(source: str) -> str:
 
 def _output(name: str):
     source = os.path.join(CSRC, f"{name}.cu")
-    return source, os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(source)}.so")
+    return source, os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(name, source)}.so")
 
 
 def build_all(names) -> dict:
@@ -58,7 +65,7 @@ def build_all(names) -> dict:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        started[name] = (subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+        started[name] = (subprocess.Popen([find_nvcc(), *_flags(name), "-o", tmp, source],
                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                           text=True), source, tmp, out)
     failed = []

@@ -1,7 +1,9 @@
 """Actor/learner training loop over N lockstep envs.
 
-Port of `serl_tpu/training/loop.py::make_fused_loop` and `evaluate` for
-state observations. Per iteration every env takes one step (uniform random
+Port of `serl_tpu/training/loop.py::make_fused_loop` and `evaluate`, for
+state observations (flat vectors) and pixels (the SERL flat convention
+{"state": vec, "<image key>": frame}: the buffer stores single frames and
+the agent sees an explicit T = 1 stack axis). Per iteration every env takes one step (uniform random
 actions while `env_steps < random_steps`, policy samples after), the
 transitions go into the (slots, streams) replay ring, and the episode
 statistics are kept on the device. Once the buffer holds
@@ -11,8 +13,8 @@ insert on host integers, the learner runs `updates_per_iter` x (sample ->
 iterations as one jitted `lax.scan`; here it is a Python loop over eager
 PyTorch and the kernels, with no host sync inside an iteration.
 
-Not ported yet, and raising rather than passing silently: pixel buffers,
-demo buffers and interventions.
+Not ported yet, and raising rather than passing silently: the loop's
+frame-stack history (`num_stack > 1`), demo buffers and interventions.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from serl_tpu_torch.agents.sac import SACAgent
 from serl_tpu_torch.data.replay_buffer import ReplayBuffer, ReplayBufferState
 from serl_tpu_torch.envs.panda_pick import ACTION_DIM, PandaPickCubeEnv, flatten_obs
+from serl_tpu_torch.envs.wrappers import add_stack_axis, serl_obs
 
 
 class LoopConfig(NamedTuple):
@@ -43,7 +46,7 @@ class LoopConfig(NamedTuple):
 class LoopCarry(NamedTuple):
     agent: SACAgent
     env_states: Any
-    obs: torch.Tensor  # flattened (N, obs_dim)
+    obs: Any  # flattened (N, obs_dim), or the SERL pixel dict
     rb_state: ReplayBufferState
     rng: torch.Generator  # on the env's device
     env_steps: int  # total transitions collected
@@ -69,8 +72,11 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
     run_chunk(carry, num_iters) -> (carry, metrics dict of (num_iters,) tensors)
     with the JAX package's metric names.
     """
-    if rb.image_keys:
-        raise NotImplementedError("pixel observations are not ported yet")
+    pixel_keys = rb.image_keys
+    if pixel_keys and rb.num_stack > 1:
+        raise NotImplementedError("the loop's frame-stack history (num_stack > 1) is not ported yet")
+    if pixel_keys and rb.store_next_obs:
+        raise NotImplementedError("pixel buffers that store next_observations are not ported")
     if config.intervention_prob > 0.0 or expert_fn is not None:
         raise NotImplementedError("interventions are not ported yet")
     action_dim = getattr(env, "ACTION_DIM", ACTION_DIM)
@@ -79,6 +85,12 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
     # rb_state.size counts SLOTS; each slot holds num_envs transitions
     train_threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
     env_index = torch.arange(num_envs, dtype=torch.int32, device=device)
+
+    def to_buffer_obs(obs_dict):
+        return serl_obs(obs_dict) if pixel_keys else flatten_obs(obs_dict)
+
+    def to_agent_obs(obs):
+        return add_stack_axis(obs, pixel_keys) if pixel_keys else obs
 
     def init_fn(agent, rng, demo_state=None):
         if demo_state is not None:
@@ -89,7 +101,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         return LoopCarry(
             agent=agent,
             env_states=env_states,
-            obs=flatten_obs(obs),
+            obs=to_buffer_obs(obs),
             rb_state=rb.init_state(streams=num_envs),
             rng=g,
             env_steps=0,
@@ -106,11 +118,13 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         if carry.env_steps < config.random_steps:
             actions = torch.rand((num_envs, action_dim), generator=g, device=device) * 2.0 - 1.0
         else:
-            actions = carry.agent.sample_actions(carry.obs, generator=g)
+            actions = carry.agent.sample_actions(to_agent_obs(carry.obs), generator=g)
+        # the pre-reset observation is a second render with pixels: ask for
+        # it only where the buffer stores it
         env_states, next_obs_d, rewards, dones, info = env.step_auto_reset(
-            carry.env_states, actions, generator=g
+            carry.env_states, actions, generator=g, final_obs=rb.store_next_obs
         )
-        next_obs = flatten_obs(next_obs_d)
+        next_obs = to_buffer_obs(next_obs_d)
 
         transitions = {
             "observations": carry.obs,
@@ -122,7 +136,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         }
         if rb.store_next_obs:
             # the pre-reset terminal obs is the true successor
-            transitions["next_observations"] = flatten_obs(info["final_obs"])
+            transitions["next_observations"] = to_buffer_obs(info["final_obs"])
         ep_ids = carry.env_states.ep_id * num_envs + env_index
         rb_state = rb.insert(carry.rb_state, transitions, ep_ids)
 
@@ -183,15 +197,22 @@ def evaluate(env: PandaPickCubeEnv, agent: SACAgent, rng=None, num_episodes: int
              pixel_keys=(), num_stack: int = 1):
     """Deterministic (argmax) policy evaluation: `num_episodes` full episodes
     in lockstep, each `env.time_limit_steps` long. `rng` (a torch.Generator on
-    the env's device, or an int seed) draws the reset cube positions."""
-    if pixel_keys or num_stack != 1:
-        raise NotImplementedError("pixel observations are not ported yet")
+    the env's device, or an int seed) draws the reset cube positions.
+    `pixel_keys` switches the observations to the SERL pixel convention
+    with a T = 1 stack axis (a longer stack is not ported yet)."""
+    if num_stack != 1:
+        raise NotImplementedError("frame-stack histories (num_stack > 1) are not ported yet")
+    pixel_keys = tuple(pixel_keys)
+
+    def obs_fn(o):
+        return add_stack_axis(serl_obs(o), pixel_keys) if pixel_keys else flatten_obs(o)
+
     episode_len = int(getattr(env, "time_limit_steps", 100))
     states, obs = env.reset(num_episodes, _generator(rng, env.device))
     ret = torch.zeros((num_episodes,), device=env.device)
     succ = torch.zeros((num_episodes,), device=env.device)
     for _ in range(episode_len):
-        actions = agent.sample_actions(flatten_obs(obs), argmax=True)
+        actions = agent.sample_actions(obs_fn(obs), argmax=True)
         states, obs, r, _, info = env.step(states, actions)
         ret = ret + r
         succ = torch.maximum(succ, info["success"])

@@ -3,14 +3,21 @@
 The JAX agent's params are a nested dict
     {"actor": {"MLP_0": {"Dense_i": {kernel, bias}, "LayerNorm_i": {scale, bias}},
                "Dense_0": means, "Dense_1": log-std head | "log_stds": (A,)},
-     "critic": {"encoder": {},
+     "critic": {"encoder": {} for state agents, for pixel agents
+                    {"encoders_<key>": {"Conv_i": {kernel (3,3,in,out), bias},
+                                        "Dense_0": bottleneck, "LayerNorm_0": {scale, bias}},
+                     "Dense_0": proprio, "LayerNorm_0": proprio norm},
                 "head": {"EnsembleMLP_0": {"EnsembleDense_i": {kernel (E,in,out), bias (E,out)},
                                            "LayerNorm_i": {scale, bias}},
                          "EnsembleDense_0": {kernel, bias}}},
      "temperature": {"raw": ()}}
 whose leaves are numpy arrays here (this module never imports JAX). Dense
-kernels (in, out) become Linear weights (out, in); LayerNorm `scale` becomes
-`weight`; ensemble kernels keep their (E, in, out) layout.
+kernels (in, out) become Linear weights (out, in); conv kernels (H, W, in,
+out) become Conv2d weights (out, in, H, W); LayerNorm `scale` becomes
+`weight`; ensemble kernels keep their (E, in, out) layout. These are the
+names flax's `ObsEncoder.init` gives (`make_image_encoders` names each
+camera's encoder after its key; one encoder shared by several keys sits
+under the first key's name).
 
 `load_train_state` / `train_state_to_jax_layout` carry the whole learner
 state: params, the target critic and each group's optimizer state, as
@@ -31,48 +38,106 @@ import torch
 from serl_tpu_torch.agents.sac import SACAgent
 
 
+def _to_torch(value: torch.Tensor, layout) -> torch.Tensor:
+    if layout == "T":
+        return value.T
+    if layout == "HWIO":
+        return value.permute(3, 2, 0, 1)
+    return value
+
+
+def _to_jax(value: torch.Tensor, layout) -> torch.Tensor:
+    if layout == "T":
+        return value.T
+    if layout == "HWIO":
+        return value.permute(2, 3, 1, 0)
+    return value
+
+
+def _dense(path, layer):
+    return [(path + ("kernel",), layer.weight, "T"), (path + ("bias",), layer.bias, None)]
+
+
+def _norm(path, norm):
+    return [(path + ("scale",), norm.weight, None), (path + ("bias",), norm.bias, None)]
+
+
+def _encoder_pairs(encoder, root=("critic", "encoder")):
+    """(jax path, tensor, layout) of an ObsEncoder's parameters."""
+    out, seen = [], set()
+    for key in encoder.image_keys:
+        enc = encoder.encoders[key]
+        if id(enc) in seen:
+            continue
+        seen.add(id(enc))
+        prefix = root + (f"encoders_{key}",)
+        for i, conv in enumerate(enc.convs):
+            out += [(prefix + (f"Conv_{i}", "kernel"), conv.weight, "HWIO"),
+                    (prefix + (f"Conv_{i}", "bias"), conv.bias, None)]
+        if enc.bottleneck is not None:
+            out += _dense(prefix + ("Dense_0",), enc.bottleneck.dense)
+            out += _norm(prefix + ("LayerNorm_0",), enc.bottleneck.norm)
+    if encoder.proprio is not None:
+        out += _dense(root + ("Dense_0",), encoder.proprio)
+        out += _norm(root + ("LayerNorm_0",), encoder.proprio_norm)
+    return out
+
+
 def _pairs(agent: SACAgent):
-    """(jax path, torch tensor, transpose?) for every parameter."""
+    """(jax path, torch tensor, layout) for every parameter; layout None
+    (as it is), "T" (transposed) or "HWIO" (conv kernel)."""
     out = []
     actor = agent.actor
     for i, layer in enumerate(actor.trunk.dense):
-        out += [(("actor", "MLP_0", f"Dense_{i}", "kernel"), layer.weight, True),
-                (("actor", "MLP_0", f"Dense_{i}", "bias"), layer.bias, False)]
+        out += _dense(("actor", "MLP_0", f"Dense_{i}"), layer)
     for i, norm in enumerate(actor.trunk.norms or []):
-        out += [(("actor", "MLP_0", f"LayerNorm_{i}", "scale"), norm.weight, False),
-                (("actor", "MLP_0", f"LayerNorm_{i}", "bias"), norm.bias, False)]
-    out += [(("actor", "Dense_0", "kernel"), actor.mean.weight, True),
-            (("actor", "Dense_0", "bias"), actor.mean.bias, False)]
+        out += _norm(("actor", "MLP_0", f"LayerNorm_{i}"), norm)
+    out += _dense(("actor", "Dense_0"), actor.mean)
     if actor.std_head is not None:
-        out += [(("actor", "Dense_1", "kernel"), actor.std_head.weight, True),
-                (("actor", "Dense_1", "bias"), actor.std_head.bias, False)]
+        out += _dense(("actor", "Dense_1"), actor.std_head)
     if actor.log_stds is not None:
-        out += [(("actor", "log_stds"), actor.log_stds, False)]
+        out += [(("actor", "log_stds"), actor.log_stds, None)]
+    if agent.encoder is not None:
+        out += _encoder_pairs(agent.encoder)
     head = ("critic", "head")
     critic = agent.critic
     for i, layer in enumerate(critic.trunk.dense):
-        out += [(head + ("EnsembleMLP_0", f"EnsembleDense_{i}", "kernel"), layer.kernel, False),
-                (head + ("EnsembleMLP_0", f"EnsembleDense_{i}", "bias"), layer.bias, False)]
+        out += [(head + ("EnsembleMLP_0", f"EnsembleDense_{i}", "kernel"), layer.kernel, None),
+                (head + ("EnsembleMLP_0", f"EnsembleDense_{i}", "bias"), layer.bias, None)]
     for i, norm in enumerate(critic.trunk.norms or []):
-        out += [(head + ("EnsembleMLP_0", f"LayerNorm_{i}", "scale"), norm.weight, False),
-                (head + ("EnsembleMLP_0", f"LayerNorm_{i}", "bias"), norm.bias, False)]
-    out += [(head + ("EnsembleDense_0", "kernel"), critic.head.kernel, False),
-            (head + ("EnsembleDense_0", "bias"), critic.head.bias, False)]
-    out += [(("temperature", "raw"), agent.temperature_raw, False)]
+        out += _norm(head + ("EnsembleMLP_0", f"LayerNorm_{i}"), norm)
+    out += [(head + ("EnsembleDense_0", "kernel"), critic.head.kernel, None),
+            (head + ("EnsembleDense_0", "bias"), critic.head.bias, None)]
+    out += [(("temperature", "raw"), agent.temperature_raw, None)]
     return out
+
+
+def load_encoder_params(encoder, tree: Dict):
+    """Copy flax `ObsEncoder` params `tree` (numpy leaves) into the port's
+    ObsEncoder `encoder` (in place)."""
+    with torch.no_grad():
+        for path, tensor, layout in _encoder_pairs(encoder, root=()):
+            node = tree
+            for key in path:
+                node = node[key]
+            value = _to_torch(torch.from_numpy(np.array(node, np.float32)), layout)
+            if value.shape != tensor.shape:
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}, "
+                                 f"port expects {tuple(tensor.shape)}")
+            tensor.copy_(value)
+    return encoder
 
 
 def load_sac_params(agent: SACAgent, params_np: Dict) -> SACAgent:
     """Copy the JAX-layout params `params_np` into `agent` (in place)."""
-    if params_np["critic"].get("encoder"):
+    if params_np["critic"].get("encoder") and agent.encoder is None:
         raise ValueError("state agents have no encoder params")
     with torch.no_grad():
-        for path, tensor, transpose in _pairs(agent):
+        for path, tensor, layout in _pairs(agent):
             node = params_np
             for key in path:
                 node = node[key]
-            value = torch.as_tensor(np.asarray(node, np.float32))
-            value = value.T if transpose else value
+            value = _to_torch(torch.from_numpy(np.array(node, np.float32)), layout)
             if value.shape != tensor.shape:
                 raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}, "
                                  f"port expects {tuple(tensor.shape)}")
@@ -84,45 +149,42 @@ def to_jax_layout(agent: SACAgent) -> Dict:
     """The inverse of `load_sac_params`: the agent's params as the JAX
     package's nested dict of numpy arrays."""
     tree = {"critic": {"encoder": {}}}
-    for path, tensor, transpose in _pairs(agent):
-        value = tensor.detach().cpu()
+    for path, tensor, layout in _pairs(agent):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = (value.T if transpose else value).numpy().copy()
+        node[path[-1]] = _to_jax(tensor.detach().cpu(), layout).numpy().copy()
     return tree
 
 
 
 def _group_pairs(agent: SACAgent, group: str):
     """(jax path within the group, index in the group's tensor list,
-    transpose?) for every parameter of a train-state group."""
+    layout) for every parameter of a train-state group."""
     params = agent.state.params[group]
-    return [(path[1:], next(i for i, p in enumerate(params) if p is tensor), transpose)
-            for path, tensor, transpose in _pairs(agent) if path[0] == group]
+    return [(path[1:], next(i for i, p in enumerate(params) if p is tensor), layout)
+            for path, tensor, layout in _pairs(agent) if path[0] == group]
 
 
 def group_tree(agent: SACAgent, group: str, tensors) -> Dict:
     """A list of tensors aligned with `agent.state.params[group]` (params,
     grads, targets, Adam moments) as the JAX package's tree for that group."""
     tree = {"encoder": {}} if group == "critic" else {}
-    for path, i, transpose in _group_pairs(agent, group):
-        value = tensors[i].detach().cpu()
+    for path, i, layout in _group_pairs(agent, group):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = (value.T if transpose else value).numpy().copy()
+        node[path[-1]] = _to_jax(tensors[i].detach().cpu(), layout).numpy().copy()
     return tree
 
 
 def _load_group(agent: SACAgent, group: str, tree: Dict, tensors) -> None:
     with torch.no_grad():
-        for path, i, transpose in _group_pairs(agent, group):
+        for path, i, layout in _group_pairs(agent, group):
             node = tree
             for key in path:
                 node = node[key]
-            value = torch.as_tensor(np.asarray(node, np.float32))
-            value = value.T if transpose else value
+            value = _to_torch(torch.from_numpy(np.array(node, np.float32)), layout)
             if value.shape != tensors[i].shape:
                 raise ValueError(f"{group}/{'/'.join(path)}: shape {tuple(value.shape)}, "
                                  f"port expects {tuple(tensors[i].shape)}")

@@ -1,0 +1,89 @@
+"""Observation -> flat-feature encoder over dict observations.
+
+Port of `ObsEncoder` from `serl_tpu/vision/encoding.py`: per-camera
+encoders, each camera's frame stack folded into channels
+((B, T, H, W, C) -> (B, H, W, T * C)), the proprio state through Dense(64)
+(xavier_uniform) -> LayerNorm -> tanh (K5), and the concatenation camera
+features in `image_keys` order, then proprio.
+
+`shared_batch_concat` is ported as it is: it takes effect only when one
+encoder module serves every camera (the images are then stacked on the
+batch axis and run through it once). The DrQ factory defaults it to True,
+which with separate per-camera encoders changes nothing (an inherited
+quirk). The goal- and language-conditioned encoders are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from serl_tpu_torch.networks.layer_norm_tanh import LAYER_NORM_EPS, layer_norm_tanh
+from serl_tpu_torch.networks.mlp import dense
+
+
+def fold_stack(x: torch.Tensor) -> torch.Tensor:
+    """(..., T, H, W, C) -> (..., H, W, T * C); unstacked images pass."""
+    if x.dim() == 4:  # T H W C
+        t, h, w, c = x.shape
+        return x.permute(1, 2, 0, 3).reshape(h, w, t * c)
+    if x.dim() == 5:  # B T H W C
+        b, t, h, w, c = x.shape
+        return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
+    return x
+
+
+class ObsEncoder(nn.Module):
+    """Dict obs {"state": proprio, "<image_key>": images} (or with the images
+    under "images") -> flat features. `encoders` maps each image key to its
+    encoder module (one module may serve several keys)."""
+
+    def __init__(
+        self,
+        encoders: Dict[str, nn.Module],
+        image_keys: Sequence[str],
+        state_dim: int,
+        use_proprio: bool = True,
+        proprio_latent_dim: int = 64,
+        enable_stacking: bool = True,
+        shared_batch_concat: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.image_keys = tuple(image_keys)
+        self.encoders = nn.ModuleDict({k: encoders[k] for k in self.image_keys})
+        self.use_proprio = use_proprio
+        self.enable_stacking = enable_stacking
+        self.shared_batch_concat = shared_batch_concat
+        self.out_features = sum(encoders[k].out_features for k in self.image_keys)
+        self.proprio = self.proprio_norm = None
+        if use_proprio:
+            self.proprio = dense(state_dim, proprio_latent_dim, generator)
+            self.proprio_norm = nn.LayerNorm(proprio_latent_dim, eps=LAYER_NORM_EPS)
+            self.out_features += proprio_latent_dim
+
+    def forward(self, observations: Dict) -> torch.Tensor:
+        images = observations.get("images", observations)
+        imgs = [fold_stack(images[k]) if self.enable_stacking else images[k]
+                for k in self.image_keys]
+        shared = (self.shared_batch_concat and len(self.image_keys) > 1
+                  and len({id(self.encoders[k]) for k in self.image_keys}) == 1
+                  and imgs[0].dim() == 4)
+        if shared:
+            feats = self.encoders[self.image_keys[0]](torch.cat(imgs, 0))
+            encoded = torch.cat(torch.chunk(feats, len(self.image_keys), 0), -1)
+        else:
+            encoded = torch.cat([self.encoders[k](img) for k, img in zip(self.image_keys, imgs)],
+                                -1)
+        if self.use_proprio:
+            state = observations["state"]
+            if isinstance(state, dict):
+                state = torch.cat([state[k] for k in sorted(state)], -1)
+            if self.enable_stacking and state.dim() == encoded.dim() + 1:
+                state = state.reshape(state.shape[:-2] + (-1,))
+            state = layer_norm_tanh(self.proprio(state).contiguous(), self.proprio_norm.weight,
+                                    self.proprio_norm.bias)
+            encoded = torch.cat([encoded, state], -1)
+        return encoded

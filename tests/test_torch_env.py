@@ -160,8 +160,15 @@ def test_torch_step_auto_reset_swaps_every_field_and_counts_episodes(jenv):
 
 
 def test_torch_env_pixels_and_cuda_without_card_raise():
-    with pytest.raises(NotImplementedError):
-        panda_pick.PandaPickCubeEnv(image_obs=True, device="cpu")
+    # pixel observations are ported: the state part without block_pos, and
+    # both cameras' uint8 frames (tests/test_torch_render.py holds them to JAX)
+    env = panda_pick.PandaPickCubeEnv(image_obs=True, render_size=16, device="cpu")
+    state, obs = env.reset(2, torch.Generator().manual_seed(0))
+    assert sorted(obs["state"]) == ["panda/gripper_pos", "panda/tcp_pos", "panda/tcp_vel"]
+    for k in ("front", "wrist"):
+        assert obs["images"][k].shape == (2, 16, 16, 3) and obs["images"][k].dtype == torch.uint8
+    _, _, _, _, info = env.step_auto_reset(state, torch.zeros(2, 4), final_obs=False)
+    assert "final_obs" not in info
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             panda_pick.PandaPickCubeEnv()  # the default device is CUDA
