@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (serl_tpu_torch) runs on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, and the result lines
+    python3 chip_smoke.py --kernels    # phases 1 and 2 and K5's times only
 
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. device: the card's name and power limit; build the CUDA kernels from the
      sources in this checkout, one nvcc per source started together (K1, the
      control step, serl_tpu_torch/csrc/control_step.cu; K2, the renderer,
      csrc/render.cu; K3, the random crop, csrc/random_crop.cu; K4, the replay
-     gather, csrc/replay_gather.cu) while Triton compiles K5 (LayerNorm +
-     tanh, serl_tpu_torch/networks/layer_norm_tanh.py), and the host builds
-     of K1's and K2's code that count their operations (tests/k1_host.cpp,
-     tests/k2_host.cpp, g++); print the build times and ptxas lines;
+     gather, csrc/replay_gather.cu; K5, Dense + LayerNorm + tanh forward and
+     backward, csrc/dense_layer_norm_tanh.cu) while g++ builds K1's and K2's
+     code for the host to count their operations (tests/k1_host.cpp,
+     tests/k2_host.cpp); print the build times and ptxas lines;
   2. every kernel against its plain version on the card: K1 at N = 128 and
      2048 env states from two sources (a plain-version rollout with random
      actions, and constructed grasp states with the cube between the pads),
@@ -25,8 +26,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      rows, next_observations stored and not) and at the pixel path's (625 x
      16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
      rings with episode boundaries and the seam: exactly equal; K5 forward
-     and backward at (10, 256, 256), (10, 2048, 256) and (2048, 256) under
-     stated tolerances;
+     and backward at every (E, M, K, D) of K5_SHAPES under the rule of
+     tests/torch_k5.py, its weight-grad sums repeating bit for bit;
   3. the actor path: make_state_sim_experiment with 128 envs and the
      full-width networks, 20 loop iterations (8 random, 12 policy) and a
      128-episode evaluate; the state learner path: bench.py::bench_state's
@@ -43,14 +44,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      params must move;
   4. times on the card: each kernel and its plain version at its path's
      shapes (calls back to back between one pair of CUDA events, and the
-     kernel's device time from torch.profiler) beside its bound, where an
+     kernel's device time from torch.profiler) beside its bound, K5 also
+     beside the torch sequence it replaced (Dense, bias, tanh(layer_norm),
+     and that sequence's autograd backward), per call and on the device, where an
      actor step's, a state learner iteration's and a pixel iteration's time
      go, the learner steps run under torch.cuda.set_sync_debug_mode("error"),
      and the device busy share of the loops (torch.profiler).
 It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
-repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py);
-it never imports JAX or serl_tpu.
+repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py,
+tests/torch_k5.py); it never imports JAX or serl_tpu.
 """
 
 import importlib.util
@@ -65,9 +68,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
+# cores, dense TF32 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12
 BOUND_N = (128, 2048)
 MAIN_ENVS = 128
 # bench.py::bench_state's configuration, passed to make_state_sim_experiment
@@ -85,19 +90,34 @@ PIXEL_SIZE = 128
 IMAGE_KEYS = ("front", "wrist")
 K2_N = (16, 128)
 K3_SHAPES = ((1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3), (1024, 3, PIXEL_SIZE, PIXEL_SIZE, 3))
-K5_SHAPES = ((10, 256, 256), (10, 2048, 256), (2048, 256))
-K5_MAIN = (10, 256, 256)  # the shape of most K5 launches: the critic updates
-# whether the main path's backward at each shape computes dw and db: not at
-# (10, 2048, 256), the actor loss's pass through the critic's constants
-K5_WEIGHT_GRADS = {(10, 256, 256): True, (10, 2048, 256): False, (2048, 256): True}
-# K5's float operations per element, counted in its kernels' code (the
-# per-row statistics add a few per row, left out): forward 13 (mean and
-# variance sums 3, centre 1, scale and shift 3, tanh by exp 6), backward 16
-K5_OPS_PER_ELEMENT = {"fwd": 13, "bwd": 16}
+# K5's calls on the main paths, (form, E, M, K, D) -> (whether that call's
+# backward computes the weight grads, dgamma, dbeta, dbias and dW: not in
+# the actor loss's pass through the critic's constants; whether it needs
+# dx: not where x is an observation or a replayed action). Forms: "shared",
+# one x through the E members of the ensemble's first layer; "member", an x
+# per member; "linear", one nn.Linear weight.
+K5_SHAPES = {
+    ("shared", 10, 256, 14, 256): (True, False),   # state critic, layer 1 (obs 10 + action 4)
+    ("member", 10, 256, 256, 256): (True, True),   # critic, layer 2
+    ("member", 10, 2048, 256, 256): (False, True),  # the actor update's pass through the critic
+    ("linear", 1, 2048, 10, 256): (True, False),   # state policy, layer 1, actor update
+    ("linear", 1, 2048, 256, 256): (True, True),   # policy, layer 2
+    ("shared", 10, 256, 580, 256): (True, True),   # pixel critic, layer 1 (2 x 256 + 64 + 4)
+    ("linear", 1, 256, 7, 64): (True, False),      # pixel proprio Dense
+    ("linear", 1, 256, 256, 256): (True, True),    # pixel bottleneck, per camera
+}
+K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
+# K5's float operations per output element outside the product, counted in
+# its kernels' code (the per-row divisions and square root left out):
+# forward 15 (bias 1, mean sum 1, variance 3, centre, scale and shift 4,
+# tanh by exp 6); backward 14 (g 3, x_hat 2, g*gamma 1, the two row sums 3,
+# dh 5), plus 4 for the weight grads' column sums. The product itself is
+# 2 * K per element, three times over in 3xTF32 on the tensor cores.
+K5_OPS_PER_ELEMENT = {"fwd": 15, "bwd": 14, "bwd_weight_grads": 4}
 
 # Launches per learner-loop iteration, from the loss functions
 # (serl_tpu_torch/agents/sac.py). The policy MLP and the critic EnsembleMLP
-# each run 2 LayerNorm+tanh (K5) pairs per forward pass.
+# each run 2 Dense+LayerNorm+tanh (K5) layers per forward pass.
 #   critic update (x utd_ratio): next actions from the policy (2 fwd, no
 #     grad), the target critic (2 fwd, no grad), the critic (2 fwd) and its
 #     backward (2 bwd): 6 fwd, 2 bwd;
@@ -106,37 +126,32 @@ K5_OPS_PER_ELEMENT = {"fwd": 13, "bwd": 16}
 #     weight grads); the temperature loss's next actions (2 fwd, no grad):
 #     6 fwd, 4 bwd;
 #   acting: one policy sample (2 fwd), all iterations being past random_steps.
-# A K5 backward with weight grads launches the column-sum kernel after it:
-# the critic update's 2 and the actor update's 2 through the policy.
 # One sample (1 K4 launch) and one control step (1 K1 launch) per iteration.
 def learner_launches_per_iter(utd_ratio: int, updates_per_iter: int = 1) -> dict:
     return {"control_step": 1, "render": 0, "random_crop": 0,
             "replay_gather": updates_per_iter,
-            "layer_norm_tanh_fwd": updates_per_iter * (6 * utd_ratio + 6) + 2,
-            "layer_norm_tanh_bwd": updates_per_iter * (2 * utd_ratio + 4),
-            "layer_norm_tanh_colsum": updates_per_iter * (2 * utd_ratio + 2)}
+            "dense_layer_norm_tanh_fwd": updates_per_iter * (6 * utd_ratio + 6) + 2,
+            "dense_layer_norm_tanh_bwd": updates_per_iter * (2 * utd_ratio + 4)}
 
 
 # The actor path (phase 3): 20 control steps + 100 evaluate steps of K1; 2
 # K5 forwards per policy call: 12 policy iterations + 100 evaluate steps.
 ACTOR_LAUNCHES = {"control_step": 120, "render": 0, "random_crop": 0, "replay_gather": 0,
-                  "layer_norm_tanh_fwd": 2 * (12 + 100), "layer_norm_tanh_bwd": 0,
-                  "layer_norm_tanh_colsum": 0}
+                  "dense_layer_norm_tanh_fwd": 2 * (12 + 100), "dense_layer_norm_tanh_bwd": 0}
 
 
 # Launches per pixel-loop iteration (DrQ, serl_tpu_torch/agents/{drq,sac}.py).
-# An ObsEncoder pass runs 3 K5 forwards: one bottleneck LayerNorm+tanh per
-# camera and the proprio's; a policy or critic MLP pass runs 2.
+# An ObsEncoder pass runs 3 K5 forwards: one bottleneck Dense+LayerNorm+tanh
+# per camera and the proprio's; a policy or critic MLP pass runs 2.
 #   critic update (x utd_ratio): next actions (encode 3 + policy 2, no
 #     grad), the target critic on next_obs (target encoder 3 + critic 2, no
 #     grad), the critic on obs (encoder 3 + critic 2) and its backward
 #     through the critic (2) and the encoder (3), all with weight grads:
-#     15 fwd, 5 bwd, 5 column sums;
+#     15 fwd, 5 bwd;
 #   actor+temperature update: the policy (encode 3 under no_grad + policy 2),
 #     the critic on detached params (encode 3 + critic 2), backward through
 #     the critic (2, no weight grads) and the policy (2, weight grads); the
-#     temperature loss's next actions (encode 3 + policy 2): 15 fwd, 4 bwd,
-#     2 column sums;
+#     temperature loss's next actions (encode 3 + policy 2): 15 fwd, 4 bwd;
 #   acting: one policy sample (encode 3 + policy 2), random_steps being 0.
 # Per update_high_utd one sample (K4) and one crop launch (K3: obs and
 # next_obs of both cameras); per iteration one control step (K1) and one
@@ -145,22 +160,8 @@ ACTOR_LAUNCHES = {"control_step": 120, "render": 0, "random_crop": 0, "replay_ga
 def pixel_launches_per_iter(utd_ratio: int, updates_per_iter: int) -> dict:
     return {"control_step": 1, "render": 1, "random_crop": updates_per_iter,
             "replay_gather": updates_per_iter,
-            "layer_norm_tanh_fwd": updates_per_iter * (15 * utd_ratio + 15) + 5,
-            "layer_norm_tanh_bwd": updates_per_iter * (5 * utd_ratio + 4),
-            "layer_norm_tanh_colsum": updates_per_iter * (5 * utd_ratio + 2)}
-
-
-# K5 tolerances (kernel against its plain version, both fp32 on the card):
-#   y: 1e-5 abs. Outputs are in (-1, 1); the row sums of 256 floats are
-#     taken in another order and the kernel's exp, sqrt and division are
-#     Triton's fast forms (a few ulp), which moves z = x_hat * w + b by
-#     ~1e-6 where tanh is not saturated.
-#   dx: 1e-4 abs, 2.5e-5 of the largest |dx| (~4 here): the same rounding
-#     through rstd and the two row means of the backward.
-#   dw, db: 5e-5 of the column sums of |g * x_hat| and |g|: sums of up to
-#     20,480 rows in another order (per-program partials, then a column sum)
-#     round like a random walk, ~sqrt(n) * 2^-24 = 8.5e-6 of those sums.
-K5_ATOL_Y, K5_ATOL_DX, K5_REL_DWB = 1e-5, 1e-4, 5e-5
+            "dense_layer_norm_tanh_fwd": updates_per_iter * (15 * utd_ratio + 15) + 5,
+            "dense_layer_norm_tanh_bwd": updates_per_iter * (5 * utd_ratio + 4)}
 
 
 def fail(msg: str) -> int:
@@ -214,21 +215,24 @@ def per_call_ms(fn, calls: int, repeats: int = 5) -> float:
 
 def profiled_kernel_ms(fn, calls: int, kernels):
     """Device time per call of fn spent in kernels whose names contain one
-    of `kernels`, from a torch.profiler trace of `calls` calls, or None when
-    the profiler records no device time for them."""
+    of `kernels` ("" for every kernel), from a torch.profiler trace of
+    `calls` calls, or None when three traces record no device time for them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
-    total_us = sum(e.self_device_time_total for e in events)
-    return total_us / 1e3 / calls if events and total_us > 0 else None
+    for _ in range(3):  # a trace now and then records no device time: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            return total_us / 1e3 / calls
+    return None
 
 
 def busy_share(torch, run, iters: int):
@@ -255,39 +259,39 @@ def busy_share(torch, run, iters: int):
     return wall_ms, sum(by_name.values()), by_name, by_op
 
 
-def bound(bytes_moved: float, ops: float):
-    """(bound ms, what bounds it) on an H100 SXM at its data-sheet rates."""
+def bound(bytes_moved: float, ops: float, tf32_ops: float = 0.0):
+    """(bound ms, what bounds it) on an H100 SXM at its data-sheet rates:
+    `ops` fp32 operations on the CUDA cores, `tf32_ops` on the tensor cores
+    (the two units may overlap, so the larger of their times counts)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / PEAK_FP32_OPS_PER_S, tf32_ops / PEAK_TF32_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def launch_counters():
-    """Every kernel launch counter of the port, (wrapper, attribute) by the
-    kernel's name in the counts. K5's backward wrapper launches two kernels,
-    the backward and (with weight grads) the column sum, and counts each."""
+    """Every kernel wrapper of the port, by the kernel's name in the counts;
+    each counts its launches in `.launches`."""
     from serl_tpu_torch.data import replay_buffer
     from serl_tpu_torch.envs import rendering
     from serl_tpu_torch.envs.physics import engine
-    from serl_tpu_torch.networks import layer_norm_tanh as k5
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
     from serl_tpu_torch.vision import augmentations
 
-    return {"control_step": (engine.control_step, "launches"),
-            "render": (rendering.render_cameras, "launches"),
-            "random_crop": (augmentations.crop_images, "launches"),
-            "replay_gather": (replay_buffer.gather_batch_aligned, "launches"),
-            "layer_norm_tanh_fwd": (k5.layer_norm_tanh_forward, "launches"),
-            "layer_norm_tanh_bwd": (k5.layer_norm_tanh_backward, "launches"),
-            "layer_norm_tanh_colsum": (k5.layer_norm_tanh_backward, "colsum_launches")}
+    return {"control_step": engine.control_step,
+            "render": rendering.render_cameras,
+            "random_crop": augmentations.crop_images,
+            "replay_gather": replay_buffer.gather_batch_aligned,
+            "dense_layer_norm_tanh_fwd": k5.dense_layer_norm_tanh_forward,
+            "dense_layer_norm_tanh_bwd": k5.dense_layer_norm_tanh_backward}
 
 
 def reset_launches() -> None:
-    for wrapper, attr in launch_counters().values():
-        setattr(wrapper, attr, 0)
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in launch_counters().items()}
+    return {name: wrapper.launches for name, wrapper in launch_counters().items()}
 
 
 # ---------------------------------------------------------------- phases
@@ -393,41 +397,52 @@ def phase_k4_vs_plain(torch, device):
     return err
 
 
-def phase_k5_vs_plain(torch, device):
-    """K5 forward and backward against the plain versions, K5_SHAPES."""
-    from serl_tpu_torch.networks import layer_norm_tanh as k5
+def k5_label(shape) -> str:
+    form, e, m, k, d = shape
+    return f"{form} (E, M, K, D) = ({e}, {m}, {k}, {d})"
+
+
+def phase_k5_vs_plain(torch, k5_checks, device):
+    """K5 forward and backward against the plain versions at K5_SHAPES, under
+    the rule of tests/torch_k5.py: the forward that stores what autograd
+    needs and the one that does not; the backward with and without weight
+    grads, its dgamma, dbeta and dbias repeating bit for bit."""
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
 
     g = torch.Generator(device=device).manual_seed(5)
-    worst = {"y": 0.0, "dx": 0.0, "dw": 0.0, "db": 0.0}
+    worst = {}
     for shape in K5_SHAPES:
-        d = shape[-1]
-        x = (torch.randn(shape, generator=g, device=device) * 1.5
-             + torch.randn(shape[:-1] + (1,), generator=g, device=device)).reshape(-1, d)
-        w = 1.0 + 0.3 * torch.randn(d, generator=g, device=device)
-        b = 0.2 * torch.randn(d, generator=g, device=device)
-        dy = torch.randn(x.shape, generator=g, device=device)
-        y, mean, rstd = k5.layer_norm_tanh_forward(x, w, b)
-        dx, dw, db = k5.layer_norm_tanh_backward(dy, x, w, mean, rstd, y)
-        dx_only, no_dw, _ = k5.layer_norm_tanh_backward(dy, x, w, mean, rstd, y,
-                                                        need_weight_grads=False)
-        py, pmean, prstd = k5.layer_norm_tanh_forward_plain(x, w, b)
-        pdx, pdw, pdb = k5.layer_norm_tanh_backward_plain(dy, x, w, pmean, prstd, py)
-        gg = dy * (1.0 - py * py)
-        x_hat = (x - pmean[:, None]) * prstd[:, None]
-        errs = {"y": float((y - py).abs().max()),
-                "dx": max(float((dx - pdx).abs().max()), float((dx_only - pdx).abs().max())),
-                "dw": float((dw - pdw).abs().max() / (gg * x_hat).abs().sum(0).max()),
-                "db": float((db - pdb).abs().max() / gg.abs().sum(0).max())}
-        limits = {"y": K5_ATOL_Y, "dx": K5_ATOL_DX, "dw": K5_REL_DWB, "db": K5_REL_DWB}
-        print(f"K5 vs plain at {shape}: max |y err| {errs['y']:.3g}, max |dx err| (with and "
-              f"without weight grads) "
-              f"{errs['dx']:.3g} (max |dx| {float(pdx.abs().max()):.3g}), dw and db err over "
-              f"their column abs sums {errs['dw']:.3g} / {errs['db']:.3g}; limits {limits}")
-        bad = [k for k in errs if not errs[k] <= limits[k]]
-        if bad or no_dw is not None:
-            raise AssertionError(f"K5 differs from plain at {shape}: {bad or 'dx-only pass'}")
-        for k in worst:
-            worst[k] = max(worst[k], errs[k])
+        form, e, m, k, d = shape
+        x, kernel, bias, gamma, beta, dy = k5_checks.inputs(form, e, m, k, d, g, device)
+        x3, w3, b2, _ = k5.member_views(x, kernel, bias, form == "member")
+        out = k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta, save=True)
+        y_only = k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta)
+        py, ph, pmean, prstd = k5.dense_layer_norm_tanh_forward_plain(x3, w3, b2, gamma, beta)
+        grads = k5.dense_layer_norm_tanh_backward(dy, py, ph, pmean, prstd, gamma)
+        again = k5.dense_layer_norm_tanh_backward(dy, py, ph, pmean, prstd, gamma)
+        dh_only = k5.dense_layer_norm_tanh_backward(dy, py, ph, pmean, prstd, gamma,
+                                                    need_weight_grads=False)
+        torch.cuda.synchronize()
+        errs, limits = k5_checks.forward_errors(x3, w3, b2, gamma, beta, *out)
+        berrs, blimits = k5_checks.backward_errors(dy, py, ph, pmean, prstd, gamma, *grads)
+        errs.update(berrs)
+        limits.update(blimits)
+        bad = k5_checks.failures(errs, limits)
+        if not torch.equal(y_only[0], out[0]):
+            bad.append("y of the forward without autograd differs from y with it")
+        if not all(torch.equal(a, b) for a, b in zip(grads[1:], again[1:])):
+            bad.append("dgamma, dbeta or dbias differ between two calls")
+        if dh_only[1] is not None or not torch.equal(dh_only[0], grads[0]):
+            bad.append("the backward without weight grads differs in dh or gave weight grads")
+        print(f"K5 vs plain at {k5_label(shape)}: errors "
+              f"{json.dumps({n: float(f'{v:.3g}') for n, v in errs.items()})} within limits "
+              f"{json.dumps({n: float(f'{v:.3g}') for n, v in limits.items()})}; y without "
+              "autograd, dh without weight grads: equal; dgamma, dbeta, dbias over two calls: "
+              "bit for bit")
+        if bad:
+            raise AssertionError(f"K5 differs from plain at {k5_label(shape)}: {bad}")
+        for name, v in errs.items():
+            worst[name] = max(worst.get(name, 0.0), v)
     return worst
 
 
@@ -597,7 +612,7 @@ def print_busy_share(torch, what: str, run, card: str, iters: int = 10) -> None:
     ours = {name: sum(ms for k, ms in by_name.items() if kernel in k)
             for name, kernel in (("K1", "control_step_kernel"), ("K2", "render_kernel"),
                                  ("K3", "random_crop_kernel"), ("K4", "replay_gather_kernel"),
-                                 ("K5", "layer_norm_tanh_"))}
+                                 ("K5", "dense_ln_tanh_"))}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
     print(f"{what}, {iters} iterations: wall {wall_ms:.2f} ms (host clock, unprofiled), device "
@@ -610,12 +625,8 @@ def print_busy_share(torch, what: str, run, card: str, iters: int = 10) -> None:
 
 
 def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk):
-    """K4 and K5 at the main path's shapes, and where a learner iteration's
-    time goes."""
-    import torch.nn.functional as F
-
+    """K4 at the main path's shape, and where a learner iteration's time goes."""
     from serl_tpu_torch.data import replay_buffer as rbm
-    from serl_tpu_torch.networks import layer_norm_tanh as k5
 
     g = torch.Generator(device=device).manual_seed(8)
     rows = {}
@@ -636,46 +647,11 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
                              calls=10),
         bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, library_ms=None)
 
-    # K5 forward and backward at each main-path shape
-    for shape in K5_SHAPES:
-        d = shape[-1]
-        m = math.prod(shape[:-1])
-        x = (torch.randn(shape, generator=g, device=device) * 1.5
-             + torch.randn(shape[:-1] + (1,), generator=g, device=device)).reshape(-1, d)
-        w = 1.0 + 0.3 * torch.randn(d, generator=g, device=device)
-        b = 0.2 * torch.randn(d, generator=g, device=device)
-        dy = torch.randn(x.shape, generator=g, device=device)
-        y, mean, rstd = k5.layer_norm_tanh_forward(x, w, b)
-        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
-        y_lib = torch.tanh(F.layer_norm(xr, (d,), wr, br, k5.LAYER_NORM_EPS))
-        wg = K5_WEIGHT_GRADS[shape]
-        fwd_bytes = 2 * m * d * 4 + 2 * d * 4 + 2 * m * 4  # x in, y out, w b in, mean rstd out
-        # dy x y in, dx out, mean rstd w in, dw db out
-        bwd_bytes = 4 * m * d * 4 + 2 * m * 4 + d * 4 + (2 * d * 4 if wg else 0)
-        lib_inputs = (xr, wr, br) if wg else (xr,)
-        for direction, fn, plain, library, nbytes, kernels in (
-            ("fwd", lambda: k5.layer_norm_tanh_forward(x, w, b),
-             lambda: k5.layer_norm_tanh_forward_plain(x, w, b),
-             lambda: torch.tanh(F.layer_norm(x, (d,), w, b, k5.LAYER_NORM_EPS)),
-             fwd_bytes, ("layer_norm_tanh_fwd_kernel",)),
-            ("bwd", lambda: k5.layer_norm_tanh_backward(dy, x, w, mean, rstd, y, wg),
-             lambda: k5.layer_norm_tanh_backward_plain(dy, x, w, mean, rstd, y, wg),
-             lambda: torch.autograd.grad(y_lib, lib_inputs, dy, retain_graph=True),
-             bwd_bytes, ("layer_norm_tanh_bwd_kernel", "layer_norm_tanh_colsum_kernel")),
-        ):
-            bound_ms, bound_by = bound(nbytes, K5_OPS_PER_ELEMENT[direction] * m * d)
-            rows[(direction, shape)] = dict(
-                ms=per_call_ms(fn, calls=50), profiler_ms=profiled_kernel_ms(fn, 50, kernels),
-                plain_ms=per_call_ms(plain, calls=20), library_ms=per_call_ms(library, calls=50),
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
     for key, row in rows.items():
-        name = key if isinstance(key, str) else f"layer_norm_tanh_{key[0]} at {key[1]}" + (
-            "" if key[0] == "fwd" or K5_WEIGHT_GRADS[key[1]] else " (no dw, db: as on the main path)")
         prof = "not measured" if row["profiler_ms"] is None else f"{row['profiler_ms']:.4f} ms"
-        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-        print(f"{name} time: kernel {row['ms']:.4f} ms per call (50 back to back, CUDA events; "
+        print(f"{key} time: kernel {row['ms']:.4f} ms per call (50 back to back, CUDA events; "
               f"torch.profiler kernel time {prof}), plain {row['plain_ms']:.4f} ms, library "
-              f"{lib}, bound {row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} "
+              f"null, bound {row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} "
               f"bytes) [{card}]")
 
     # where a learner iteration's time goes: single calls between CUDA events
@@ -712,6 +688,100 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
     print("sample + update_high_utd ran under torch.cuda.set_sync_debug_mode('error'): no host "
           "sync in the learner step")
     print_busy_share(torch, "learner loop", run, card)
+    return rows
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def phase_k5_times(torch, k5_checks, device, card):
+    """K5 at each of K5_SHAPES: the kernels' wrappers, the plain versions,
+    the op end to end (the forward through autograd; the backward with its
+    two products), and the torch sequence the op replaced (the Dense as
+    F.linear or matmul/bmm plus the bias, then tanh(F.layer_norm); its
+    autograd backward), each per call (calls back to back between CUDA
+    events) and on the device (torch.profiler: our kernel alone for the
+    wrappers, every kernel for the op and the sequence)."""
+    import torch.nn.functional as F
+
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+
+    g = torch.Generator(device=device).manual_seed(8)
+    rows = {}
+    for shape, (wg, need_dx) in K5_SHAPES.items():
+        form, e, m, k, d = shape
+        member = form == "member"
+        x, kernel, bias, gamma, beta, dy = k5_checks.inputs(form, e, m, k, d, g, device)
+        x3, w3, b2, out_shape = k5.member_views(x, kernel, bias, member)
+        y, h, mean, rstd = k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta, save=True)
+        dy_out = dy.view(out_shape)
+
+        def leaves():
+            ts = [t.detach().clone().requires_grad_(need)
+                  for t, need in zip((x, kernel, bias, gamma, beta), (need_dx,) + (wg,) * 4)]
+            return ts, [t for t in ts if t.requires_grad]
+
+        def sequence(xs, ks, bs, gs, bes):
+            if form == "linear":
+                hh = F.linear(xs, ks, bs)
+            elif member:
+                hh = torch.bmm(xs, ks) + bs[:, None, :]
+            else:
+                hh = torch.matmul(xs.reshape(1, -1, k), ks) + bs[:, None, :]
+            return torch.tanh(F.layer_norm(hh, (d,), gs, bes, k5.LAYER_NORM_EPS))
+
+        op_args, op_needed = leaves()
+        op = lambda: k5.dense_layer_norm_tanh(*op_args, member_inputs=member)
+        op_y = op()
+        seq_args, seq_needed = leaves()
+        seq = lambda: sequence(*seq_args)
+        seq_y = seq()
+        fwd_bytes = 4 * (x3.numel() + w3.numel() + b2.numel() + 2 * d + 2 * e * m * d + 2 * e * m)
+        bwd_bytes = 4 * (4 * e * m * d + 2 * e * m + d + ((2 + e) * d if wg else 0))
+        cases = {
+            "fwd": dict(
+                kernel=lambda: k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta, save=True),
+                kernel_name="dense_ln_tanh_fwd_kernel",
+                plain=lambda: k5.dense_layer_norm_tanh_forward_plain(x3, w3, b2, gamma, beta),
+                op=op, sequence=seq, bytes=fwd_bytes,
+                ops=K5_OPS_PER_ELEMENT["fwd"] * e * m * d, tf32_ops=3 * 2 * e * m * k * d),
+            "bwd": dict(
+                kernel=lambda: k5.dense_layer_norm_tanh_backward(dy, y, h, mean, rstd, gamma, wg),
+                kernel_name="dense_ln_tanh_bwd_kernel",
+                plain=lambda: k5.dense_layer_norm_tanh_backward_plain(dy, y, h, mean, rstd, gamma,
+                                                                      wg),
+                op=lambda: torch.autograd.grad(op_y, op_needed, dy_out, retain_graph=True),
+                sequence=lambda: torch.autograd.grad(seq_y, seq_needed, dy_out,
+                                                     retain_graph=True),
+                bytes=bwd_bytes, tf32_ops=0,
+                ops=(K5_OPS_PER_ELEMENT["bwd"] + wg * K5_OPS_PER_ELEMENT["bwd_weight_grads"])
+                * e * m * d),
+        }
+        for direction, c in cases.items():
+            bound_ms, bound_by = bound(c["bytes"], c["ops"], c["tf32_ops"])
+            rows[(direction, shape)] = row = dict(
+                ms=per_call_ms(c["kernel"], calls=50),
+                profiler_ms=profiled_kernel_ms(c["kernel"], 50, c["kernel_name"]),
+                plain_ms=per_call_ms(c["plain"], calls=20),
+                op_ms=per_call_ms(c["op"], calls=50),
+                op_profiler_ms=profiled_kernel_ms(c["op"], 50, ""),
+                sequence_ms=per_call_ms(c["sequence"], calls=50),
+                sequence_profiler_ms=profiled_kernel_ms(c["sequence"], 50, ""),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=c["bytes"],
+                tf32_ops=c["tf32_ops"], fp32_ops=c["ops"], library_ms=None)
+            what = ("y, h, mean, rstd stored" if direction == "fwd" else
+                    "dh" + (", dgamma, dbeta, dbias" if wg else " only (as on the main path)"))
+            print(f"K5 {direction} at {k5_label(shape)} ({what}): kernel {row['ms']:.4f} ms per "
+                  f"call (50 back to back, CUDA events), {_ms(row['profiler_ms'])} ms on the "
+                  f"device (torch.profiler); plain {row['plain_ms']:.4f} ms; the op through "
+                  f"autograd{' with its dx, dW products' if direction == 'bwd' else ''} "
+                  f"{row['op_ms']:.4f} ms per call, {_ms(row['op_profiler_ms'])} ms on the "
+                  f"device; the replaced torch sequence {row['sequence_ms']:.4f} ms per call, "
+                  f"{_ms(row['sequence_profiler_ms'])} ms on the device; bound "
+                  f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} bytes, "
+                  f"{row['tf32_ops']} TF32 tensor-core ops at 495 TFLOP/s, {row['fp32_ops']} "
+                  f"fp32 ops at 67 TFLOP/s) [{card}]")
     return rows
 
 
@@ -1013,7 +1083,7 @@ def phase_pixel_times(torch, device, card, k2, env, agent, rb, config, carry, ru
     return rows
 
 
-def kernel_table(rows, lrows, prows, errs, launches_by_path, per_iter):
+def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
     for K1, K4's state row and K5 (as in earlier runs), the pixel path for
@@ -1086,36 +1156,32 @@ def kernel_table(rows, lrows, prows, errs, launches_by_path, per_iter):
         "shape": "1024 rows of state, two 128 px uint8 frames (T = 1) for obs and next_obs, "
                  "actions, rewards, masks, dones (pixel path)",
     })
-    for direction, err in (("fwd", errs["K5"]["y"]), ("bwd", errs["K5"]["dx"])):
+    for direction, err in (("fwd", errs["K5"]["y_end_to_end"]), ("bwd", errs["K5"]["dh"])):
+        name = f"dense_layer_norm_tanh_{direction}"
         kernels.append({
-            "name": f"layer_norm_tanh_{direction}",
-            "route": "triton",
-            "source": "serl_tpu_torch/networks/layer_norm_tanh.py",
+            "name": name,
+            "route": "cuda",
+            "source": "serl_tpu_torch/csrc/dense_layer_norm_tanh.cu",
             "replaces": "serl_tpu/networks/mlp.py:95",
-            **launches(f"layer_norm_tanh_{direction}", "learner"),
-            "max_abs_err": err,
-            **{k: lrows[(direction, K5_MAIN)][k] for k in timed},
-            "shape": list(K5_MAIN),
-            "by_shape": {str(shape): {k: lrows[(direction, shape)][k]
-                                      for k in ("ms", "profiler_ms", "plain_ms", "library_ms",
-                                                "bound_ms")}
-                         for shape in K5_SHAPES},
+            **launches(name, "learner"),
+            "max_abs_err": err,  # y abs; dh relative to its largest |dh| (tests/torch_k5.py)
+            **{k: k5rows[(direction, K5_MAIN)][k] for k in timed},
+            "shape": k5_label(K5_MAIN),
+            "errors": errs["K5"],
+            "by_shape": {k5_label(shape): k5rows[(direction, shape)] for shape in K5_SHAPES},
         })
-    # the backward row's times cover both of its kernels; its column-sum
-    # launches (calls with weight grads) are counted apart
-    kernels[-1]["rel_err_dw_db"] = [errs["K5"]["dw"], errs["K5"]["db"]]
-    colsum = launches("layer_norm_tanh_colsum", "learner")
-    kernels[-1].update({f"colsum_{k}": v for k, v in colsum.items()})
     return kernels
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
+    """The whole run; with `kernels_only` (--kernels) phases 1 and 2 and K5's
+    times only, and no result lines."""
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     for part in ("serl_tpu_torch", os.path.join("tests", "torch_k1.py"),
-                 os.path.join("tests", "torch_k2.py")):
+                 os.path.join("tests", "torch_k2.py"), os.path.join("tests", "torch_k5.py")):
         if not os.path.exists(os.path.join(HERE, part)):
             return fail(f"{part} is not beside chip_smoke.py: run it from the repository")
     sys.path.insert(0, HERE)
@@ -1126,39 +1192,36 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    # phase 1: device and builds (nvcc for K1, K2, K3 and K4 in a thread, one
-    # process each, while Triton compiles K5 here)
+    # phase 1: device and builds (one nvcc per kernel source, all started
+    # together, in a thread, while g++ builds the op-counting host code here)
     card = card_line()
     print(f"card: {card}")
     from serl_tpu_torch.data import replay_buffer as rbm
     from serl_tpu_torch.envs import rendering
     from serl_tpu_torch.envs.physics import engine
     from serl_tpu_torch.native import build
-    from serl_tpu_torch.networks import layer_norm_tanh as k5
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
     from serl_tpu_torch.vision import augmentations
 
     checks = load_checks("torch_k1")
     k2 = load_checks("torch_k2")
+    k5_checks = load_checks("torch_k5")
     t0 = time.perf_counter()
     built = {}
-    sources = ("control_step", "render", "random_crop", "replay_gather")
 
     def nvcc():
         try:
-            build.build_all(sources)
+            build.build_all(build.KERNEL_SOURCES)
             built["s"] = time.perf_counter() - t0
         except Exception as exc:  # re-raised below, after the join
             built["error"] = exc
 
     thread = threading.Thread(target=nvcc)
     thread.start()
-    x = torch.randn(64, 256, device=device)
-    w, b = torch.ones(256, device=device), torch.zeros(256, device=device)
-    y, mean, rstd = k5.layer_norm_tanh_forward(x, w, b)
-    for need in (True, False):
-        k5.layer_norm_tanh_backward(x, x, w, mean, rstd, y, need_weight_grads=need)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
+    s1 = checks.reset_states(1, torch.Generator().manual_seed(0), "cpu")
+    checks.op_counts(s1)
+    k2.render_ops(s1, 8)
+    host_s = time.perf_counter() - t0
     thread.join()
     if "error" in built:
         raise built["error"]
@@ -1166,20 +1229,16 @@ def main() -> int:
     rendering._render_library()
     augmentations._crop_library()
     rbm._gather_library()
+    k5._library()
     t1 = time.perf_counter()
-    s1 = checks.reset_states(1, torch.Generator().manual_seed(0), "cpu")
-    checks.op_counts(s1)
-    k2.render_ops(s1, 8)
-    t2 = time.perf_counter()
     ptxas = {}
-    for name in sources:
+    for name in build.KERNEL_SOURCES:
         with open(os.path.join(build.BUILD_DIR, f"{name}.ptxas.txt")) as f:
             ptxas[name] = " | ".join(line.strip() for line in f
                                      if "registers" in line or "spill" in line)
-    print(f"K1, K2, K3 and K4 built with nvcc (in parallel) in {built['s']:.2f} s, K5's Triton "
-          f"kernels compiled and run in {triton_s:.2f} s, all loaded after {t1 - t0:.2f} s; "
-          f"ptxas {json.dumps(ptxas)}; K1's and K2's op-counting host builds (g++) in "
-          f"{t2 - t1:.2f} s")
+    print(f"K1-K5 built with nvcc ({', '.join(build.KERNEL_SOURCES)}, in parallel) in "
+          f"{built['s']:.2f} s, all loaded after {t1 - t0:.2f} s; ptxas {json.dumps(ptxas)}; "
+          f"K1's and K2's op-counting host builds (g++) meanwhile, done after {host_s:.2f} s")
 
     # phase 2: every kernel against its plain version
     errs = {"K1": phase_kernel_vs_plain(torch, engine, checks, device),
@@ -1187,7 +1246,12 @@ def main() -> int:
             "K3": phase_k3_vs_plain(torch, device),
             "K4": phase_k4_vs_plain(torch, device),
             "K4 pixel": phase_k4_pixel_vs_plain(torch, device),
-            "K5": phase_k5_vs_plain(torch, device)}
+            "K5": phase_k5_vs_plain(torch, k5_checks, device)}
+    if kernels_only:
+        phase_k5_times(torch, k5_checks, device, card)
+        print(f"--kernels: every kernel built and held against its plain version; "
+              f"{time.perf_counter() - t0:.1f} s from the first build")
+        return 0
 
     # phase 3: the actor path, the state learner path, the pixel path
     actor_launches, env, agent, carry, run_chunk = phase_actor_path(torch, device)
@@ -1201,12 +1265,13 @@ def main() -> int:
     lrows = phase_learner_times(torch, device, card, l_agent, l_rb, l_config, l_carry, l_run)
     prows = phase_pixel_times(torch, device, card, k2, p_env, p_agent, p_rb, p_config, p_carry,
                               p_run)
+    k5rows = phase_k5_times(torch, k5_checks, device, card)
 
     per_iter = {"actor": ACTOR_LAUNCHES,  # the whole actor path, not per iteration
                 "learner": learner_launches_per_iter(l_config.utd_ratio,
                                                      l_config.updates_per_iter),
                 "pixel": pixel_launches_per_iter(p_config.utd_ratio, p_config.updates_per_iter)}
-    kernels = kernel_table(rows, lrows, prows, errs,
+    kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches}, per_iter)
     print(f"learner rates: {rates['env_steps_s']:.1f} env-steps/s, {rates['updates_s']:.1f} "
@@ -1228,7 +1293,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(kernels_only=sys.argv[1:] == ["--kernels"])
     except Exception as exc:  # every phase failure ends the run with no result line
         import traceback
 

@@ -22,8 +22,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Flags of one source only. The renderer must round where its plain version
-# rounds, so no multiply-add is fused there (render.cuh says why).
+# rounds, so no multiply-add is fused there (render.cuh says why). K5
+# (dense_layer_norm_tanh) keeps the general -fmad=true: its 3xTF32 products
+# already sum in another order than the plain version's fp32 matmul, which
+# its tolerances state, and a fused multiply-add in its epilogue rounds once
+# where the plain version rounds twice, well inside them.
 EXTRA_FLAGS = {"render": ("-fmad=false",)}
+# Every csrc/<name>.cu, in the order of the kernels K1 to K5
+KERNEL_SOURCES = ("control_step", "render", "random_crop", "replay_gather",
+                  "dense_layer_norm_tanh")
 
 
 def find_nvcc() -> str:

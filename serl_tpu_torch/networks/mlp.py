@@ -6,10 +6,11 @@ package's (E, in, out) kernel layout and contracts it with one batched
 matmul. Two flax conventions are kept on purpose:
   * LayerNorm epsilon is flax's 1e-6, not torch's 1e-5;
   * `EnsembleMLP` has ONE LayerNorm per layer, shared by all members.
-A LayerNorm followed by tanh goes through K5, `layer_norm_tanh` (one
-autograd op; a Triton kernel on the card). The `nn.LayerNorm` modules hold
-its weight and bias. Any other activation after a LayerNorm runs as plain
-torch ops: it is another function, not a fallback.
+A Dense followed by LayerNorm and tanh goes through K5,
+`dense_layer_norm_tanh` (one autograd op; a CUDA kernel on the card), which
+reads the Dense's and the `nn.LayerNorm`'s parameters where they are. Any
+other activation, and the Dense of a layer without one, runs as plain torch
+ops: it is another function, not a fallback.
 Weights are initialized like flax's defaults (xavier-uniform kernels, zero
 biases) from an explicit `torch.Generator`.
 """
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from serl_tpu_torch.networks.layer_norm_tanh import LAYER_NORM_EPS, layer_norm_tanh
+from serl_tpu_torch.networks.dense_layer_norm_tanh import LAYER_NORM_EPS, dense_layer_norm_tanh
 
 _ACTIVATIONS = {"tanh": torch.tanh, "swish": F.silu}  # flax's names
 
@@ -47,11 +48,7 @@ def dense(in_features: int, out_features: int, generator=None) -> nn.Linear:
 
 def _norm_act(x: torch.Tensor, norm: Optional[nn.LayerNorm], act: Callable) -> torch.Tensor:
     """Optional LayerNorm, then the activation (Dense -> LayerNorm -> act)."""
-    if norm is None:
-        return act(x)
-    if act is torch.tanh:
-        return layer_norm_tanh(x, norm.weight, norm.bias)
-    return act(norm(x))
+    return act(x) if norm is None else act(norm(x))
 
 
 def _layer_norms(hidden_dims: Sequence[int], n_act: int, use_layer_norm: bool):
@@ -87,9 +84,13 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.dense)
         for i, layer in enumerate(self.dense):
-            x = layer(x)
-            if i + 1 < n or self.activate_final:
-                x = _norm_act(x, None if self.norms is None else self.norms[i], self.act)
+            if i + 1 == n and not self.activate_final:
+                x = layer(x)
+            elif self.norms is not None and self.act is torch.tanh:
+                norm = self.norms[i]
+                x = dense_layer_norm_tanh(x, layer.weight, layer.bias, norm.weight, norm.bias)
+            else:
+                x = _norm_act(layer(x), None if self.norms is None else self.norms[i], self.act)
         return x
 
 
@@ -145,7 +146,13 @@ class EnsembleMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.dense)
         for i, layer in enumerate(self.dense):
-            x = layer(x, member_inputs=i > 0)
-            if i + 1 < n or self.activate_final:
-                x = _norm_act(x, None if self.norms is None else self.norms[i], self.act)
+            if i + 1 == n and not self.activate_final:
+                x = layer(x, member_inputs=i > 0)
+            elif self.norms is not None and self.act is torch.tanh:
+                norm = self.norms[i]
+                x = dense_layer_norm_tanh(x, layer.kernel, layer.bias, norm.weight, norm.bias,
+                                          member_inputs=i > 0)
+            else:
+                x = _norm_act(layer(x, member_inputs=i > 0),
+                              None if self.norms is None else self.norms[i], self.act)
         return x

@@ -6,8 +6,8 @@ NHWC layout: an encoder takes (B, H, W, C) images. Inside, the images are
 viewed as NCHW with channels_last strides (no copy) and the convolutions are
 `nn.Conv2d` weights run through cuDNN, in `compute_dtype` (bf16 on the DrQ
 path) with fp32 params, as flax's `nn.Conv(dtype=bfloat16)` does. The
-pooling and the bottleneck run in fp32; the bottleneck's LayerNorm -> tanh
-goes through K5 (`networks/layer_norm_tanh.py`, flax's eps 1e-6).
+pooling and the bottleneck run in fp32; the bottleneck's Dense -> LayerNorm
+-> tanh is K5 (`networks/dense_layer_norm_tanh.py`, flax's eps 1e-6).
 
 Weights are initialised as flax does, from an explicit `torch.Generator`:
 lecun_normal (a normal truncated at two standard deviations, scaled to
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from serl_tpu_torch.networks.layer_norm_tanh import LAYER_NORM_EPS, layer_norm_tanh
+from serl_tpu_torch.networks.dense_layer_norm_tanh import LAYER_NORM_EPS, dense_layer_norm_tanh
 
 # stddev of a unit normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNCATED_STD = 0.87962566103423978
@@ -72,7 +72,8 @@ class Bottleneck(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm_tanh(self.dense(x).contiguous(), self.norm.weight, self.norm.bias)
+        return dense_layer_norm_tanh(x, self.dense.weight, self.dense.bias, self.norm.weight,
+                                     self.norm.bias)
 
 
 class SmallEncoder(nn.Module):

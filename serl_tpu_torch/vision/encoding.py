@@ -3,8 +3,8 @@
 Port of `ObsEncoder` from `serl_tpu/vision/encoding.py`: per-camera
 encoders, each camera's frame stack folded into channels
 ((B, T, H, W, C) -> (B, H, W, T * C)), the proprio state through Dense(64)
-(xavier_uniform) -> LayerNorm -> tanh (K5), and the concatenation camera
-features in `image_keys` order, then proprio.
+(xavier_uniform) -> LayerNorm -> tanh (K5, one fused op), and the
+concatenation camera features in `image_keys` order, then proprio.
 
 `shared_batch_concat` is ported as it is: it takes effect only when one
 encoder module serves every camera (the images are then stacked on the
@@ -20,7 +20,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from serl_tpu_torch.networks.layer_norm_tanh import LAYER_NORM_EPS, layer_norm_tanh
+from serl_tpu_torch.networks.dense_layer_norm_tanh import LAYER_NORM_EPS, dense_layer_norm_tanh
 from serl_tpu_torch.networks.mlp import dense
 
 
@@ -83,7 +83,7 @@ class ObsEncoder(nn.Module):
                 state = torch.cat([state[k] for k in sorted(state)], -1)
             if self.enable_stacking and state.dim() == encoded.dim() + 1:
                 state = state.reshape(state.shape[:-2] + (-1,))
-            state = layer_norm_tanh(self.proprio(state).contiguous(), self.proprio_norm.weight,
-                                    self.proprio_norm.bias)
+            state = dense_layer_norm_tanh(state, self.proprio.weight, self.proprio.bias,
+                                          self.proprio_norm.weight, self.proprio_norm.bias)
             encoded = torch.cat([encoded, state], -1)
         return encoded

@@ -1,5 +1,5 @@
 """The port stands alone: no file under serl_tpu_torch/ (nor chip_smoke.py,
-nor tests/torch_k1.py and tests/torch_k2.py, which it loads) imports jax, flax or serl_tpu, it keeps its own copy of the model
+nor tests/torch_k1.py, tests/torch_k2.py and tests/torch_k5.py, which it loads) imports jax, flax or serl_tpu, it keeps its own copy of the model
 constants, and its entry points default to the CUDA device."""
 
 import ast
@@ -27,7 +27,8 @@ def _imported_modules(path: Path):
 
 def test_torch_port_never_imports_jax_or_serl_tpu():
     files = sorted((ROOT / "serl_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_k1.py", ROOT / "tests" / "torch_k2.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_k1.py", ROOT / "tests" / "torch_k2.py",
+        ROOT / "tests" / "torch_k5.py"]
     assert len(files) > 15
     for path in files:
         for mod in _imported_modules(path):
