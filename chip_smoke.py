@@ -13,19 +13,23 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      backward, csrc/dense_layer_norm_tanh.cu) while g++ builds K1's and K2's
      code for the host to count their operations (tests/k1_host.cpp,
      tests/k2_host.cpp); print the build times and ptxas lines;
-  2. every kernel against its plain version on the card: K1 at N = 128 and
-     2048 env states from two sources (a plain-version rollout with random
-     actions, and constructed grasp states with the cube between the pads),
-     which must include active floor and pad contacts: one control step,
-     field by field and env by env, and a 100-step kernel-vs-plain rollout,
-     under the tolerance rule of tests/torch_k1.py; K2 at N = 16 and 128,
+  2. every kernel against its plain version on the card: K1 at N = 128,
+     2048 and 101 (not a multiple of the envs per block) env states from two
+     sources (a plain-version rollout with random actions, and constructed
+     grasp states with the cube between the pads), which must include active
+     floor and pad contacts: one control step, field by field and env by env,
+     and a 100-step kernel-vs-plain rollout, under the tolerance rule of
+     tests/torch_k1.py; two more launches on each input, and at N = 2048 a
+     launch on its first 101 envs, equal bit for bit; K2 at N = 16 and 128,
      128 px, on rollout and grasp states (cube in the wrist camera's view)
      under the pixel rule of tests/torch_k2.py; K3 at (1024, 1, 128, 128, 3)
      and (1024, 3, 128, 128, 3), four image batches per launch: exactly
      equal; K4 at the state path's shapes (782 slots x 128 streams, 2048
      rows, next_observations stored and not) and at the pixel path's (625 x
      16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
-     rings with episode boundaries and the seam: exactly equal; K5 forward
+     rings with episode boundaries and the seam, and on fields that reach
+     each of its copy paths (16-byte, word and byte units, wide and narrow
+     rows, a base address 4 bytes off): exactly equal; K5 forward
      and backward at every (E, M, K, D) of K5_SHAPES under the rule of
      tests/torch_k5.py, its weight-grad sums repeating bit for bit;
   3. the actor path: make_state_sim_experiment with 128 envs and the
@@ -44,12 +48,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      params must move;
   4. times on the card: each kernel and its plain version at its path's
      shapes (calls back to back between one pair of CUDA events, and the
-     kernel's device time from torch.profiler) beside its bound, K5 also
+     kernel's device time from torch.profiler; K4's pixel gather also with
+     L2 flushed before each call) beside its bound (K1 also beside its
+     critical path and ptxas's registers and spills), K5 also
      beside the torch sequence it replaced (Dense, bias, tanh(layer_norm),
      and that sequence's autograd backward), per call and on the device, where an
      actor step's, a state learner iteration's and a pixel iteration's time
      go, the learner steps run under torch.cuda.set_sync_debug_mode("error"),
-     and the device busy share of the loops (torch.profiler).
+     and the device busy share of the loops (torch.profiler). A trace that
+     records no device time for a kernel it times, or a loop's window in
+     which a kernel of that path has none, fails the phase.
 It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
 repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py,
@@ -74,6 +82,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_TF32_OPS_PER_S = 495e12
 BOUND_N = (128, 2048)
+K1_ODD_N = 101  # not a multiple of K1's envs per block (control_step.cu)
 MAIN_ENVS = 128
 # bench.py::bench_state's configuration, passed to make_state_sim_experiment
 BENCH_STATE = dict(seed=0, num_envs=128, updates_per_iter=1, utd_ratio=8, training_starts=1000,
@@ -216,7 +225,7 @@ def per_call_ms(fn, calls: int, repeats: int = 5) -> float:
 def profiled_kernel_ms(fn, calls: int, kernels):
     """Device time per call of fn spent in kernels whose names contain one
     of `kernels` ("" for every kernel), from a torch.profiler trace of
-    `calls` calls, or None when three traces record no device time for them."""
+    `calls` calls; raises when three traces record no device time for them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -232,7 +241,7 @@ def profiled_kernel_ms(fn, calls: int, kernels):
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0:
             return total_us / 1e3 / calls
-    return None
+    raise AssertionError(f"torch.profiler recorded no device time for kernels {kernels}")
 
 
 def busy_share(torch, run, iters: int):
@@ -300,18 +309,30 @@ def read_launches() -> dict:
 def phase_kernel_vs_plain(torch, engine, checks, device):
     g = torch.Generator(device=device).manual_seed(0)
     main_path_err = 0.0
-    for n in BOUND_N:
+    for n in BOUND_N + (K1_ODD_N,):
         for source, make in (("rollout", checks.rollout_states), ("grasp", checks.grasp_states)):
             s = make(n, g, device)
             floor, pad = engine.active_contacts(s)
             n_floor, n_pad = int(floor.sum()), int(pad.sum())
             failures, summary, _ = checks.compare_step(engine.control_step_cuda, s)
+            # two more launches on the same input; at N = 2048 also the first
+            # K1_ODD_N envs alone (a partial block), against the same envs'
+            # outputs of the whole launch
+            first, second = engine.control_step_cuda(s), engine.control_step_cuda(s)
+            repeats = all(torch.equal(a, b) for a, b in zip(first, second))
+            if n == BOUND_N[-1]:
+                part = engine.control_step_cuda(type(s)(*(x[:K1_ODD_N] for x in s)))
+                repeats = repeats and all(torch.equal(a, b[:K1_ODD_N]) for a, b in zip(part, first))
             print(f"K1 vs plain, N={n}, {source} states: active floor corners {n_floor}, "
                   f"active pad points {n_pad}; max abs err {fmt(summary['max_err'])}; envs "
                   f"beyond the tight tolerance {summary['envs_over_atol']} (at most "
-                  f"{summary['budget']})")
+                  f"{summary['budget']}); two more launches on the same input"
+                  + (f" and a launch on its first {K1_ODD_N} envs" if n == BOUND_N[-1] else "")
+                  + f" equal bit for bit: {repeats}")
             if failures:
                 raise AssertionError(f"N={n} {source}: " + "; ".join(failures))
+            if not repeats:
+                raise AssertionError(f"N={n} {source}: K1 launches on one input differ")
             if n == MAIN_ENVS:
                 main_path_err = max(main_path_err, max(summary["max_err"].values()))
             if source == "rollout" and n_floor == 0:
@@ -562,19 +583,20 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
         ms = per_call_ms(step, calls=50)
         prof_ms = profiled_kernel_ms(step, calls=50, kernels="control_step_kernel")
         plain_ms = per_call_ms(lambda: engine.control_step_plain(s), calls=2, repeats=3)
-        ops_per_env = checks.op_counts(s)
+        ops_per_env, path_per_env = checks.op_and_path_counts(s)
         ops = int(ops_per_env.sum())
         bytes_moved = 2 * sum(x.numel() * 4 for x in s) + engine.kernel_constants().nbytes
         bound_ms, bound_by = bound(bytes_moved, ops)
         rows[n] = dict(ms=ms, profiler_ms=prof_ms, plain_ms=plain_ms, ops=ops,
-                       bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by)
-        prof_text = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms"
+                       bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by,
+                       critical_path_ops=int(path_per_env.max()))
         print(f"K1 time, N={n}: kernel {ms:.4f} ms per launch (50 back to back, CUDA events; "
-              f"torch.profiler kernel time {prof_text}), plain {plain_ms:.3f} ms per control "
+              f"torch.profiler kernel time {prof_ms:.4f} ms), plain {plain_ms:.3f} ms per control "
               f"step; bound {bound_ms:.6f} ms by {bound_by} ({ops} fp32 ops "
               f"= {ops_per_env.min()}-{ops_per_env.max()} per env, counted in the kernel's code "
-              f"by tests/k1_host.cpp; {bytes_moved} bytes); no single PyTorch call computes K1, "
-              f"so library_ms is null [{card}]")
+              f"by tests/k1_host.cpp; {bytes_moved} bytes); critical path (per phase the most "
+              f"ops of one lane, summed) {path_per_env.min()}-{path_per_env.max()} ops per env; "
+              f"no single PyTorch call computes K1, so library_ms is null [{card}]")
 
     # where an actor step's time goes, at the main path's 128 envs (policy
     # phase); each call between its own CUDA events, so a call's host launch
@@ -600,19 +622,22 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
     print(f"actor step at N={MAIN_ENVS}, ms per call (median of 20 single calls between CUDA "
           "events, host launch time included): "
           + json.dumps({k: round(v, 4) for k, v in split.items()}) + f" [{card}]")
-    print_busy_share(torch, "actor loop", run, card)
+    print_busy_share(torch, "actor loop", run, card, ("K1", "K5"))
     return rows
 
 
-def print_busy_share(torch, what: str, run, card: str, iters: int = 10) -> None:
+def print_busy_share(torch, what: str, run, card: str, path_kernels, iters: int = 10) -> None:
+    """The loop's device busy share over `iters` iterations; fails when the
+    trace gives no device time to a kernel of `path_kernels` (K1 .. K5)."""
     wall_ms, busy_ms, by_name, by_op = busy_share(torch, run, iters)
-    if busy_ms <= 0:
-        print(f"{what} device busy share: not measured (the profiler recorded no device time)")
-        return
     ours = {name: sum(ms for k, ms in by_name.items() if kernel in k)
             for name, kernel in (("K1", "control_step_kernel"), ("K2", "render_kernel"),
                                  ("K3", "random_crop_kernel"), ("K4", "replay_gather_kernel"),
                                  ("K5", "dense_ln_tanh_"))}
+    missing = [k for k in path_kernels if not ours[k] > 0]
+    if not busy_ms > 0 or missing:
+        raise AssertionError(f"{what}: torch.profiler recorded no device time for "
+                             f"{missing or 'any kernel'} in {iters} iterations")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
     print(f"{what}, {iters} iterations: wall {wall_ms:.2f} ms (host clock, unprofiled), device "
@@ -648,10 +673,9 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
         bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, library_ms=None)
 
     for key, row in rows.items():
-        prof = "not measured" if row["profiler_ms"] is None else f"{row['profiler_ms']:.4f} ms"
         print(f"{key} time: kernel {row['ms']:.4f} ms per call (50 back to back, CUDA events; "
-              f"torch.profiler kernel time {prof}), plain {row['plain_ms']:.4f} ms, library "
-              f"null, bound {row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} "
+              f"torch.profiler kernel time {row['profiler_ms']:.4f} ms), plain "
+              f"{row['plain_ms']:.4f} ms, library null, bound {row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} "
               f"bytes) [{card}]")
 
     # where a learner iteration's time goes: single calls between CUDA events
@@ -687,12 +711,8 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
         torch.cuda.set_sync_debug_mode("default")
     print("sample + update_high_utd ran under torch.cuda.set_sync_debug_mode('error'): no host "
           "sync in the learner step")
-    print_busy_share(torch, "learner loop", run, card)
+    print_busy_share(torch, "learner loop", run, card, ("K1", "K4", "K5"))
     return rows
-
-
-def _ms(v) -> str:
-    return "not measured" if v is None else f"{v:.4f}"
 
 
 def phase_k5_times(torch, k5_checks, device, card):
@@ -773,12 +793,12 @@ def phase_k5_times(torch, k5_checks, device, card):
             what = ("y, h, mean, rstd stored" if direction == "fwd" else
                     "dh" + (", dgamma, dbeta, dbias" if wg else " only (as on the main path)"))
             print(f"K5 {direction} at {k5_label(shape)} ({what}): kernel {row['ms']:.4f} ms per "
-                  f"call (50 back to back, CUDA events), {_ms(row['profiler_ms'])} ms on the "
+                  f"call (50 back to back, CUDA events), {row['profiler_ms']:.4f} ms on the "
                   f"device (torch.profiler); plain {row['plain_ms']:.4f} ms; the op through "
                   f"autograd{' with its dx, dW products' if direction == 'bwd' else ''} "
-                  f"{row['op_ms']:.4f} ms per call, {_ms(row['op_profiler_ms'])} ms on the "
+                  f"{row['op_ms']:.4f} ms per call, {row['op_profiler_ms']:.4f} ms on the "
                   f"device; the replaced torch sequence {row['sequence_ms']:.4f} ms per call, "
-                  f"{_ms(row['sequence_profiler_ms'])} ms on the device; bound "
+                  f"{row['sequence_profiler_ms']:.4f} ms on the device; bound "
                   f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} bytes, "
                   f"{row['tf32_ops']} TF32 tensor-core ops at 495 TFLOP/s, {row['fp32_ops']} "
                   f"fp32 ops at 67 TFLOP/s) [{card}]")
@@ -888,6 +908,54 @@ def phase_k4_pixel_vs_plain(torch, device):
     print(f"K4 pixel vs plain at {slots} slots x {streams} streams, {r * streams} rows of "
           f"{PIXEL_SIZE} px frames, T = 1 and 3 ({clamped} clamped stack frames at T = 3, "
           f"{boundary} rows at an episode end): exactly equal")
+    return 0.0
+
+
+def phase_k4_copy_paths_vs_plain(torch, device):
+    """K4 against its plain version on fields that reach every copy path of
+    the kernel: wide rows (1024 bytes or more) in 16-byte units (aligned
+    frames), in 4-byte words (frames whose base address is 4 bytes off, a
+    contiguous view into a larger buffer) and in bytes (27 x 27 x 3 frames,
+    2,187 bytes a row); narrow rows in words (fp32) and in bytes (a 27-byte
+    uint8 field). T = 1 and 3, at the pixel path's ring shape: exactly equal."""
+    from serl_tpu_torch.data import replay_buffer as rbm
+
+    slots, streams, r = (K4_PIXEL_SHAPE[k] for k in ("slots", "streams", "rows_per_stream"))
+    g = torch.Generator(device=device).manual_seed(45)
+
+    def frames(shape, offset=0):
+        n = slots * streams * math.prod(shape)
+        flat = torch.randint(0, 256, (n + offset,), generator=g, device=device, dtype=torch.uint8)
+        return flat[offset:].view((slots, streams) + shape)
+
+    _, ep_id, insert_slot = _pixel_ring(torch, device, g)
+    data = {"observations": {"state": torch.randn((slots, streams, 7), generator=g, device=device),
+                             "bytes27": frames((27,)),
+                             "aligned": frames((64, 64, 3)),
+                             "off_by_4": frames((64, 64, 3), offset=4),
+                             "odd": frames((27, 27, 3))},
+            **{k: torch.randn((slots, streams) + shape, generator=g, device=device)
+               for k, shape in (("actions", (4,)), ("rewards", ()), ("masks", ()), ("dones", ()))}}
+    image_keys = ("aligned", "off_by_4", "odd")
+    if data["observations"]["off_by_4"].data_ptr() % 16 != 4:
+        raise AssertionError("the off-by-4 view is not 4 bytes off a 16-byte boundary")
+    starts = ((ep_id != ep_id.roll(1, 0)).to(torch.int32).argmax(0))
+    s2 = (insert_slot - slots + torch.randint(0, slots - 1, (r, streams), generator=g,
+                                              device=device)) % slots
+    s2[0], s2[1] = starts, (starts - 1) % slots  # clamped stacks, episode ends
+    for num_stack in (1, 3):
+        got = rbm.gather_batch_aligned_cuda(data, ep_id, s2, False, image_keys, num_stack)
+        want = rbm.gather_batch_aligned_plain(data, ep_id, s2, False, image_keys, num_stack)
+        torch.cuda.synchronize()
+        for part in want:
+            for k, w in (want[part].items() if isinstance(want[part], dict) else [(None, want[part])]):
+                x = got[part] if k is None else got[part][k]
+                if x.shape != w.shape or x.dtype != w.dtype or not torch.equal(x, w):
+                    raise AssertionError(f"K4 differs from plain in {part}/{k} (T={num_stack})")
+    print(f"K4 copy paths vs plain at {slots} slots x {streams} streams, {r * streams} rows, T = 1 "
+          "and 3: wide rows in 16-byte units (64x64x3 frames), 4-byte words (the same 4 bytes off "
+          "alignment), bytes (27x27x3 frames); narrow rows in words (fp32) and bytes (27 uint8): "
+          "exactly equal")
     return 0.0
 
 
@@ -1023,12 +1091,30 @@ def phase_pixel_times(torch, device, card, k2, env, agent, rb, config, carry, ru
         plain_ms=per_call_ms(lambda: rbm.gather_batch_aligned_plain(
             buf.data, buf.ep_id, s2, False, rb.image_keys, rb.num_stack), calls=10),
         bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=None)
+    # the same gather from a cold L2: before each call a 256 MB read evicts
+    # the 50 MB L2, and each call takes other rows, as the loop's samples do
+    flush = torch.zeros(2**26, device=device)
+    fresh = [(buf.insert_slot - buf.size
+              + torch.randint(0, buf.size - 1, s2.shape, generator=g, device=device)) % slots
+             for _ in range(5)]
+    calls = [0]
+
+    def cold_gather():
+        flush.sum()
+        calls[0] += 1
+        rbm.gather_batch_aligned_cuda(buf.data, buf.ep_id, fresh[calls[0] % len(fresh)], False,
+                                      rb.image_keys, rb.num_stack)
+
+    cold_ms = profiled_kernel_ms(cold_gather, 50, "replay_gather_kernel")
+    rows["replay_gather_pixel"]["profiler_ms_cold_l2"] = cold_ms
+    del flush
     for name, row in rows.items():
-        prof = "not measured" if row["profiler_ms"] is None else f"{row['profiler_ms']:.4f} ms"
+        cold = (f"; from a cold L2, other rows each call, {cold_ms:.4f} ms"
+                if name == "replay_gather_pixel" else "")
         print(f"{name} time: kernel {row['ms']:.4f} ms per call (50 back to back, CUDA events; "
-              f"torch.profiler kernel time {prof}), plain {row['plain_ms']:.4f} ms, library null "
-              f"(no single PyTorch call computes it), bound {row['bound_ms']:.6f} ms by "
-              f"{row['bound_by']} ({row['bytes']} bytes"
+              f"torch.profiler kernel time {row['profiler_ms']:.4f} ms{cold}), plain "
+              f"{row['plain_ms']:.4f} ms, library null (no single PyTorch call computes it), "
+              f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} bytes"
               + (f", {row['ops']} fp32 ops counted in the kernel's code by tests/k2_host.cpp"
                  if "ops" in row else "") + f") [{card}]")
 
@@ -1079,11 +1165,11 @@ def phase_pixel_times(torch, device, card, k2, env, agent, rb, config, carry, ru
         torch.cuda.set_sync_debug_mode("default")
     print("pixel sample + update_high_utd (crop included) ran under "
           "torch.cuda.set_sync_debug_mode('error'): no host sync in the learner step")
-    print_busy_share(torch, "pixel loop", run, card)
+    print_busy_share(torch, "pixel loop", run, card, ("K1", "K2", "K3", "K4", "K5"))
     return rows
 
 
-def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter):
+def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
     for K1, K4's state row and K5 (as in earlier runs), the pixel path for
@@ -1112,6 +1198,9 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter):
         "profiler_ms_by_envs": {str(n): rows[n]["profiler_ms"] for n in BOUND_N},
         "plain_ms_by_envs": {str(n): rows[n]["plain_ms"] for n in BOUND_N},
         "bound_ms_by_envs": {str(n): rows[n]["bound_ms"] for n in BOUND_N},
+        "ops_per_env": main["ops"] // MAIN_ENVS,
+        "critical_path_ops_per_env": main["critical_path_ops"],
+        "ptxas": ptxas["control_step"],
     }]
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "profiler_ms")
     kernels.append({
@@ -1153,6 +1242,7 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter):
         **launches("replay_gather", "pixel"),
         "max_abs_err": errs["K4 pixel"],
         **{k: prows["replay_gather_pixel"][k] for k in timed},
+        "profiler_ms_cold_l2": prows["replay_gather_pixel"]["profiler_ms_cold_l2"],
         "shape": "1024 rows of state, two 128 px uint8 frames (T = 1) for obs and next_obs, "
                  "actions, rewards, masks, dones (pixel path)",
     })
@@ -1245,7 +1335,8 @@ def main(kernels_only: bool = False) -> int:
             "K2": phase_k2_vs_plain(torch, checks, k2, device),
             "K3": phase_k3_vs_plain(torch, device),
             "K4": phase_k4_vs_plain(torch, device),
-            "K4 pixel": phase_k4_pixel_vs_plain(torch, device),
+            "K4 pixel": max(phase_k4_pixel_vs_plain(torch, device),
+                            phase_k4_copy_paths_vs_plain(torch, device)),
             "K5": phase_k5_vs_plain(torch, k5_checks, device)}
     if kernels_only:
         phase_k5_times(torch, k5_checks, device, card)
@@ -1273,7 +1364,7 @@ def main(kernels_only: bool = False) -> int:
                 "pixel": pixel_launches_per_iter(p_config.utd_ratio, p_config.updates_per_iter)}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
-                            "pixel": pixel_launches}, per_iter)
+                            "pixel": pixel_launches}, per_iter, ptxas)
     print(f"learner rates: {rates['env_steps_s']:.1f} env-steps/s, {rates['updates_s']:.1f} "
           f"critic updates/s [{card}]")
     print(f"pixel rates: {p_rates['env_steps_s']:.1f} env-steps/s, {p_rates['updates_s']:.1f} "

@@ -4,22 +4,24 @@
 // `substep`, with arm.py, opspace.py, gripper.py and linalg_small.py), the
 // hot path that the JAX package has XLA fuse into one TPU program.
 //
-// Design: one thread per env; the env's 37 state floats and all per-substep
-// intermediates (7x7 mass matrix, 6x7 Jacobian, 6x6 task-space inertia,
-// Cholesky factors) live in registers and thread-local memory; all 10
-// substeps run inside one launch, so the state is read from and written to
-// device memory once per control step. Strict fp32 (no fast-math); clamps
-// and the "clamped == q" velocity kill use fminf/fmaxf like torch.clamp.
-// The arithmetic is in control_step.cuh, shared with no other code path.
+// Design: a group of 16 lanes (half a warp) per env splits each substep's
+// work (control_step.cuh says how). The env's state and every intermediate
+// live in shared memory; the block copies the constant buffer into shared
+// memory once, so the substeps read nothing from device memory. All 10
+// substeps run inside one launch: the state is read and written once per
+// control step. Strict fp32 (no fast-math); clamps and the "clamped == q"
+// velocity kill use fminf/fmaxf like torch.clamp; no atomics, so two launches
+// on one input agree bit for bit.
 //
-// What bounds it: per env a control step is ~1.4e5 fp32 operations against
-// 2 x 37 x 4 bytes of state traffic, so operations, not bytes, give its
-// bound. Its time is far above that bound and nearly flat in N: each thread
-// walks one long serial dependency chain (register-capped at 255, with a
-// small spill), and the 128 envs of the main path fill 4 warps on 4 of the
-// 132 SMs, so latency, not throughput, sets the time. Spreading one env's
-// substep across a warp (the 7x7 and 6x6 algebra is parallel) is the way to
-// a faster kernel, and later work.
+// What bounds it: per env a control step is ~8.5e4 fp32 operations against
+// 2 x 37 x 4 bytes of state traffic, so operations give its bound, ~2.6 us
+// for 2,048 envs at the H100 SXM's data-sheet fp32 rate (67 TFLOP/s). It
+// runs far above that bound: one env's step is a chain of 160 phases, each
+// as long as the sum of its divergent code paths' latencies plus a sync, so
+// latency, not throughput, sets the time. Half a warp per env lets a warp
+// issue two envs' single-lane tasks at once. The previous design ran the
+// whole chain on one thread per env: 0.43 ms a launch at 128 and at 2,048
+// envs on an NVIDIA H100 80GB HBM3 at 700 W.
 //
 // C ABI (bound with ctypes): serl_control_step takes the 11 input and the 11
 // output PhysicsState fields (contiguous fp32, shapes (N,7)/(N,)/(N,3)/(N,4)),
@@ -31,12 +33,19 @@
 
 namespace {
 
-constexpr int kThreadsPerBlock = 32;  // one warp per block spreads few envs over many SMs
+constexpr int kThreadsPerBlock = 64;
+constexpr int kEnvsPerBlock = kThreadsPerBlock / serl::kGroupLanes;
 
-__global__ void control_step_kernel(serl::Fields in, serl::Fields out,
-                                    const float* __restrict__ consts, int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < n) serl::control_step_env(in, out, consts, e);
+// 8 blocks a SM: 2,048 envs are one wave on the card's 132 SMs
+__global__ void __launch_bounds__(kThreadsPerBlock, 8)
+    control_step_kernel(serl::Fields in, serl::Fields out, const float* __restrict__ consts, int n) {
+  __shared__ float C[serl::C_COUNT];
+  __shared__ serl::Group groups[kEnvsPerBlock];
+  for (int k = threadIdx.x; k < serl::C_COUNT; k += kThreadsPerBlock) C[k] = consts[k];
+  __syncthreads();
+  const int w = threadIdx.x / serl::kGroupLanes;
+  const int e = blockIdx.x * kEnvsPerBlock + w;
+  if (e < n) serl::control_step_env(in, out, C, e, groups[w]);
 }
 
 }  // namespace
@@ -65,8 +74,8 @@ int serl_control_step(const float* qpos, const float* qvel, const float* theta,
   serl::Fields out = {out_qpos,      out_qvel,       out_theta,     out_dtheta,
                       out_grip_ctrl, out_mocap_pos,  out_mocap_quat, out_cube_pos,
                       out_cube_quat, out_cube_linvel, out_cube_angvel};
-  const int blocks = (n + kThreadsPerBlock - 1) / kThreadsPerBlock;
-  control_step_kernel<<<blocks, kThreadsPerBlock, 0, (cudaStream_t)stream>>>(in, out, consts, n);
+  control_step_kernel<<<(n + kEnvsPerBlock - 1) / kEnvsPerBlock, kThreadsPerBlock, 0,
+                        (cudaStream_t)stream>>>(in, out, consts, n);
   return (int)cudaGetLastError();
 }
 

@@ -14,20 +14,29 @@
 //
 // Design: one launch gathers every field of obs and next_obs, of any element
 // type: the field table holds (source, destination, row bytes, copy unit,
-// successor flag, stacked flag) per field, and each field gets its own range
-// of blocks. Each thread copies one unit of one output row: 4 bytes where the
-// row and both pointers allow it (every fp32 field, and the uint8 frames), one
-// byte otherwise. It reads its row's slot index, the ep_ids its successor and
-// stack rules need, and the unit. Neighbouring threads copy neighbouring
-// units, so loads and stores coalesce. An index outside [0, slots) fills the
-// row with 0xFF bytes (NaN for fp32) instead of reading outside the ring, since
-// checking values on the host would need a sync.
+// wide flag, successor flag, stacked flag) per field, and each field gets its
+// own range of blocks. Two copy paths:
+//   * wide rows (kWideRowBytes or more: the image frames): one block per
+//     (output row, frame) task. Its threads resolve the task's slot alike
+//     (the same few loads of s2 and ep_id, which the cache broadcasts), then
+//     copy the row in 16-byte units (uint4) where the row bytes and both
+//     addresses allow it, else in 4-byte words, else bytes, each thread with
+//     kUnroll loads in flight before its stores;
+//   * narrow rows (the state path's fields; the pixel path's state, actions,
+//     rewards, masks, dones): one thread per 4-byte word (one byte where the
+//     row or an address does not allow words) of one output row, so that a
+//     warp covers many rows and neighbouring threads copy neighbouring words.
+// An index outside [0, slots) fills the row with 0xFF bytes (NaN for fp32)
+// instead of reading outside the ring, since checking values on the host
+// would need a sync.
 //
 // What bounds it: bytes. At the pixel path's sample (1024 rows, two 128x128x3
 // uint8 frames per obs and per next_obs) it moves ~403 MB, frames in and out,
-// ~120 us at 3.35 TB/s; the state path's sample (2048 rows of 27 floats) is
-// ~0.45 MB, below a launch's own latency, which one launch for all fields
-// keeps to a minimum.
+// ~120 us at the H100's data-sheet 3.35 TB/s; the previous design (a thread
+// per 4 bytes, each running the whole index chain) reached 21% of that rate
+// on an NVIDIA H100 80GB HBM3 at 700 W. The state path's
+// sample (2048 rows of 27 floats) is ~0.45 MB, below a launch's own latency,
+// which one launch for all fields keeps to a minimum.
 //
 // C ABI (bound with ctypes): serl_replay_gather takes arrays of n_fields
 // source and destination pointers, row bytes, successor and stacked flags,
@@ -41,16 +50,25 @@ namespace {
 
 constexpr int kMaxFields = 16;
 constexpr int kThreadsPerBlock = 256;
+constexpr int64_t kWideRowBytes = 1024;
+constexpr int kUnroll = 4;
 
 struct FieldTable {
   const uint8_t* src[kMaxFields];
   uint8_t* dst[kMaxFields];
   int64_t row_bytes[kMaxFields];
   int64_t block_start[kMaxFields + 1];
-  int unit[kMaxFields];
+  int unit[kMaxFields];  // 16, 4 or 1 bytes
+  int wide[kMaxFields];
   int successor[kMaxFields];
   int stacked[kMaxFields];
   int n_fields;
+};
+
+struct Ring {
+  const int64_t* __restrict__ s2;     // (R, streams)
+  const int32_t* __restrict__ ep_id;  // (slots, streams)
+  int slots, streams, rows_per_stream, stack;
 };
 
 __device__ __forceinline__ int64_t wrap(int64_t s, int slots) {
@@ -58,53 +76,122 @@ __device__ __forceinline__ int64_t wrap(int64_t s, int slots) {
   return s < 0 ? s + slots : s;
 }
 
-__global__ void replay_gather_kernel(FieldTable t, const int64_t* __restrict__ s2,
-                                     const int32_t* __restrict__ ep_id, int slots, int streams,
-                                     int rows_per_stream, int stack) {
-  int f = 0;
-  while (f + 1 < t.n_fields && blockIdx.x >= t.block_start[f + 1]) ++f;
-  const int unit = t.unit[f];
-  const int64_t units_per_row = t.row_bytes[f] / unit;
-  const int frames = t.stacked[f] ? stack : 1;
-  const int64_t i = (blockIdx.x - t.block_start[f]) * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t rows = (int64_t)streams * rows_per_stream;
-  if (i >= rows * frames * units_per_row) return;
-  const int64_t frame_row = i / units_per_row;  // o * frames + frame
-  const int64_t u = i - frame_row * units_per_row;
-  const int64_t o = frame_row / frames;  // output row j * R + r
-  const int frame = (int)(frame_row - o * frames);
-  const int j = (int)(o / rows_per_stream);
-  const int r = (int)(o - (int64_t)j * rows_per_stream);
-  uint8_t* dst = t.dst[f] + frame_row * t.row_bytes[f] + u * unit;
-  int64_t s = s2[(int64_t)r * streams + j];
-  if (s < 0 || s >= slots) {
-    for (int k = 0; k < unit; ++k) dst[k] = 0xFF;
-    return;
-  }
-  const int32_t ep_s = ep_id[s * streams + j];
+// The ring row (slot * streams + stream) that frame `frame` of output row o
+// of field f reads, or -1 where the row's slot index is out of range.
+__device__ __forceinline__ int64_t source_row(const FieldTable& t, int f, const Ring& g,
+                                              int64_t o, int frame, int frames) {
+  const int j = (int)(o / g.rows_per_stream);
+  const int r = (int)(o - (int64_t)j * g.rows_per_stream);
+  int64_t s = g.s2[(int64_t)r * g.streams + j];
+  if (s < 0 || s >= g.slots) return -1;
+  const int32_t ep_s = g.ep_id[s * g.streams + j];
   int32_t anchor_ep = ep_s;
   if (t.successor[f]) {
-    const int64_t nxt = (s + 1) % slots;
-    if (ep_id[nxt * streams + j] == ep_s) s = nxt;
-    anchor_ep = ep_id[s * streams + j];
+    const int64_t nxt = (s + 1) % g.slots;
+    if (g.ep_id[nxt * g.streams + j] == ep_s) s = nxt;
+    anchor_ep = g.ep_id[s * g.streams + j];
   }
   if (frames > 1) {
-    int64_t slot = wrap(s - (frames - 1 - frame), slots);
-    if (ep_id[slot * streams + j] != anchor_ep) {
+    int64_t slot = wrap(s - (frames - 1 - frame), g.slots);
+    if (g.ep_id[slot * g.streams + j] != anchor_ep) {
       // the stack's first frame of the anchor's episode
       for (int k = 0; k < frames; ++k) {
-        slot = wrap(s - (frames - 1 - k), slots);
-        if (ep_id[slot * streams + j] == anchor_ep) break;
+        slot = wrap(s - (frames - 1 - k), g.slots);
+        if (g.ep_id[slot * g.streams + j] == anchor_ep) break;
       }
     }
     s = slot;
   }
-  const uint8_t* src = t.src[f] + (s * streams + j) * t.row_bytes[f] + u * unit;
+  return s * g.streams + j;
+}
+
+template <class T>
+__device__ __forceinline__ T all_ones();
+template <>
+__device__ __forceinline__ uint4 all_ones<uint4>() {
+  return make_uint4(~0u, ~0u, ~0u, ~0u);
+}
+template <>
+__device__ __forceinline__ uint32_t all_ones<uint32_t>() {
+  return ~0u;
+}
+template <>
+__device__ __forceinline__ uint8_t all_ones<uint8_t>() {
+  return 0xFF;
+}
+
+// The block copies `units` units of T from src to dst (src null: 0xFF fill),
+// each thread kUnroll loads ahead of its stores.
+template <class T>
+__device__ __forceinline__ void copy_row(const uint8_t* src, uint8_t* dst, int64_t units) {
+  const T* __restrict__ s = reinterpret_cast<const T*>(src);
+  T* __restrict__ d = reinterpret_cast<T*>(dst);
+  for (int64_t base = threadIdx.x; base < units; base += kUnroll * kThreadsPerBlock) {
+    T v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int64_t u = base + k * kThreadsPerBlock;
+      if (u < units) v[k] = s != nullptr ? s[u] : all_ones<T>();
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int64_t u = base + k * kThreadsPerBlock;
+      if (u < units) d[u] = v[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsPerBlock)
+    replay_gather_kernel(FieldTable t, Ring g) {
+  int f = 0;
+  while (f + 1 < t.n_fields && blockIdx.x >= t.block_start[f + 1]) ++f;
+  const int frames = t.stacked[f] ? g.stack : 1;
+  const int64_t row_bytes = t.row_bytes[f];
+  const int64_t b = blockIdx.x - t.block_start[f];
+  if (t.wide[f]) {  // block b copies output row b / frames, frame b % frames
+    const int64_t o = b / frames;
+    const int64_t src_row = source_row(t, f, g, o, (int)(b - o * frames), frames);
+    const uint8_t* src = src_row < 0 ? nullptr : t.src[f] + src_row * row_bytes;
+    uint8_t* dst = t.dst[f] + b * row_bytes;
+    if (t.unit[f] == 16)
+      copy_row<uint4>(src, dst, row_bytes / 16);
+    else if (t.unit[f] == 4)
+      copy_row<uint32_t>(src, dst, row_bytes / 4);
+    else
+      copy_row<uint8_t>(src, dst, row_bytes);
+    return;
+  }
+  const int unit = t.unit[f];
+  const int64_t units_per_row = row_bytes / unit;
+  const int64_t i = b * kThreadsPerBlock + threadIdx.x;
+  const int64_t rows = (int64_t)g.streams * g.rows_per_stream;
+  if (i >= rows * frames * units_per_row) return;
+  const int64_t frame_row = i / units_per_row;  // o * frames + frame
+  const int64_t u = i - frame_row * units_per_row;
+  const int64_t o = frame_row / frames;  // output row j * R + r
+  const int64_t src_row = source_row(t, f, g, o, (int)(frame_row - o * frames), frames);
+  uint8_t* dst = t.dst[f] + frame_row * row_bytes + u * unit;
+  if (src_row < 0) {
+    for (int k = 0; k < unit; ++k) dst[k] = 0xFF;
+    return;
+  }
+  const uint8_t* src = t.src[f] + src_row * row_bytes + u * unit;
   if (unit == 4) {
     *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
   } else {
     for (int k = 0; k < unit; ++k) dst[k] = src[k];
   }
+}
+
+// The widest unit in {16, 4, 1} bytes (at most `widest`) that divides the
+// row and both base addresses.
+int copy_unit(int64_t row_bytes, const void* src, const void* dst, int widest) {
+  for (int unit : {16, 4}) {
+    if (unit <= widest && row_bytes % unit == 0 && (uintptr_t)src % unit == 0 &&
+        (uintptr_t)dst % unit == 0)
+      return unit;
+  }
+  return 1;
 }
 
 }  // namespace
@@ -134,18 +221,19 @@ int serl_replay_gather(const uint8_t* const* src, uint8_t* const* dst, const int
     t.row_bytes[f] = row_bytes[f];
     t.successor[f] = successor[f];
     t.stacked[f] = stacked[f];
-    const bool words = row_bytes[f] % 4 == 0 && (uintptr_t)src[f] % 4 == 0 &&
-                       (uintptr_t)dst[f] % 4 == 0;
-    t.unit[f] = words ? 4 : 1;
-    const int64_t n = rows * (stacked[f] ? stack : 1) * (row_bytes[f] / t.unit[f]);
+    t.wide[f] = row_bytes[f] >= kWideRowBytes;
+    t.unit[f] = copy_unit(row_bytes[f], src[f], dst[f], t.wide[f] ? 16 : 4);
+    const int64_t tasks = rows * (stacked[f] ? stack : 1);
     t.block_start[f] = blocks;
-    blocks += (n + kThreadsPerBlock - 1) / kThreadsPerBlock;
+    blocks += t.wide[f] ? tasks
+                        : (tasks * (row_bytes[f] / t.unit[f]) + kThreadsPerBlock - 1) /
+                              kThreadsPerBlock;
   }
   t.block_start[n_fields] = blocks;
   if (blocks == 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  replay_gather_kernel<<<(unsigned)blocks, kThreadsPerBlock, 0, (cudaStream_t)stream>>>(
-      t, s2, ep_id, slots, streams, rows_per_stream, stack);
+  const Ring g = {s2, ep_id, slots, streams, rows_per_stream, stack};
+  replay_gather_kernel<<<(unsigned)blocks, kThreadsPerBlock, 0, (cudaStream_t)stream>>>(t, g);
   return (int)cudaGetLastError();
 }
 

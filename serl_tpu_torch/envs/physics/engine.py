@@ -18,9 +18,10 @@ Two implementations of `control_step` sit side by side:
   * `control_step_plain`: the substeps above in plain PyTorch on batched
     tensors. CPU tensors take it; on the card only tests and chip_smoke.py
     call it, to hold the kernel against it.
-  * the CUDA kernel in `serl_tpu_torch/csrc/control_step.cu` (one thread per
-    env, all 10 substeps in one launch). `control_step` launches it for CUDA
-    tensors and counts the launches in `control_step.launches`.
+  * the CUDA kernel in `serl_tpu_torch/csrc/control_step.cu` (a group of 16
+    lanes per env that splits each substep's work, all 10 substeps in one
+    launch). `control_step` launches it for CUDA tensors and counts the
+    launches in `control_step.launches`.
 The kernel reads every model and contact constant from one float32 buffer
 that `kernel_constants` packs from this module's constants, so the two
 cannot drift apart.

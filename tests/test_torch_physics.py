@@ -258,9 +258,12 @@ def test_torch_control_step_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for s in (torch_k1.grasp_states(256, g, "cuda"), torch_k1.rollout_states(256, g, "cuda", 5)):
+    for s in (torch_k1.grasp_states(256, g, "cuda"), torch_k1.rollout_states(256, g, "cuda", 5),
+              torch_k1.rollout_states(101, g, "cuda", 5)):
         before = engine.control_step.launches
-        engine.control_step(s)
+        first = engine.control_step(s)
         assert engine.control_step.launches == before + 1
         failures, summary, _ = torch_k1.compare_step(engine.control_step, s)
         assert not failures, (failures, summary)
+        for a, b in zip(first, engine.control_step(s)):  # two launches agree bit for bit
+            assert torch.equal(a, b)

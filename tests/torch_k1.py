@@ -6,8 +6,9 @@
   * the tolerance rule by which two float32 implementations of one control
     step are held to each other, per env and PhysicsState field;
   * host builds of csrc/control_step.cuh: the kernel's arithmetic compiled
-    with g++ for the CPU (`host_step`), and the same code with a counting
-    float type (`op_counts`), which gives K1's bound its operation count.
+    with g++ for the CPU, its lanes run as a loop (`host_step`), and the same
+    code with a counting float type (`op_counts`, `path_counts`), which gives
+    K1's bound its operation count and its critical path.
 
 It imports torch, numpy and serl_tpu_torch only, never JAX: chip_smoke.py
 loads it on a machine that has no JAX.
@@ -91,9 +92,9 @@ def judge(err: Dict[str, torch.Tensor], spread: Optional[Dict[str, torch.Tensor]
     for f, a in atol.items():
         e = err[f]
         slack = 3.0 * spread[f] if spread is not None else torch.zeros_like(e)
-        outlier |= e > torch.clamp(a + slack, max=cap[f])
+        outlier |= ~(e <= torch.clamp(a + slack, max=cap[f]))  # a NaN error is an outlier
         max_err[f] = float(e.max())
-        if max_err[f] > cap[f]:
+        if not max_err[f] <= cap[f]:
             failures.append(f"{f} differs by {max_err[f]:.3g} > cap {cap[f]:.3g}")
     budget = n // 100
     if int(outlier.sum()) > budget:
@@ -185,16 +186,18 @@ def _compiler() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _host_library(count_ops: bool, csrc: str) -> ctypes.CDLL:
+def _host_library(count_ops: bool, csrc: str, ascending: bool = False) -> ctypes.CDLL:
     source = os.path.join(HERE, "k1_host.cpp")
     flags = ["-O1", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
     if count_ops:
         flags.append("-DSERL_COUNT_OPS")
+    if ascending:
+        flags.append("-DSERL_HOST_ASCENDING")
     h = hashlib.sha256(" ".join(flags + [os.path.abspath(csrc)]).encode())
     for path in (source, os.path.join(csrc, "control_step.cuh")):
         with open(path, "rb") as f:
             h.update(f.read())
-    name = "count" if count_ops else "step"
+    name = "count" if count_ops else "step-up" if ascending else "step"
     out = os.path.join(BUILD_DIR, f"libk1_{name}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -207,11 +210,13 @@ def _host_library(count_ops: bool, csrc: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     ptr, n = ctypes.c_void_p, ctypes.c_int
     if count_ops:
-        lib.k1_count_ops.argtypes = [ptr, ptr, n, ptr]  # fields, consts, n, ops
+        lib.k1_count_ops.argtypes = [ptr, ptr, n, ptr, ptr]  # fields, consts, n, ops, path
         lib.k1_count_ops.restype = None
     else:
         lib.k1_host_step.argtypes = [ptr, ptr, ptr, n]  # in, out, consts, n
         lib.k1_host_step.restype = None
+        lib.k1_div_mismatches.argtypes = [ctypes.c_int64, ctypes.c_uint32]
+        lib.k1_div_mismatches.restype = ctypes.c_int64
     return lib
 
 
@@ -219,10 +224,11 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def host_step(s, csrc: str = CSRC):
+def host_step(s, csrc: str = CSRC, ascending: bool = False):
     """One control step of CPU state `s` by the kernel's code built for the
-    CPU (`csrc` names another copy of the header, for a planted fault)."""
-    lib = _host_library(False, csrc)
+    CPU (`csrc` names another copy of the header, for a planted fault), its
+    lanes run from the last to the first, or from the first to the last."""
+    lib = _host_library(False, csrc, ascending)
     engine._check_state(s)
     if s.qpos.device.type != "cpu":
         raise ValueError(f"host_step needs CPU tensors, got {s.qpos.device}")
@@ -232,14 +238,28 @@ def host_step(s, csrc: str = CSRC):
     return engine.PhysicsState(*out)
 
 
-def op_counts(s) -> np.ndarray:
+def div_mismatches(n: int, seed: int = 0) -> int:
+    """Quotients of the kernel's division by a reciprocal (control_step.cuh's
+    div_rcp) that differ from x / d in any bit, over n random pairs, each
+    pair taken twice (k1_host.cpp::k1_div_mismatches says how)."""
+    return int(_host_library(False, CSRC).k1_div_mismatches(n, seed))
+
+
+def op_and_path_counts(s) -> Tuple[np.ndarray, np.ndarray]:
     """(N,) float32 operations that each env's control step executes in the
-    kernel's code, counted as k1_host.cpp says; `s` may lie on any device."""
+    kernel's code, and (N,) its critical path (per phase the most operations
+    of any one lane, summed over phases and substeps), counted as k1_host.cpp
+    says; `s` may lie on any device."""
     lib = _host_library(True, CSRC)
     s = engine.PhysicsState(*(x.detach().to("cpu", torch.float32).contiguous() for x in s))
     engine._check_state(s)
     n = s.qpos.shape[0]
-    ops = np.zeros(n, np.int64)
+    ops, path = np.zeros(n, np.int64), np.zeros(n, np.int64)
     consts = engine.kernel_constants()
-    lib.k1_count_ops(_pointers(list(s)), consts.ctypes.data, n, ops.ctypes.data)
-    return ops
+    lib.k1_count_ops(_pointers(list(s)), consts.ctypes.data, n, ops.ctypes.data, path.ctypes.data)
+    return ops, path
+
+
+def op_counts(s) -> np.ndarray:
+    """(N,) float32 operations of each env's control step (K1's bound)."""
+    return op_and_path_counts(s)[0]
