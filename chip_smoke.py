@@ -8,8 +8,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
   1. device: the card's name and power limit; build the CUDA kernels from the
      sources in this checkout, one nvcc per source started together (K1, the
      control step, serl_tpu_torch/csrc/control_step.cu; K2, the renderer,
-     csrc/render.cu; K3, the random crop, csrc/random_crop.cu; K4, the replay
-     gather, csrc/replay_gather.cu; K5, Dense + LayerNorm + tanh forward and
+     csrc/render.cu, and a second build of it with the other -fmad flag; K3,
+     the random crop, csrc/random_crop.cu; K4, the replay gather,
+     csrc/replay_gather.cu; K5, Dense + LayerNorm + tanh forward and
      backward, csrc/dense_layer_norm_tanh.cu) while g++ builds K1's and K2's
      code for the host to count their operations (tests/k1_host.cpp,
      tests/k2_host.cpp); print the build times and ptxas lines;
@@ -20,10 +21,15 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      floor and pad contacts: one control step, field by field and env by env,
      and a 100-step kernel-vs-plain rollout, under the tolerance rule of
      tests/torch_k1.py; two more launches on each input, and at N = 2048 a
-     launch on its first 101 envs, equal bit for bit; K2 at N = 16 and 128,
-     128 px, on rollout and grasp states (cube in the wrist camera's view)
-     under the pixel rule of tests/torch_k2.py; K3 at (1024, 1, 128, 128, 3)
-     and (1024, 3, 128, 128, 3), four image batches per launch: exactly
+     launch on its first 101 envs, equal bit for bit; K2 (both -fmad builds)
+     at N = 16 and 128, 128 px, on rollout and grasp states (cube in the
+     wrist camera's view) under the pixel rule of tests/torch_k2.py (failing
+     the phase for the shipped build only), its scene rows (the kernel's
+     debug output) within tests/torch_k2.py's SCENE_ATOL of pack_scene's,
+     and one render under torch.cuda.set_sync_debug_mode("error"); K3 at
+     (1024, 1, 128, 128, 3) and (1024, 3, 128, 128, 3), four image batches
+     per launch, and at K3_PATHS, which reach its word and byte paths
+     (frames 4 bytes off, 252- and 33-byte rows) and float frames: exactly
      equal; K4 at the state path's shapes (782 slots x 128 streams, 2048
      rows, next_observations stored and not) and at the pixel path's (625 x
      16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
@@ -50,7 +56,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      shapes (calls back to back between one pair of CUDA events, and the
      kernel's device time from torch.profiler; K4's pixel gather also with
      L2 flushed before each call) beside its bound (K1 also beside its
-     critical path and ptxas's registers and spills), K5 also
+     critical path and ptxas's registers and spills; K2 beside its
+     operations per pixel, per (env, camera) and per env, the unhoisted
+     count, and the device time of both -fmad builds), K5 also
      beside the torch sequence it replaced (Dense, bias, tanh(layer_norm),
      and that sequence's autograd backward), per call and on the device, where an
      actor step's, a state learner iteration's and a pixel iteration's time
@@ -64,6 +72,7 @@ repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py,
 tests/torch_k5.py); it never imports JAX or serl_tpu.
 """
 
+import ctypes
 import importlib.util
 import json
 import math
@@ -98,7 +107,19 @@ PIXEL_CHUNK = 25  # loop iterations per timed chunk, as bench_pixels
 PIXEL_SIZE = 128
 IMAGE_KEYS = ("front", "wrist")
 K2_N = (16, 128)
+K2_KERNELS = ("render_scene_kernel", "render_pixels_kernel")  # a render launches both
+# K2's two builds, the shipped one (nvcc's default flags) first: (label,
+# extra nvcc flags)
+K2_BUILDS = (("-fmad=true", None), ("-fmad=false", ("-fmad=false",)))
 K3_SHAPES = ((1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3), (1024, 3, PIXEL_SIZE, PIXEL_SIZE, 3))
+# K3's other copy paths: (shape, dtype, base bytes past 16-byte alignment,
+# images per launch, the unit the kernel must take)
+K3_PATHS = (
+    ((1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "uint8", 4, 2, 4),  # frames 4 bytes off: words
+    ((1024, 1, 84, 84, 3), "uint8", 0, 2, 4),                  # 252-byte rows: words
+    ((256, 1, 33, 33, 1), "uint8", 0, 2, 1),                   # 33-byte rows: bytes
+    ((256, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "float32", 0, 2, 16),  # float frames
+)
 # K5's calls on the main paths, (form, E, M, K, D) -> (whether that call's
 # backward computes the weight grads, dgamma, dbeta, dbias and dW: not in
 # the actor loss's pass through the critic's constants; whether it needs
@@ -165,9 +186,10 @@ ACTOR_LAUNCHES = {"control_step": 120, "render": 0, "random_crop": 0, "replay_ga
 # Per update_high_utd one sample (K4) and one crop launch (K3: obs and
 # next_obs of both cameras); per iteration one control step (K1) and one
 # render (K2: the post-reset observation; the terminal one is not rendered,
-# as the pixel buffer does not store next observations).
+# as the pixel buffer does not store next observations), which launches two
+# kernels: the scene, then the pixels.
 def pixel_launches_per_iter(utd_ratio: int, updates_per_iter: int) -> dict:
-    return {"control_step": 1, "render": 1, "random_crop": updates_per_iter,
+    return {"control_step": 1, "render": 2, "random_crop": updates_per_iter,
             "replay_gather": updates_per_iter,
             "dense_layer_norm_tanh_fwd": updates_per_iter * (15 * utd_ratio + 15) + 5,
             "dense_layer_norm_tanh_bwd": updates_per_iter * (5 * utd_ratio + 4)}
@@ -630,10 +652,10 @@ def print_busy_share(torch, what: str, run, card: str, path_kernels, iters: int 
     """The loop's device busy share over `iters` iterations; fails when the
     trace gives no device time to a kernel of `path_kernels` (K1 .. K5)."""
     wall_ms, busy_ms, by_name, by_op = busy_share(torch, run, iters)
-    ours = {name: sum(ms for k, ms in by_name.items() if kernel in k)
-            for name, kernel in (("K1", "control_step_kernel"), ("K2", "render_kernel"),
-                                 ("K3", "random_crop_kernel"), ("K4", "replay_gather_kernel"),
-                                 ("K5", "dense_ln_tanh_"))}
+    ours = {name: sum(ms for k, ms in by_name.items() if any(part in k for part in kernels))
+            for name, kernels in (("K1", ("control_step_kernel",)), ("K2", K2_KERNELS),
+                                  ("K3", ("random_crop_kernel",)),
+                                  ("K4", ("replay_gather_kernel",)), ("K5", ("dense_ln_tanh_",)))}
     missing = [k for k in path_kernels if not ours[k] > 0]
     if not busy_ms > 0 or missing:
         raise AssertionError(f"{what}: torch.profiler recorded no device time for "
@@ -805,25 +827,40 @@ def phase_k5_times(torch, k5_checks, device, card):
     return rows
 
 
-def phase_k2_vs_plain(torch, checks, k2, device):
+def phase_k2_vs_plain(torch, checks, k2, builds, device):
     """K2 against its plain version at K2_N envs, 128 px, on rollout and
-    grasp states, under the pixel rule of tests/torch_k2.py."""
+    grasp states, under the pixel rule of tests/torch_k2.py, both -fmad
+    builds; the kernel's scene rows (its debug output) against pack_scene's;
+    one render under torch.cuda.set_sync_debug_mode("error")."""
     from serl_tpu_torch.envs import rendering
 
     g = torch.Generator(device=device).manual_seed(2)
-    worst = 0
+    worst, scene_err = 0, 0.0
+    rule = {label: True for label in builds}
+    shipped = next(iter(builds))
     for n in K2_N:
         for source, make in (("rollout", checks.rollout_states), ("grasp", checks.grasp_states)):
             s = make(n, g, device)
-            got = rendering.render_cameras_cuda(s, PIXEL_SIZE)
             want = rendering.render_cameras_plain(s, PIXEL_SIZE)
-            torch.cuda.synchronize()
-            for cam, a, b in zip(IMAGE_KEYS, got, want):
-                failures, summary = k2.pixel_rule(a, b)
-                print(f"K2 vs plain, N={n}, {source} states, {cam}: {json.dumps(summary)}")
-                if failures:
-                    raise AssertionError(f"K2 N={n} {source} {cam}: " + "; ".join(failures))
-                worst = max(worst, summary["max_level_diff"])
+            for label, lib in builds.items():
+                rows = torch.empty((n, rendering.SCENE_FLOATS), device=device)
+                got = rendering.render_cameras_cuda(s, PIXEL_SIZE, scene_out=rows, lib=lib)
+                torch.cuda.synchronize()
+                err = float((rows - rendering.pack_scene(s)).abs().max())
+                print(f"K2 ({label}) scene rows vs pack_scene, N={n}, {source} states: max abs "
+                      f"err {err:.3g} (tolerance {k2.SCENE_ATOL})")
+                if err > k2.SCENE_ATOL:
+                    raise AssertionError(f"K2 ({label}) scene rows N={n} {source}: {err}")
+                scene_err = max(scene_err, err)
+                for cam, a, b in zip(IMAGE_KEYS, got, want):
+                    failures, summary = k2.pixel_rule(a, b)
+                    print(f"K2 ({label}) vs plain, N={n}, {source} states, {cam}: "
+                          f"{json.dumps(summary)}")
+                    rule[label] = rule[label] and not failures
+                    if label == shipped:
+                        if failures:
+                            raise AssertionError(f"K2 N={n} {source} {cam}: " + "; ".join(failures))
+                        worst = max(worst, summary["max_level_diff"])
             if source == "grasp":
                 # the cube (purple: red = blue > green) is in the wrist camera's view
                 w = want[1].to(torch.int16)
@@ -832,28 +869,52 @@ def phase_k2_vs_plain(torch, checks, k2, device):
                 print(f"K2 grasp states at N={n}: the cube is in {envs} of {n} wrist frames")
                 if envs < n // 2:
                     raise AssertionError(f"the cube is in view in only {envs} of {n} grasp frames")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rendering.render_cameras(s, PIXEL_SIZE)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     print(f"K2 vs plain: at most {k2.FLIP_SHARE:.3%} of the pixels may differ by more than one "
           f"level, each on an edge (3x3 span > {k2.EDGE_LEVELS} levels); worst level "
-          f"difference {worst}")
-    return worst
+          f"difference {worst} (shipped build); the rule held for "
+          f"{json.dumps(rule)}; scene rows within {scene_err:.3g} of pack_scene's; a render ran "
+          "under torch.cuda.set_sync_debug_mode('error'): nothing copied from the host")
+    return worst, scene_err, rule
 
 
 def phase_k3_vs_plain(torch, device):
     """K3 against its plain version: four image batches per launch (obs and
-    next_obs of both cameras, as DrQ crops them) at K3_SHAPES: exactly equal."""
+    next_obs of both cameras, as DrQ crops them) at K3_SHAPES, and batches
+    that reach each copy path of the kernel (K3_PATHS): exactly equal."""
     from serl_tpu_torch.vision import augmentations as aug
 
     g = torch.Generator(device=device).manual_seed(3)
-    for shape in K3_SHAPES:
-        imgs = [torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.uint8)
-                for _ in range(4)]
+    lib = aug._crop_library()
+    cases = [(shape, torch.uint8, 0, 4, 16) for shape in K3_SHAPES] + [
+        (shape, getattr(torch, dtype), off, jobs, unit) for shape, dtype, off, jobs, unit in K3_PATHS]
+    for shape, dtype, base_offset, jobs, unit in cases:
+        n = math.prod(shape)
+        imgs = []
+        for _ in range(jobs):
+            raw = torch.randint(0, 256, (n * torch.tensor([], dtype=dtype).element_size()
+                                         + base_offset,), generator=g, device=device,
+                                dtype=torch.uint8)
+            imgs.append(raw[base_offset:].view(dtype).view(shape))
         offs = [aug.crop_offsets(shape[0] * shape[1], 4, g, device) for _ in imgs]
         got = aug.crop_images(imgs, offs, padding=4, num_batch_dims=2)
+        ptrs = lambda ts: (ctypes.c_void_p * jobs)(*(t.data_ptr() for t in ts))
+        took = lib.serl_random_crop_unit(ptrs(imgs), ptrs(got), jobs, shape[3],
+                                         shape[4] * imgs[0].element_size())
+        if took != unit:
+            raise AssertionError(f"K3 at {shape} {dtype} {base_offset} bytes off took "
+                                 f"{took}-byte units, not {unit}")
         for img, off, out in zip(imgs, offs, got):
             want = aug.batched_random_crop_gather(img, off, padding=4, num_batch_dims=2)
-            if not torch.equal(out, want):
-                raise AssertionError(f"K3 differs from plain at {shape}")
-        print(f"K3 vs plain at 4 x {shape} uint8, one launch: exactly equal")
+            if not torch.equal(out.view(torch.uint8), want.view(torch.uint8)):
+                raise AssertionError(f"K3 differs from plain at {shape} {dtype}")
+        print(f"K3 vs plain at {jobs} x {shape} {dtype}, base {base_offset} bytes past 16-byte "
+              f"alignment, one launch, {unit}-byte units: exactly equal")
     return 0.0
 
 
@@ -1033,27 +1094,45 @@ def phase_pixel_path(torch, device, card):
         env, agent, rb, config, carry, run_chunk
 
 
-def phase_pixel_times(torch, device, card, k2, env, agent, rb, config, carry, run_chunk):
-    """K2, K3 and K4's pixel gather at the pixel path's shapes, and where a
-    pixel iteration's time goes."""
+def phase_pixel_times(torch, device, card, k2, builds, env, agent, rb, config, carry, run_chunk):
+    """K2 (both -fmad builds), K3 and K4's pixel gather at the pixel path's
+    shapes, and where a pixel iteration's time goes."""
     from serl_tpu_torch.data import replay_buffer as rbm
     from serl_tpu_torch.envs import rendering
     from serl_tpu_torch.vision import augmentations as aug
 
     g = torch.Generator(device=device).manual_seed(11)
     rows = {}
-    # K2 on the loop's own states (16 envs, both cameras, 128 px)
+    # K2 on the loop's own states (16 envs, both cameras, 128 px), both builds
     s = carry.env_states.physics
     n, pixels = s.qpos.shape[0], PIXEL_SIZE * PIXEL_SIZE
     render = lambda: rendering.render_cameras_cuda(s, PIXEL_SIZE)
     ops = k2.render_ops(s, PIXEL_SIZE)
-    nbytes = (n * rendering.SCENE_FLOATS * 4 + 2 * 2 * pixels * 4 + rendering.RENDER_CONSTANTS.nbytes
-              + 2 * n * pixels * 3)
-    bound_ms, bound_by = bound(nbytes, ops)
+    own = ops["scene"] + ops["camera"] + ops["pixel"]
+    nbytes = (n * (7 + 1 + 3 + 4) * 4 + rendering.kernel_constants().nbytes
+              + 2 * 2 * pixels * 4 + 2 * n * pixels * 3)
+    bound_ms, bound_by = bound(nbytes, own)
+    fmad = {label: [] for label in builds}
+    for label in list(builds) + list(builds)[::-1]:  # shipped, other, other, shipped
+        fmad[label].append(profiled_kernel_ms(
+            lambda: rendering.render_cameras_cuda(s, PIXEL_SIZE, lib=builds[label]), 50,
+            K2_KERNELS))
     rows["render"] = dict(
-        ms=per_call_ms(render, calls=50), profiler_ms=profiled_kernel_ms(render, 50, "render_kernel"),
+        ms=per_call_ms(render, calls=50), profiler_ms=profiled_kernel_ms(render, 50, K2_KERNELS),
+        profiler_ms_by_kernel={k: profiled_kernel_ms(render, 50, k) for k in K2_KERNELS},
         plain_ms=per_call_ms(lambda: rendering.render_cameras_plain(s, PIXEL_SIZE), calls=5),
-        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops, library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=own, library_ms=None,
+        ops_per_pixel=ops["pixel"] / (2 * n * pixels), ops_per_env_camera=ops["camera"] / (2 * n),
+        ops_per_env=ops["scene"] / n, ops_unhoisted=ops["unhoisted"],
+        bound_ms_unhoisted=bound(nbytes, ops["unhoisted"])[0], fmad=fmad)
+    print(f"K2 operations (counted in the kernel's code by tests/k2_host.cpp): "
+          f"{rows['render']['ops_per_pixel']:.2f} per pixel, "
+          f"{rows['render']['ops_per_env_camera']:.1f} per (env, camera), "
+          f"{rows['render']['ops_per_env']:.1f} per env, {own} in all; the unhoisted count "
+          f"{ops['unhoisted'] / (2 * n * pixels):.2f} per pixel, bound "
+          f"{rows['render']['bound_ms_unhoisted']:.6f} ms; device ms of the two builds "
+          f"(torch.profiler, 50 calls each, in turns) {json.dumps(fmad)}; the shipped build's "
+          f"by kernel {json.dumps(rows['render']['profiler_ms_by_kernel'])} [{card}]")
 
     # K3 at the main path's call: obs and next_obs of both cameras, 1024 x T = 1
     buf = carry.rb_state
@@ -1209,10 +1288,15 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
         "source": "serl_tpu_torch/csrc/render.cu",
         "replaces": "serl_tpu/envs/rendering.py:329",
         **launches("render", "pixel"),
-        "max_abs_err": errs["K2"],  # uint8 levels, under the pixel rule of tests/torch_k2.py
+        "max_abs_err": errs["K2"][0],  # uint8 levels, under the pixel rule of tests/torch_k2.py
         **{k: prows["render"][k] for k in timed},
         "shape": [BENCH_PIXELS["num_envs"], 2, PIXEL_SIZE, PIXEL_SIZE, 3],
-        "ops": prows["render"]["ops"],
+        "scene_max_abs_err": errs["K2"][1],
+        "pixel_rule_by_build": errs["K2"][2],
+        **{k: prows["render"][k] for k in ("ops", "ops_per_pixel", "ops_per_env_camera",
+                                           "ops_per_env", "ops_unhoisted",
+                                           "bound_ms_unhoisted", "fmad")},
+        "ptxas": ptxas["render"],
     })
     kernels.append({
         "name": "random_crop",
@@ -1301,7 +1385,7 @@ def main(kernels_only: bool = False) -> int:
 
     def nvcc():
         try:
-            build.build_all(build.KERNEL_SOURCES)
+            build.build_all(build.KERNEL_SOURCES, [("render", K2_BUILDS[1][1])])
             built["s"] = time.perf_counter() - t0
         except Exception as exc:  # re-raised below, after the join
             built["error"] = exc
@@ -1316,23 +1400,26 @@ def main(kernels_only: bool = False) -> int:
     if "error" in built:
         raise built["error"]
     engine._kernel_library()
-    rendering._render_library()
+    k2_libs = {label: rendering._render_library() if extra is None
+               else rendering.bind_library(build.load_library("render", extra))
+               for label, extra in K2_BUILDS}
     augmentations._crop_library()
     rbm._gather_library()
     k5._library()
     t1 = time.perf_counter()
     ptxas = {}
-    for name in build.KERNEL_SOURCES:
-        with open(os.path.join(build.BUILD_DIR, f"{name}.ptxas.txt")) as f:
-            ptxas[name] = " | ".join(line.strip() for line in f
-                                     if "registers" in line or "spill" in line)
-    print(f"K1-K5 built with nvcc ({', '.join(build.KERNEL_SOURCES)}, in parallel) in "
+    for name, extra in [(name, None) for name in build.KERNEL_SOURCES] + [("render", K2_BUILDS[1][1])]:
+        with open(build.ptxas_path(name, extra)) as f:
+            ptxas[name if extra is None else f"{name} {' '.join(extra)}"] = " | ".join(
+                line.strip() for line in f if "registers" in line or "spill" in line)
+    print(f"K1-K5 built with nvcc ({', '.join(build.KERNEL_SOURCES)}, and render.cu with "
+          f"{K2_BUILDS[1][0]} beside the shipped {K2_BUILDS[0][0]}, in parallel) in "
           f"{built['s']:.2f} s, all loaded after {t1 - t0:.2f} s; ptxas {json.dumps(ptxas)}; "
           f"K1's and K2's op-counting host builds (g++) meanwhile, done after {host_s:.2f} s")
 
     # phase 2: every kernel against its plain version
     errs = {"K1": phase_kernel_vs_plain(torch, engine, checks, device),
-            "K2": phase_k2_vs_plain(torch, checks, k2, device),
+            "K2": phase_k2_vs_plain(torch, checks, k2, k2_libs, device),
             "K3": phase_k3_vs_plain(torch, device),
             "K4": phase_k4_vs_plain(torch, device),
             "K4 pixel": max(phase_k4_pixel_vs_plain(torch, device),
@@ -1354,8 +1441,8 @@ def main(kernels_only: bool = False) -> int:
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
     lrows = phase_learner_times(torch, device, card, l_agent, l_rb, l_config, l_carry, l_run)
-    prows = phase_pixel_times(torch, device, card, k2, p_env, p_agent, p_rb, p_config, p_carry,
-                              p_run)
+    prows = phase_pixel_times(torch, device, card, k2, k2_libs, p_env, p_agent, p_rb, p_config,
+                              p_carry, p_run)
     k5rows = phase_k5_times(torch, k5_checks, device, card)
 
     per_iter = {"actor": ACTOR_LAUNCHES,  # the whole actor path, not per iteration

@@ -7,13 +7,19 @@
 // with (dy_b, dx_b) = offsets[b] in [0, 2 pad]; it is exact for any dtype,
 // since it copies bytes.
 //
-// Design: one launch crops up to kMaxJobs same-shaped image batches (DrQ's
-// obs and next_obs of every image key), grid.y = job. Each thread writes one
-// 4-byte word of an output row (one byte where a row is not a whole number
-// of words): it reads its image's two offsets, clamps the source row once
-// and the source column per byte, and reads the bytes from the source row,
-// which neighbouring threads share, so the reads hit the same cache lines.
-// Offsets are a device tensor, so there is no host sync.
+// Design: an output row is one source row shifted by (dx_b - pad) pixels
+// with edge replication, so a block crops a tile of rows (12 KB of source,
+// 32 rows of DrQ's 384-byte frames) as a row shift: it stages the clamped
+// source rows in shared memory with 16-byte loads (four in flight a
+// thread), writes the replicated edge pixels beside them, and writes each
+// output row as 16-byte stores, coalesced across the warp, each assembled
+// from two aligned 16-byte shared-memory reads by funnel shifts. Rows or
+// bases that are not 16-byte aligned take the same code in 4-byte words or
+// bytes (random_crop.cuh::pick_unit). One launch crops up to kMaxJobs
+// same-shaped image batches (DrQ's obs and next_obs of every image key),
+// grid.y = job. Offsets are a device tensor, so there is no host sync. The
+// per-thread code is random_crop.cuh, which tests/k3_host.cpp also builds
+// for the CPU.
 //
 // What bounds it: bytes. Each output byte is written once and each input
 // byte read about once: 2 x 50.3 MB per (1024, 128, 128, 3) uint8 batch,
@@ -22,53 +28,42 @@
 // C ABI (bound with ctypes): serl_random_crop takes arrays of n_jobs source
 // images, outputs and (B, 2) int64 offsets, n_jobs, B, H, W, the bytes per
 // pixel, the padding and the CUDA stream; it returns cudaGetLastError()
-// after the launch.
+// after the launch (cudaErrorInvalidValue, with no launch, for a row too
+// wide for shared memory). serl_random_crop_unit reports the unit a call
+// with these pointers takes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "random_crop.cuh"
+
 namespace {
 
-constexpr int kMaxJobs = 8;
+using namespace serl_crop;
+
 constexpr int kThreadsPerBlock = 256;
 
-struct CropJobs {
-  const uint8_t* src[kMaxJobs];
-  uint8_t* dst[kMaxJobs];
-  const int64_t* offsets[kMaxJobs];
-};
+template <int UNIT>
+__global__ void __launch_bounds__(kThreadsPerBlock) random_crop_kernel(Jobs jobs, Shape s) {
+  extern __shared__ uint4 smem_words[];
+  __shared__ Row rows[kMaxTileRows];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_words);
+  const int job = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.x * s.tile_rows;
+  const int n_rows = (int)min((int64_t)s.tile_rows, s.rows - row0);
+  for (int r = threadIdx.x; r < n_rows; r += blockDim.x)
+    row_table(s, jobs.offsets[job], row0, r, rows);
+  __syncthreads();
+  stage_rows<UNIT>(s, jobs.src[job], rows, n_rows, smem, threadIdx.x, blockDim.x);
+  __syncthreads();
+  fill_pads(s, n_rows, smem, threadIdx.x, blockDim.x);
+  __syncthreads();
+  emit_rows<UNIT>(s, jobs.dst[job], rows, n_rows, smem, threadIdx.x, blockDim.x);
+}
 
 template <int UNIT>
-__global__ void random_crop_kernel(CropJobs jobs, int batch, int h, int w, int pixel_bytes,
-                                   int pad) {
-  const int job = blockIdx.y;
-  const int row_bytes = w * pixel_bytes;
-  const int row_units = row_bytes / UNIT;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)batch * h * row_units) return;
-  const int u = (int)(i % row_units);
-  const int64_t row = i / row_units;  // b * h + out_row
-  const int b = (int)(row / h);
-  const int out_row = (int)(row - (int64_t)b * h);
-  const int64_t* off = jobs.offsets[job] + 2 * b;
-  const int dy = (int)off[0], dx = (int)off[1];
-  const int src_row = min(max(out_row + dy - pad, 0), h - 1);
-  const uint8_t* src = jobs.src[job] + ((int64_t)b * h + src_row) * row_bytes;
-  uint8_t bytes[UNIT];
-#pragma unroll
-  for (int k = 0; k < UNIT; ++k) {
-    const int byte = u * UNIT + k;
-    const int px = byte / pixel_bytes;
-    const int within = byte - px * pixel_bytes;
-    const int src_col = min(max(px + dx - pad, 0), w - 1);
-    bytes[k] = src[src_col * pixel_bytes + within];
-  }
-  uint8_t* dst = jobs.dst[job] + row * row_bytes + u * UNIT;
-  if constexpr (UNIT == 4) {
-    *reinterpret_cast<uint32_t*>(dst) = (uint32_t)bytes[0] | ((uint32_t)bytes[1] << 8) |
-                                        ((uint32_t)bytes[2] << 16) | ((uint32_t)bytes[3] << 24);
-  } else {
-    dst[0] = bytes[0];
-  }
+void launch(const Jobs& jobs, const Shape& s, int n_jobs, cudaStream_t stream) {
+  const dim3 grid((unsigned)((s.rows + s.tile_rows - 1) / s.tile_rows), (unsigned)n_jobs);
+  random_crop_kernel<UNIT><<<grid, kThreadsPerBlock, s.tile_rows * s.slot, stream>>>(jobs, s);
 }
 
 }  // namespace
@@ -81,29 +76,35 @@ const char* serl_random_crop_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+int serl_random_crop_unit(const uint8_t* const* src, uint8_t* const* dst, int n_jobs, int w,
+                          int pixel_bytes) {
+  return pick_unit(w * pixel_bytes, src, dst, n_jobs);
+}
+
 int serl_random_crop(const uint8_t* const* src, uint8_t* const* dst,
                      const int64_t* const* offsets, int n_jobs, int batch, int h, int w,
                      int pixel_bytes, int pad, void* stream) {
   if (n_jobs <= 0 || n_jobs > kMaxJobs || h <= 0 || w <= 0 || pixel_bytes <= 0 || pad < 0)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
-  CropJobs jobs = {};
-  bool aligned = (w * pixel_bytes) % 4 == 0;
+  const Shape s = make_shape(batch, h, w, pixel_bytes, pad);
+  if (s.tile_rows <= 0) return (int)cudaErrorInvalidValue;
+  Jobs jobs = {};
   for (int j = 0; j < n_jobs; ++j) {
     jobs.src[j] = src[j];
     jobs.dst[j] = dst[j];
     jobs.offsets[j] = offsets[j];
-    aligned = aligned && ((uintptr_t)dst[j] % 4 == 0);
   }
-  const int unit = aligned ? 4 : 1;
-  const int64_t n = (int64_t)batch * h * (w * pixel_bytes / unit);
-  const dim3 grid((unsigned)((n + kThreadsPerBlock - 1) / kThreadsPerBlock), (unsigned)n_jobs);
-  if (aligned)
-    random_crop_kernel<4><<<grid, kThreadsPerBlock, 0, (cudaStream_t)stream>>>(
-        jobs, batch, h, w, pixel_bytes, pad);
-  else
-    random_crop_kernel<1><<<grid, kThreadsPerBlock, 0, (cudaStream_t)stream>>>(
-        jobs, batch, h, w, pixel_bytes, pad);
+  switch (pick_unit(s.row_bytes, src, dst, n_jobs)) {
+    case 16:
+      launch<16>(jobs, s, n_jobs, (cudaStream_t)stream);
+      break;
+    case 4:
+      launch<4>(jobs, s, n_jobs, (cudaStream_t)stream);
+      break;
+    default:
+      launch<1>(jobs, s, n_jobs, (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,14 +11,17 @@ batched over envs: `build_scene` runs the port's FK and pad kinematics for all
 N envs at once, and `camera_poses` gives both cameras' poses (the front
 camera is fixed; the wrist camera rides link 7 through the attachment body).
 
-Two implementations of the per-pixel work sit side by side:
+Two implementations of the render sit side by side:
   * `render_scene_plain` / `render_cameras_plain`: structure-of-arrays over
     (env, pixel) in plain PyTorch, following the JAX arithmetic op by op.
     CPU tensors take them; on the card only tests and chip_smoke.py call them.
-  * the CUDA kernel in `serl_tpu_torch/csrc/render.cu` (per-pixel code in
+  * the CUDA kernels in `serl_tpu_torch/csrc/render.cu` (per-thread code in
     `csrc/render.cuh`), which `render_cameras` launches for CUDA tensors,
-    counting its launches in `render_cameras.launches`. It reads the scene
-    that `pack_scene` flattens into one (N, SCENE_FLOATS) fp32 row per env.
+    counting its launches in `render_cameras.launches`: a scene kernel
+    computes each env's scene row (the row `pack_scene` packs, (N,
+    SCENE_FLOATS) fp32) and its cameras' invariants from the physics state
+    itself and one constant row (`kernel_constants`), then a pixel kernel
+    renders both cameras; a render is two launches and no host work.
 Both take the per-pixel (gx, gy) grid that `pixel_grid` builds with
 `np.linspace` in float32 exactly as the JAX package does, so every ray is
 the same ray.
@@ -35,7 +38,7 @@ import torch
 
 from serl_tpu_torch.envs.physics import engine, gripper
 from serl_tpu_torch.envs.physics import panda_model as pm
-from serl_tpu_torch.envs.physics.arm import fk
+from serl_tpu_torch.envs.physics.arm import BODY_POS, BODY_RMAT, PINCH_POS_L7, PINCH_RMAT_L7, fk
 from serl_tpu_torch.envs.physics.math3d import quat_to_mat, quat_to_mat_np
 
 BIG = 1e9
@@ -99,6 +102,15 @@ class Scene(NamedTuple):
 
 
 _FINGER_H = [0.012, 0.008, 0.030]
+_WRIST_END = np.asarray([0.0, 0.0, 0.11], np.float32)  # the last capsule's end, pinch frame
+_HAND = np.asarray([0.01, 0.0, 0.11], np.float32)  # the hand box's centre, pinch frame
+_SPH_R = np.asarray([0.08, 0.07], np.float32)
+_SPH_COL = np.stack([_LINK_COL, _LINK_COL])
+_CAP_R = np.asarray([0.07, 0.07, 0.06, 0.06, 0.055, 0.05], np.float32)
+_CAP_COL = np.stack([_LINK_COL] * 5 + [_DARK_COL])
+_BOX_H = np.stack([np.asarray(pm.BLOCK_HALF, np.float32), np.asarray([0.03, 0.045, 0.035], np.float32),
+                   np.asarray(_FINGER_H, np.float32), np.asarray(_FINGER_H, np.float32)])
+_BOX_COL = np.stack([_CUBE_COL, _DARK_COL, _PAD_COL, _PAD_COL])
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,22 +119,20 @@ def _consts(device: torch.device):
     once per device, so that a render copies nothing from the host."""
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return {
-        "wrist_end": t([0.0, 0.0, 0.11]),
-        "hand": t([0.01, 0.0, 0.11]),
-        "cap_r": t([0.07, 0.07, 0.06, 0.06, 0.055, 0.05]),
-        "cap_col": t(np.stack([_LINK_COL] * 5 + [_DARK_COL])),
-        "sph_r": t([0.08, 0.07]),
-        "sph_col": t(np.stack([_LINK_COL, _LINK_COL])),
-        "box_h": t(np.stack([np.asarray(pm.BLOCK_HALF, np.float32), [0.03, 0.045, 0.035],
-                             _FINGER_H, _FINGER_H])),
-        "box_col": t(np.stack([_CUBE_COL, _DARK_COL, _PAD_COL, _PAD_COL])),
+        "wrist_end": t(_WRIST_END),
+        "hand": t(_HAND),
+        "cap_r": t(_CAP_R),
+        "cap_col": t(_CAP_COL),
+        "sph_r": t(_SPH_R),
+        "sph_col": t(_SPH_COL),
+        "box_h": t(_BOX_H),
+        "box_col": t(_BOX_COL),
         "att_R": t(_ATT_R_L7),
         "att_pos": t(_ATT_POS_L7),
         "wrist_R": t(_WRIST_R_ATT),
         "wrist_pos": t(_WRIST_POS_ATT),
         "front_pos": t(_FRONT_POS),
         "front_R": t(_FRONT_R),
-        "render": t(RENDER_CONSTANTS),
     }
 
 
@@ -372,46 +382,103 @@ def pack_scene(state: engine.PhysicsState) -> torch.Tensor:
     return torch.cat(parts, -1).contiguous()
 
 
+# Layout of the kernel's constant row: (name, array), in the order of the
+# C_* offsets in csrc/render.cuh.
+def _kernel_constant_table():
+    return (
+        ("BODY_POS", BODY_POS), ("BODY_RMAT", BODY_RMAT),
+        ("PINCH_POS", PINCH_POS_L7), ("PINCH_RMAT", PINCH_RMAT_L7),
+        ("Y_POLY", gripper.Y_POLY), ("Z_POLY", gripper.Z_POLY),
+        ("PAD_HALF_Y", gripper.PAD_HALF_Y), ("PAD_BOX_DZ", gripper.PAD_BOX_DZ),
+        ("WRIST_END", _WRIST_END), ("HAND", _HAND),
+        ("ATT_R", _ATT_R_L7), ("ATT_POS", _ATT_POS_L7),
+        ("WRIST_R", _WRIST_R_ATT), ("WRIST_POS", _WRIST_POS_ATT),
+        ("FRONT_POS", _FRONT_POS), ("FRONT_R", _FRONT_R),
+        ("SPH_R", _SPH_R), ("SPH_COL", _SPH_COL), ("CAP_R", _CAP_R), ("CAP_COL", _CAP_COL),
+        ("BOX_H", _BOX_H), ("BOX_COL", _BOX_COL), ("RENDER", RENDER_CONSTANTS),
+    )
+
+
+def kernel_constants() -> np.ndarray:
+    """The kernel's constant row as one flat float32 array."""
+    return np.concatenate(
+        [np.asarray(a, np.float32).reshape(-1) for _, a in _kernel_constant_table()])
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_constants_on(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(kernel_constants(), device=device)
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C ABI of a build of csrc/render.cu and check that it reads
+    this module's layouts."""
+    lib.serl_render_cameras.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.serl_render_cameras.restype = ctypes.c_int
+    for fn in (lib.serl_render_scene_floats, lib.serl_render_constant_count,
+               lib.serl_render_work_floats):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.serl_render_error_string.argtypes = [ctypes.c_int]
+    lib.serl_render_error_string.restype = ctypes.c_char_p
+    if lib.serl_render_scene_floats() != SCENE_FLOATS:
+        raise RuntimeError(f"render kernel writes {lib.serl_render_scene_floats()} scene floats, "
+                           f"pack_scene packs {SCENE_FLOATS}")
+    if lib.serl_render_constant_count() != kernel_constants().size:
+        raise RuntimeError(f"render kernel reads {lib.serl_render_constant_count()} constants, "
+                           f"the table packs {kernel_constants().size}")
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _render_library():
     """Build (once per source hash) and bind the render kernel."""
     from serl_tpu_torch.native.build import load_library
 
-    lib = load_library("render")
-    lib.serl_render_cameras.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.serl_render_cameras.restype = ctypes.c_int
-    lib.serl_render_scene_floats.argtypes = []
-    lib.serl_render_scene_floats.restype = ctypes.c_int
-    lib.serl_render_error_string.argtypes = [ctypes.c_int]
-    lib.serl_render_error_string.restype = ctypes.c_char_p
-    if lib.serl_render_scene_floats() != SCENE_FLOATS:
-        raise RuntimeError(f"render kernel reads {lib.serl_render_scene_floats()} scene floats, "
-                           f"pack_scene packs {SCENE_FLOATS}")
-    return lib
+    return bind_library(load_library("render"))
 
 
-def render_cameras_cuda(state: engine.PhysicsState, size: int = 128):
-    """`render_cameras_plain` by the CUDA kernel: both cameras of every env
-    in one launch."""
+_STATE_FIELDS = {"qpos": (7,), "theta": (), "cube_pos": (3,), "cube_quat": (4,)}
+
+
+def render_cameras_cuda(state: engine.PhysicsState, size: int = 128, scene_out=None, lib=None):
+    """`render_cameras_plain` by the CUDA kernels: both cameras of every env
+    from the physics state, a scene launch then a pixel launch. `scene_out`, an (N, SCENE_FLOATS)
+    fp32 CUDA tensor, also receives the scene rows the kernel computed (what
+    `pack_scene` packs); `lib` is another build of render.cu bound by
+    `bind_library` (chip_smoke.py times two)."""
     device = state.qpos.device
     if device.type != "cuda":
         raise ValueError(f"render_cameras_cuda needs CUDA tensors, got {device}")
+    n = state.qpos.shape[0]
+    for name, shape in _STATE_FIELDS.items():
+        x = getattr(state, name)
+        if (x.dtype != torch.float32 or x.device != device or tuple(x.shape) != (n,) + shape
+                or not x.is_contiguous()):
+            raise ValueError(f"PhysicsState.{name}: want contiguous float32 {(n,) + shape} on "
+                             f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if scene_out is not None and (scene_out.dtype != torch.float32 or scene_out.device != device
+                                  or tuple(scene_out.shape) != (n, SCENE_FLOATS)
+                                  or not scene_out.is_contiguous()):
+        raise ValueError(f"scene_out: want contiguous float32 ({n}, {SCENE_FLOATS}) on {device}")
     size = int(size)
-    scene = pack_scene(state)
-    n = scene.shape[0]
     grid = pixel_grid(size, device)
-    consts = _consts(device)["render"]
+    consts = _kernel_constants_on(device)
+    lib = lib or _render_library()
     front = torch.empty((n, size, size, 3), dtype=torch.uint8, device=device)
     wrist = torch.empty_like(front)
-    lib = _render_library()
+    work = torch.empty((n, lib.serl_render_work_floats()), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.serl_render_cameras(scene.data_ptr(), grid.data_ptr(), consts.data_ptr(),
-                             front.data_ptr(), wrist.data_ptr(), n, size * size, SCENE_FLOATS,
-                             stream)
+        rc = lib.serl_render_cameras(
+            *(getattr(state, name).data_ptr() for name in _STATE_FIELDS), consts.data_ptr(),
+            grid.data_ptr(), front.data_ptr(), wrist.data_ptr(), work.data_ptr(),
+            None if scene_out is None else scene_out.data_ptr(), n, size * size, consts.numel(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"render kernel launch failed: {lib.serl_render_error_string(rc).decode()}")
-    render_cameras.launches += 1
+    render_cameras.launches += 2  # the scene kernel, then the pixel kernel
     return front, wrist
 
 

@@ -21,13 +21,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Flags of one source only. The renderer must round where its plain version
-# rounds, so no multiply-add is fused there (render.cuh says why). K5
-# (dense_layer_norm_tanh) keeps the general -fmad=true: its 3xTF32 products
-# already sum in another order than the plain version's fp32 matmul, which
-# its tolerances state, and a fused multiply-add in its epilogue rounds once
-# where the plain version rounds twice, well inside them.
-EXTRA_FLAGS = {"render": ("-fmad=false",)}
 # Every csrc/<name>.cu, in the order of the kernels K1 to K5
 KERNEL_SOURCES = ("control_step", "render", "random_crop", "replay_gather",
                   "dense_layer_norm_tanh")
@@ -44,56 +37,72 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(name: str):
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+def _flags(extra=None):
+    """nvcc's flags, with `extra` after them for a variant (chip_smoke.py's
+    -fmad=false build of render.cu). Every kernel takes nvcc's default
+    -fmad=true: a fused multiply-add rounds once where the plain versions
+    round twice, which their tolerances (K5) and the pixel rule (K2) hold."""
+    return NVCC_FLAGS + tuple(extra or ())
 
 
-def _source_hash(name: str, source: str) -> str:
-    h = hashlib.sha256(" ".join(_flags(name)).encode())
+def _source_hash(source: str, extra=None) -> str:
+    h = hashlib.sha256(" ".join(_flags(extra)).encode())
     for path in [source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def _output(name: str):
+def _output(name: str, extra=None):
     source = os.path.join(CSRC, f"{name}.cu")
-    return source, os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(name, source)}.so")
+    return source, os.path.join(BUILD_DIR, f"lib{name}-{_source_hash(source, extra)}.so")
 
 
-def build_all(names) -> dict:
-    """Compile every csrc/<name>.cu that has no build of the same sources
-    yet, one nvcc per source, all started together; returns {name: shared
-    library path}. Waits for every nvcc before it raises for any."""
+def ptxas_path(name: str, extra=None) -> str:
+    """What `-Xptxas -v` said (registers, spills per kernel) for a build."""
+    return _output(name, extra)[1][: -len(".so")] + ".ptxas.txt"
+
+
+def build_all(names, variants=()) -> dict:
+    """Compile every csrc/<name>.cu, and every (name, extra flags) of
+    `variants`, that has no build of the same sources and flags yet, one
+    nvcc per build, all started together; returns {name or (name, extra):
+    shared library path}. Waits for every nvcc before it raises for any."""
+    targets = [(name, None) for name in names] + [(name, tuple(extra)) for name, extra in variants]
     started = {}
-    for name in names:
-        source, out = _output(name)
+    for name, extra in targets:
+        source, out = _output(name, extra)
         if os.path.exists(out):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        started[name] = (subprocess.Popen([find_nvcc(), *_flags(name), "-o", tmp, source],
-                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                          text=True), source, tmp, out)
+        started[(name, extra)] = (
+            subprocess.Popen([find_nvcc(), *_flags(extra), "-o", tmp, source],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            source, tmp, out)
     failed = []
-    for name, (proc, source, tmp, out) in started.items():
+    for (name, extra), (proc, source, tmp, out) in started.items():
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {source}:\n{stdout}\n{stderr}")
             continue
-        with open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w") as f:
-            f.write(stdout + stderr)  # -Xptxas -v: registers, spills per kernel
+        with open(ptxas_path(name, extra), "w") as f:
+            f.write(stdout + stderr)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: _output(name)[1] for name in names}
+    return {(name if extra is None else (name, extra)): _output(name, extra)[1]
+            for name, extra in targets}
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless a build of the same sources exists;
-    returns the shared library's path."""
-    return build_all([name])[name]
+def build(name: str, extra=None) -> str:
+    """Compile csrc/<name>.cu (with the `extra` flags, if given) unless a
+    build of the same sources and flags exists; returns the shared
+    library's path."""
+    if extra is None:
+        return build_all([name])[name]
+    return build_all([], [(name, extra)])[(name, tuple(extra))]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(build(name))
+def load_library(name: str, extra=None) -> ctypes.CDLL:
+    return ctypes.CDLL(build(name, extra))

@@ -15,12 +15,15 @@ per image as `_crop_indices` draws them, so the tests can feed JAX's draws;
 
   * `batched_random_crop_gather`: the gather in plain PyTorch. CPU tensors
     take it; on the card only tests and chip_smoke.py call it.
-  * the CUDA kernel in `serl_tpu_torch/csrc/random_crop.cu`, which
-    `crop_images` launches for CUDA tensors (one launch for a list of
-    same-shaped images, so DrQ crops every image key of obs and next_obs at
-    once), counting its launches in `crop_images.launches`. It copies bytes,
-    so it serves float images exactly as well: where the JAX package sends
-    float inputs to its gather form, here both dtypes take the same gather.
+  * the CUDA kernel in `serl_tpu_torch/csrc/random_crop.cu` (per-thread
+    code in `csrc/random_crop.cuh`), which `crop_images` launches for CUDA
+    tensors (one launch for a list of same-shaped images, so DrQ crops every
+    image key of obs and next_obs at once), counting its launches in
+    `crop_images.launches`. It shifts each row in 16-byte units where rows
+    and bases allow, else in words or bytes, and copies bytes, so it serves
+    float images exactly as well: where the JAX package sends float inputs
+    to its gather form, here both dtypes take the same gather. A row of more
+    than ~40 KB (a block's shared memory) is refused.
 
 The photometric augmentations of the JAX module are not ported yet.
 """
@@ -84,6 +87,8 @@ def _crop_library():
     lib.serl_random_crop_max_jobs.restype = ctypes.c_int
     lib.serl_random_crop_error_string.argtypes = [ctypes.c_int]
     lib.serl_random_crop_error_string.restype = ctypes.c_char_p
+    lib.serl_random_crop_unit.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    lib.serl_random_crop_unit.restype = ctypes.c_int
     return lib
 
 

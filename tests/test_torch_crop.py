@@ -7,7 +7,16 @@ crop copies pixels, so the result must equal JAX's exactly: uint8 images
 through `batched_random_crop` (JAX's one-hot bf16 matmul form) and
 `batched_random_crop_gather`, with one and two leading batch dims, and float
 images (which JAX sends to its gather form).
+
+The kernel's own per-thread code (csrc/random_crop.cuh, built for the CPU by
+g++ from tests/k3_host.cpp) must equal the plain gather exactly at every
+offset (dy, dx) in [0, 2 pad]^2, on rows that take each of its copy paths:
+16-byte units, 4-byte words and bytes, with bases 16-byte aligned or 4
+bytes off; and a fault planted in a copy of the header must show.
 """
+
+import ctypes
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -16,6 +25,7 @@ import torch
 
 from serl_tpu.vision import augmentations as jaug
 from serl_tpu_torch.vision import augmentations as aug
+from tests import torch_k2
 
 PAD = 4
 
@@ -62,6 +72,78 @@ def test_torch_crop_images_crops_each_image_with_its_offsets():
     torch.testing.assert_close(same, imgs[0], rtol=0, atol=0)
     with pytest.raises(ValueError):
         aug.batched_random_crop(imgs[0], offsets[0][:4], padding=PAD, num_batch_dims=2)
+
+
+def _host_crop(img, offsets, out=None, csrc=torch_k2.CSRC):
+    """K3's per-thread code on the CPU over one image batch (B, H, W, C),
+    into `out` if given: (crop, unit taken)."""
+    lib = torch_k2.host_library("k3_host.cpp", "random_crop.cuh", csrc)
+    lib.k3_host_crop.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    lib.k3_host_crop.restype = ctypes.c_int
+    out = torch.empty_like(img) if out is None else out
+    b, h, w, c = img.shape
+    unit = lib.k3_host_crop(img.data_ptr(), out.data_ptr(), offsets.data_ptr(), b, h, w,
+                            c * img.element_size(), PAD)
+    return out, unit
+
+
+def _view_off(raw, nbytes, shape, dtype, base_offset):
+    """A (shape, dtype) view of the uint8 buffer `raw` whose base lies
+    `base_offset` bytes past a 16-byte boundary."""
+    start = (16 - raw.data_ptr() % 16) % 16 + base_offset
+    view = raw[start:start + nbytes].view(dtype).view(shape)
+    assert view.data_ptr() % 16 == base_offset
+    return view
+
+
+def _every_offset_batch(w, c, dtype, base_offset):
+    """One image per (dy, dx) in [0, 2 PAD]^2, 10 rows each, `base_offset`
+    bytes past a 16-byte boundary; an output buffer as far off; the offsets."""
+    offsets = torch.tensor([(dy, dx) for dy in range(2 * PAD + 1) for dx in range(2 * PAD + 1)])
+    shape = (offsets.shape[0], 10, w, c)
+    nbytes = int(np.prod(shape)) * torch.tensor([], dtype=dtype).element_size()
+    raw = torch.from_numpy(np.random.default_rng(0).integers(0, 256, nbytes + 32, np.uint8))
+    return (_view_off(raw, nbytes, shape, dtype, base_offset),
+            _view_off(torch.empty(nbytes + 32, dtype=torch.uint8), nbytes, shape, dtype,
+                      base_offset), offsets)
+
+
+@pytest.mark.parametrize("w,c,dtype,base_offset,unit", [
+    (128, 3, torch.uint8, 0, 16), (128, 3, torch.uint8, 4, 4),  # DrQ's 384-byte rows
+    (84, 3, torch.uint8, 0, 4), (84, 3, torch.uint8, 4, 4),     # 252 bytes: words
+    (33, 1, torch.uint8, 0, 1), (33, 1, torch.uint8, 4, 1),     # 33 bytes: bytes
+    (16, 4, torch.uint8, 0, 16), (16, 4, torch.uint8, 4, 4),    # 64 bytes
+    (16, 3, torch.float32, 0, 16),                              # 192-byte float rows
+])
+def test_torch_crop_kernel_code_equals_plain(w, c, dtype, base_offset, unit):
+    img, out, offsets = _every_offset_batch(w, c, dtype, base_offset)
+    got, got_unit = _host_crop(img, offsets, out)
+    assert got_unit == unit
+    want = aug.batched_random_crop_gather(img, offsets, padding=PAD)
+    # bytes, not values: random bytes as floats hold NaNs
+    assert torch.equal(got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8))
+
+
+# Faults planted in a copy of random_crop.cuh: (what, text, replacement)
+K3_FAULTS = [
+    ("row clamp stops a row short", "clampi(i + dy - s.pad, 0, s.h - 1)",
+     "clampi(i + dy - s.pad, 0, s.h - 2)"),
+    ("left edge replicates the second pixel", "row[k - s.pad_bytes] = row[k % s.pixel_bytes]",
+     "row[k - s.pad_bytes] = row[s.pixel_bytes + k % s.pixel_bytes]"),
+    ("funnel shift in nibbles", "const int q = (o & 15) >> 2, bits = (o & 3) * 8;",
+     "const int q = (o & 15) >> 2, bits = (o & 3) * 4;"),
+]
+
+
+@pytest.mark.parametrize("what,text,replacement", K3_FAULTS, ids=[f[0] for f in K3_FAULTS])
+def test_torch_crop_kernel_code_planted_fault_fails(tmp_path, what, text, replacement):
+    source = (Path(torch_k2.CSRC) / "random_crop.cuh").read_text()
+    assert source.count(text) == 1, what
+    (tmp_path / "random_crop.cuh").write_text(source.replace(text, replacement))
+    img, _, offsets = _every_offset_batch(128, 3, torch.uint8, 0)
+    got, unit = _host_crop(img, offsets, csrc=str(tmp_path))
+    assert unit == 16
+    assert not torch.equal(got, aug.batched_random_crop_gather(img, offsets, padding=PAD)), what
 
 
 @pytest.mark.cuda
