@@ -20,8 +20,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      grasp states with the cube between the pads), which must include active
      floor and pad contacts: one control step, field by field and env by env,
      and a 100-step kernel-vs-plain rollout, under the tolerance rule of
-     tests/torch_k1.py; two more launches on each input, and at N = 2048 a
-     launch on its first 101 envs, equal bit for bit; K2 (both -fmad builds)
+     tests/torch_k1.py; two more launches on each input, at N = 2048 a
+     launch on its first 101 envs and at N = 128 launches on its first 30
+     and 32 (the RLPD path's widths), equal bit for bit; K2 (both -fmad builds)
      at N = 16 and 128, 128 px, on rollout and grasp states (cube in the
      wrist camera's view) under the pixel rule of tests/torch_k2.py (failing
      the phase for the shipped build only), its scene rows (the kernel's
@@ -31,7 +32,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      per launch, and at K3_PATHS, which reach its word and byte paths
      (frames 4 bytes off, 252- and 33-byte rows) and float frames: exactly
      equal; K4 at the state path's shapes (782 slots x 128 streams, 2048
-     rows, next_observations stored and not) and at the pixel path's (625 x
+     rows, next_observations stored and not), the RLPD path's online half
+     (6,250 x 32, 1,024 rows) and at the pixel path's (625 x
      16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
      rings with episode boundaries and the seam, and on fields that reach
      each of its copy paths (16-byte, word and byte units, wide and narrow
@@ -48,10 +50,22 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      configuration through make_drq_sim_experiment (16 envs, two 128 px
      cameras, small encoders, UTD 4, batch 256, 2 updates per iteration,
      buffer 10,000) warmed up in chunks of 25 past its threshold, then 3
-     chunks of 25 timed, then a 16-episode evaluate. Around each path every
-     launch count is read and checked against the count that its loss
-     functions and loop give; outputs must be finite and non-zero and the
-     params must move;
+     chunks of 25 timed, then a 16-episode evaluate; the RLPD path:
+     examples/fused_sac_state_sim.py --rlpd at the state_sim preset (32
+     envs, batch 256 x UTD 8, 4 update_high_utd calls per iteration, buffer
+     200,000): the example's scripted_demos, 30 expert episodes through K1
+     (at least 15 must succeed), the successful ones' first 2,000
+     transitions as a 20-stream demo ring, 64 warm-up iterations past the
+     2,048-row threshold, then run_fused for 3 chunks of 10 iterations with
+     a 32-episode evaluate after each; sample_mixed on the card's rings must
+     equal, bit for bit, the same draws on CPU copies of both rings (the
+     plain path), its even rows must be rows of the online ring and its odd
+     rows rows of the demo ring, and a learner step with sample_mixed
+     runs under torch.cuda.set_sync_debug_mode("error"). Around each path
+     every launch count is read and checked against the count that its loss
+     functions and loop give (on the RLPD path K4's from the demo ring's
+     stream count: a half takes K4 only when it divides over its ring's
+     streams); outputs must be finite and non-zero and the params must move;
   4. times on the card: each kernel and its plain version at its path's
      shapes (calls back to back between one pair of CUDA events, and the
      kernel's device time from torch.profiler; K4's pixel gather also with
@@ -63,7 +77,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      and that sequence's autograd backward), per call and on the device, where an
      actor step's, a state learner iteration's and a pixel iteration's time
      go, the learner steps run under torch.cuda.set_sync_debug_mode("error"),
-     and the device busy share of the loops (torch.profiler). A trace that
+     sample_mixed against sample (per call, device time, K4's share), an RLPD
+     iteration's host-clock time, and the device busy share of the loops
+     (torch.profiler). A trace that
      records no device time for a kernel it times, or a loop's window in
      which a kernel of that path has none, fails the phase.
 It prints the kernel table as one JSON line, then the card's name and power
@@ -73,6 +89,7 @@ tests/torch_k5.py); it never imports JAX or serl_tpu.
 """
 
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import math
@@ -92,12 +109,15 @@ PEAK_FP32_OPS_PER_S = 67e12
 PEAK_TF32_OPS_PER_S = 495e12
 BOUND_N = (128, 2048)
 K1_ODD_N = 101  # not a multiple of K1's envs per block (control_step.cu)
+K1_RLPD_N = (30, 32)  # the RLPD path's demo collection and its loop and evaluation
 MAIN_ENVS = 128
 # bench.py::bench_state's configuration, passed to make_state_sim_experiment
 BENCH_STATE = dict(seed=0, num_envs=128, updates_per_iter=1, utd_ratio=8, training_starts=1000,
                    random_steps=1000, buffer_capacity=100_000)
 CHUNK = 50  # loop iterations per timed chunk, as bench_state
 K4_SHAPE = dict(slots=782, streams=128, rows_per_stream=16)  # 100,096 rows, batch 2048
+# the RLPD path's online half: 200,000 rows over 32 streams, 1,024 of a 2,048-row batch
+K4_RLPD_SHAPE = dict(slots=6250, streams=32, rows_per_stream=32)
 K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows, batch 1024
 # bench.py::bench_pixels' configuration, passed to make_drq_sim_experiment
 BENCH_PIXELS = dict(seed=0, encoder_type="small", num_envs=16, batch_size=256, utd_ratio=4,
@@ -108,6 +128,13 @@ PIXEL_SIZE = 128
 IMAGE_KEYS = ("front", "wrist")
 K2_N = (16, 128)
 K2_KERNELS = ("render_scene_kernel", "render_pixels_kernel")  # a render launches both
+# The RLPD path: examples/fused_sac_state_sim.py --rlpd at the state_sim
+# preset (32 envs, batch 256 x UTD 8, 4 update_high_utd calls per
+# iteration, 10 critics subsampled to 2, buffer 200,000) with the scripted
+# expert's demos mixed 50/50: overrides of WorkloadConfig.preset("state_sim")
+RLPD_PRESET = dict(demo_fraction=0.5)
+RLPD_DEMO_MIN_SUCCESS = 15  # fewer successful expert episodes fail the phase
+RLPD_CHUNK, RLPD_CHUNKS, RLPD_EVAL_EPISODES = 10, 3, 32
 # K2's two builds, the shipped one (nvcc's default flags) first: (label,
 # extra nvcc flags)
 K2_BUILDS = (("-fmad=true", None), ("-fmad=false", ("-fmad=false",)))
@@ -135,6 +162,10 @@ K5_SHAPES = {
     ("shared", 10, 256, 580, 256): (True, True),   # pixel critic, layer 1 (2 x 256 + 64 + 4)
     ("linear", 1, 256, 7, 64): (True, False),      # pixel proprio Dense
     ("linear", 1, 256, 256, 256): (True, True),    # pixel bottleneck, per camera
+    # the RLPD path's policy acting on 32 envs and evaluating 32 episodes:
+    # forward only there; the backward is held and timed as an update's
+    ("linear", 1, 32, 10, 256): (True, False),
+    ("linear", 1, 32, 256, 256): (True, True),
 }
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
@@ -193,6 +224,36 @@ def pixel_launches_per_iter(utd_ratio: int, updates_per_iter: int) -> dict:
             "replay_gather": updates_per_iter,
             "dense_layer_norm_tanh_fwd": updates_per_iter * (15 * utd_ratio + 15) + 5,
             "dense_layer_norm_tanh_bwd": updates_per_iter * (5 * utd_ratio + 4)}
+
+
+def rlpd_launches_per_update(config, demo_streams: int) -> dict:
+    """Launches per updating RLPD iteration: the state learner's, with
+    sample_mixed's two halves in place of one sample. A half takes K4 only
+    when its rows divide over its ring's streams (the JAX package's
+    `sample`); otherwise it is the plain unaligned gather, no kernel."""
+    rows = config.batch_size * config.utd_ratio
+    half = rows // 2
+    per_sample = int(half % config.num_envs == 0) + int((rows - half) % demo_streams == 0)
+    per_iter = learner_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    return {**per_iter, "replay_gather": config.updates_per_iter * per_sample}
+
+
+def rlpd_launches(config, demo_streams: int, warmup: int, iters: int, evals: int,
+                  demo_steps: int = 100, eval_steps: int = 100) -> dict:
+    """Launches over the RLPD path: the expert's demo collection (K1 only),
+    `warmup` iterations of which the last is the first to update, `iters`
+    updating iterations, and `evals` argmax evaluations (K1 and 2 K5
+    forwards a step). Iterations before random_steps act at random, the
+    others sample the policy (2 K5 forwards)."""
+    per_update = rlpd_launches_per_update(config, demo_streams)
+    updating = 1 + iters
+    random_iters = -(-config.random_steps // config.num_envs)
+    policy_steps = warmup + iters - random_iters + evals * eval_steps
+    train = {k: v * updating for k, v in per_update.items()}
+    return {**train,
+            "control_step": demo_steps + warmup + iters + evals * eval_steps,
+            "dense_layer_norm_tanh_fwd": train["dense_layer_norm_tanh_fwd"] - 2 * updating
+            + 2 * policy_steps}
 
 
 def fail(msg: str) -> int:
@@ -338,18 +399,20 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
             n_floor, n_pad = int(floor.sum()), int(pad.sum())
             failures, summary, _ = checks.compare_step(engine.control_step_cuda, s)
             # two more launches on the same input; at N = 2048 also the first
-            # K1_ODD_N envs alone (a partial block), against the same envs'
-            # outputs of the whole launch
+            # K1_ODD_N envs alone (a partial block), at N = 128 the first
+            # K1_RLPD_N envs alone, against the same envs' outputs of the
+            # whole launch (which the plain version judged)
             first, second = engine.control_step_cuda(s), engine.control_step_cuda(s)
             repeats = all(torch.equal(a, b) for a, b in zip(first, second))
-            if n == BOUND_N[-1]:
-                part = engine.control_step_cuda(type(s)(*(x[:K1_ODD_N] for x in s)))
-                repeats = repeats and all(torch.equal(a, b[:K1_ODD_N]) for a, b in zip(part, first))
+            parts = {BOUND_N[-1]: (K1_ODD_N,), MAIN_ENVS: K1_RLPD_N}.get(n, ())
+            for m in parts:
+                part = engine.control_step_cuda(type(s)(*(x[:m] for x in s)))
+                repeats = repeats and all(torch.equal(a, b[:m]) for a, b in zip(part, first))
             print(f"K1 vs plain, N={n}, {source} states: active floor corners {n_floor}, "
                   f"active pad points {n_pad}; max abs err {fmt(summary['max_err'])}; envs "
                   f"beyond the tight tolerance {summary['envs_over_atol']} (at most "
                   f"{summary['budget']}); two more launches on the same input"
-                  + (f" and a launch on its first {K1_ODD_N} envs" if n == BOUND_N[-1] else "")
+                  + "".join(f" and a launch on its first {m} envs" for m in parts)
                   + f" equal bit for bit: {repeats}")
             if failures:
                 raise AssertionError(f"N={n} {source}: " + "; ".join(failures))
@@ -399,13 +462,20 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
 
 
 def phase_k4_vs_plain(torch, device):
-    """K4 against its plain version at the main path's shapes: a full ring
-    that has wrapped (cursor mid-ring), 100-step episodes that end at
-    another slot in every stream, next_observations stored and not."""
+    """K4 against its plain version at the state paths' shapes: the learner
+    path's (K4_SHAPE) and the RLPD path's online half (K4_RLPD_SHAPE)."""
+    g = torch.Generator(device=device).manual_seed(4)
+    return max(_k4_state_vs_plain(torch, device, g, **shape)
+               for shape in (K4_SHAPE, K4_RLPD_SHAPE))
+
+
+def _k4_state_vs_plain(torch, device, g, slots, streams, rows_per_stream):
+    """K4 against its plain version on a full ring that has wrapped (cursor
+    mid-ring), 100-step episodes that end at another slot in every stream,
+    next_observations stored and not."""
     from serl_tpu_torch.data import replay_buffer as rbm
 
-    slots, streams, r = K4_SHAPE["slots"], K4_SHAPE["streams"], K4_SHAPE["rows_per_stream"]
-    g = torch.Generator(device=device).manual_seed(4)
+    r = rows_per_stream
     data = {k: torch.randn((slots, streams) + shape, generator=g, device=device)
             for k, shape in (("observations", (10,)), ("actions", (4,)),
                              ("next_observations", (10,)), ("rewards", ()), ("masks", ()),
@@ -1248,6 +1318,194 @@ def phase_pixel_times(torch, device, card, k2, builds, env, agent, rb, config, c
     return rows
 
 
+def _rows_in(rows: "torch.Tensor", ring: "torch.Tensor") -> "torch.Tensor":
+    """(B,) whether each of the (B, F) rows equals some row of the (R, F) ring."""
+    return (rows[:, None, :] == ring[None, :, :]).all(-1).any(-1)
+
+
+def phase_rlpd_path(torch, device, card):
+    """examples/fused_sac_state_sim.py --rlpd at the state_sim preset: the
+    scripted expert's demos (the example's scripted_demos: num_demos + 10
+    episodes through K1, noise 0.02, one vector for every env), the
+    successful ones' first num_demos x 100 transitions as a demo ring, a
+    warm-up past the training threshold, then run_fused for RLPD_CHUNKS
+    chunks of RLPD_CHUNK iterations with an evaluation after each. Launches
+    are counted over the whole path."""
+    from serl_tpu_torch.common.logger import Logger
+    from serl_tpu_torch.data.demos import demos_to_buffer
+    from serl_tpu_torch.examples.fused_sac_state_sim import scripted_demos
+    from serl_tpu_torch.training.config import WorkloadConfig
+    from serl_tpu_torch.training.launcher import make_state_sim_experiment
+    from serl_tpu_torch.training.runner import run_fused
+
+    cfg = WorkloadConfig.preset("state_sim", **RLPD_PRESET)
+    env, agent, rb, config, init_fn, run_chunk = make_state_sim_experiment(
+        seed=cfg.seed, device=device, **cfg.loop_overrides())
+    episodes = cfg.num_demos + 10
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    demos, succeeded = scripted_demos(env, cfg.seed, cfg.num_demos)
+    torch.cuda.synchronize()
+    demo_ms = (time.perf_counter() - t0) * 1e3
+    print(f"RLPD demos: {episodes} expert episodes x 100 steps collected in "
+          f"{demo_ms:.1f} ms (host clock, ending in a sync); {succeeded} succeeded [{card}]")
+    if succeeded < RLPD_DEMO_MIN_SUCCESS:
+        raise AssertionError(f"only {succeeded} of {episodes} expert episodes "
+                             f"succeeded (at least {RLPD_DEMO_MIN_SUCCESS} needed)")
+    demo_state = demos_to_buffer(rb, demos)
+    demo_streams = demo_state.ep_id.shape[1]
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = -(-threshold // config.num_envs)  # its last iteration runs the first update
+    before = []
+
+    def warm_init(agent, rng, demo_state=None):
+        carry = init_fn(agent, rng, demo_state=demo_state)
+        carry, m = run_chunk(carry, warmup)
+        if int(m["buffer_size"][-1]) < threshold or float(m["critic_loss"][-1]) == 0.0:
+            raise AssertionError("the RLPD learner did not start at the training threshold")
+        before.extend(p.detach().clone() for p in agent.parameters())
+        return carry
+
+    logs = []
+    carry, best = run_fused(
+        env, agent, rb, config, warm_init, run_chunk,
+        total_env_steps=(warmup + RLPD_CHUNKS * RLPD_CHUNK) * config.num_envs,
+        chunk_iters=RLPD_CHUNK, eval_period_chunks=1, eval_episodes=RLPD_EVAL_EPISODES,
+        seed=cfg.seed, demo_state=demo_state, logger=Logger(debug=True),
+        log_fn=lambda log, carry: logs.append(log))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = rlpd_launches(config, demo_streams, warmup, RLPD_CHUNKS * RLPD_CHUNK, RLPD_CHUNKS)
+    print(f"RLPD path (WorkloadConfig.preset('state_sim', **{json.dumps(RLPD_PRESET)}): "
+          f"{json.dumps(config._asdict())}; demo ring {demo_state.ep_id.shape[0]} slots x "
+          f"{demo_streams} streams; {warmup} warm-up iterations, then run_fused for "
+          f"{RLPD_CHUNKS} chunks of {RLPD_CHUNK} with a {RLPD_EVAL_EPISODES}-episode evaluate "
+          f"after each): launches over the path {json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the RLPD path, got {launches}")
+
+    # the path's sample against its plain version: the same draws through
+    # sample_mixed on the card's rings (K4 for a half that divides over its
+    # ring's streams) and on CPU copies of both rings (the plain gather)
+    rows = config.batch_size * config.utd_ratio
+    half = rows // 2
+    g = torch.Generator(device=device).manual_seed(12)
+    online, demo = carry.rb_state, demo_state
+
+    def draws(state, n):
+        """`sample`'s draws for n rows of `state`: (u, e), e None if aligned."""
+        streams = state.ep_id.shape[1]
+        n_valid = state.size if rb.store_next_obs else state.size - 1
+        if n % streams == 0:
+            return torch.randint(0, n_valid, (n // streams, streams), generator=g,
+                                 device=device), None
+        return (torch.randint(0, n_valid, (n,), generator=g, device=device),
+                torch.randint(0, streams, (n,), generator=g, device=device))
+
+    def on_cpu(x):
+        return None if x is None else x.cpu()
+
+    def ring_on_cpu(state):
+        return dataclasses.replace(state, data={k: v.cpu() for k, v in state.data.items()},
+                                   ep_id=state.ep_id.cpu())
+
+    (u_a, e_a), (u_b, e_b) = draws(online, half), draws(demo, rows - half)
+    batch = rb.sample_mixed(online, demo, rows, u_a=u_a, e_a=e_a, u_b=u_b, e_b=e_b)
+    plain = rb.sample_mixed(ring_on_cpu(online), ring_on_cpu(demo), rows, u_a=on_cpu(u_a),
+                            e_a=on_cpu(e_a), u_b=on_cpu(u_b), e_b=on_cpu(e_b))
+    torch.cuda.synchronize()
+    unequal = [k for k in plain if batch[k].shape != plain[k].shape
+               or not torch.equal(batch[k].cpu(), plain[k])]
+    print(f"RLPD sample_mixed of {rows} rows ({half} online over {online.ep_id.shape[1]} "
+          f"streams{' through K4' if e_a is None else ''}, {rows - half} demo over "
+          f"{demo_streams} streams{' through K4' if e_b is None else ' by plain indexing'}) "
+          f"on the card against the same draws on CPU copies of both rings: "
+          f"{'bit for bit equal' if not unequal else f'differs in {unequal}'}")
+    if unequal:
+        raise AssertionError(f"sample_mixed on the card differs from the plain path in {unequal}")
+
+    # the interleave: even rows from the online ring, odd rows from the demo ring
+    def flat(data, size):
+        return torch.cat([data["observations"][:size], data["actions"][:size]], -1).flatten(0, 1)
+
+    sampled = torch.cat([batch["observations"], batch["actions"]], -1)
+    in_online = _rows_in(sampled, flat(online.data, online.size))
+    in_demo = _rows_in(sampled, flat(demo.data, demo.size))
+    odd = torch.arange(rows, device=device) % 2 == 1
+    params = list(agent.parameters())
+    learner = {k: [log[f"train/{k}"] for log in logs]
+               for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+    evals = [{k: log[k] for k in ("eval/success_rate", "eval/return_mean")} for log in logs]
+    checks = {
+        "even rows from the online ring only": bool((in_online & ~in_demo)[~odd].all()),
+        "odd rows from the demo ring only": bool((in_demo & ~in_online)[odd].all()),
+        "one log and one evaluation per chunk": len(logs) == RLPD_CHUNKS,
+        "losses finite": all(math.isfinite(v) for vs in learner.values() for v in vs),
+        "losses non-zero": all(v != 0 for vs in learner.values() for v in vs),
+        "temperature > 0": all(v > 0 for v in learner["temperature"]),
+        "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+        "params moved": all(not torch.equal(p, q) for p, q in zip(params, before)),
+        "best params kept": best["params"] is not None,
+        "evals finite": all(math.isfinite(v) and 0 <= v <= 100 for e in evals for v in e.values()),
+    }
+    print(f"RLPD path outputs: {json.dumps({k: [round(v, 5) for v in vs] for k, vs in learner.items()})} "
+          f"(per chunk); optimizer steps {agent.state.step}; evals {json.dumps(evals)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"RLPD path output checks failed: {bad}")
+
+    # the learner's step with sample_mixed never waits for the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        agent.update_high_utd(rb.sample_mixed(online, demo, rows, generator=g),
+                              utd_ratio=config.utd_ratio, generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("sample_mixed + update_high_utd ran under torch.cuda.set_sync_debug_mode('error'): no "
+          "host sync in the RLPD learner step")
+    return launches, rlpd_launches_per_update(config, demo_streams), \
+        dict(demo_ms=demo_ms, demo_episodes=episodes, demo_success=succeeded,
+             demo_streams=demo_streams), \
+        agent, rb, config, carry, run_chunk
+
+
+def phase_rlpd_times(torch, device, card, agent, rb, config, carry, run_chunk):
+    """sample_mixed against sample alone (per call, device time, K4's share
+    of it), and where an RLPD iteration's time goes."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(13)
+    rows = config.batch_size * config.utd_ratio
+    calls = {"sample_mixed": lambda: rb.sample_mixed(carry.rb_state, carry.demo_state, rows,
+                                                     generator=g),
+             "sample": lambda: rb.sample(carry.rb_state, rows, generator=g)}
+    out = {}
+    for name, fn in calls.items():
+        device_ms = profiled_kernel_ms(fn, 50, "")
+        k4_ms = profiled_kernel_ms(fn, 50, "replay_gather_kernel")
+        out[name] = dict(ms=per_call_ms(fn, calls=50), device_ms=device_ms, k4_ms=k4_ms,
+                         k4_share=k4_ms / device_ms)
+    print(f"RLPD sample, {rows} rows: " + json.dumps(
+        {k: {f: round(v, 5) for f, v in r.items()} for k, r in out.items()})
+        + " (ms per call: 50 back to back between CUDA events; device ms per call and K4's "
+        f"share of it from torch.profiler) [{card}]")
+    box = [carry]
+
+    def run(iters):
+        box[0], _ = run_chunk(box[0], iters)
+
+    t1 = time.perf_counter()
+    out["iteration_ms"] = per_call_ms(lambda: run(1), calls=1, repeats=10)
+    print(f"RLPD loop iteration: {out['iteration_ms']:.3f} ms (median of 10 single iterations "
+          f"between CUDA events, host launch time included) [{card}]")
+    t2 = time.perf_counter()
+    print_busy_share(torch, "RLPD loop", run, card, ("K1", "K4", "K5"))
+    out["seconds"] = {"samples": t1 - t0, "iteration": t2 - t1,
+                      "busy_share": time.perf_counter() - t2}
+    return out
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -1437,6 +1695,10 @@ def main(kernels_only: bool = False) -> int:
         phase_learner_path(torch, device, card)
     pixel_launches, p_rates, p_env, p_agent, p_rb, p_config, p_carry, p_run = \
         phase_pixel_path(torch, device, card)
+    t_rlpd = time.perf_counter()
+    rlpd_launches_path, rlpd_per_update, rlpd_info, r_agent, r_rb, r_config, r_carry, r_run = \
+        phase_rlpd_path(torch, device, card)
+    rlpd_s = {"path": time.perf_counter() - t_rlpd}
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -1444,18 +1706,33 @@ def main(kernels_only: bool = False) -> int:
     prows = phase_pixel_times(torch, device, card, k2, k2_libs, p_env, p_agent, p_rb, p_config,
                               p_carry, p_run)
     k5rows = phase_k5_times(torch, k5_checks, device, card)
+    t_rlpd = time.perf_counter()
+    rlpd_rows = phase_rlpd_times(torch, device, card, r_agent, r_rb, r_config, r_carry, r_run)
+    rlpd_s["times"] = time.perf_counter() - t_rlpd
 
     per_iter = {"actor": ACTOR_LAUNCHES,  # the whole actor path, not per iteration
                 "learner": learner_launches_per_iter(l_config.utd_ratio,
                                                      l_config.updates_per_iter),
-                "pixel": pixel_launches_per_iter(p_config.utd_ratio, p_config.updates_per_iter)}
+                "pixel": pixel_launches_per_iter(p_config.utd_ratio, p_config.updates_per_iter),
+                "rlpd": rlpd_per_update}  # per updating iteration
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
-                            "pixel": pixel_launches}, per_iter, ptxas)
+                            "pixel": pixel_launches, "rlpd": rlpd_launches_path}, per_iter, ptxas)
+    for kernel in kernels:
+        if kernel["name"] == "replay_gather":
+            kernel["rlpd_sample"] = {k: rlpd_rows[k] for k in ("sample_mixed", "sample")}
     print(f"learner rates: {rates['env_steps_s']:.1f} env-steps/s, {rates['updates_s']:.1f} "
           f"critic updates/s [{card}]")
     print(f"pixel rates: {p_rates['env_steps_s']:.1f} env-steps/s, {p_rates['updates_s']:.1f} "
           f"critic updates/s [{card}]")
+    print(f"RLPD: demo collection {rlpd_info['demo_ms']:.1f} ms ({rlpd_info['demo_success']} of "
+          f"{rlpd_info['demo_episodes']} expert episodes succeeded, demo ring of "
+          f"{rlpd_info['demo_streams']} streams); sample_mixed "
+          f"{rlpd_rows['sample_mixed']['ms']:.4f} ms per call against sample's "
+          f"{rlpd_rows['sample']['ms']:.4f}; iteration {rlpd_rows['iteration_ms']:.3f} ms; "
+          f"the RLPD path's phase took {rlpd_s['path']:.1f} s and its times' "
+          f"{rlpd_s['times']:.1f} s (host clock; the times' parts "
+          f"{json.dumps({k: round(v, 1) for k, v in rlpd_rows['seconds'].items()})}) [{card}]")
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
            or m == "serl_tpu"]
     if bad:

@@ -26,10 +26,12 @@ on the card only tests and chip_smoke.py call it) and the CUDA kernel in
 launches for CUDA tensors (one launch for every field of obs and next_obs),
 counting its launches in `gather_batch_aligned.launches`.
 
-Not ported yet: `sample_mixed`, `init_from_episodes` and `load_transitions`
-(the demo path). Image keys with stored next_observations raise: the JAX
-package stacks those from the observations ring, a quirk nothing on the
-path reaches.
+The demo path: `init_from_episodes` turns episode-major transitions into a
+full, write-once ring with one stream per episode; `sample_mixed` draws
+RLPD's half-demo batches with the two halves' rows interleaved;
+`load_transitions` preloads rows into an existing ring. Image keys with
+stored next_observations raise: the JAX package stacks those from the
+observations ring, a quirk nothing on the path reaches.
 """
 
 from __future__ import annotations
@@ -119,6 +121,35 @@ class ReplayBuffer:
             ep_id=torch.full((slots, streams), -1, dtype=torch.int32, device=self.device),
         )
 
+    def init_from_episodes(self, transitions: Dict, ep_ids, episode_len: int) -> ReplayBufferState:
+        """A full, write-once state from flat episode-major transitions (demo
+        ingestion): each of the n / episode_len episodes becomes one stream,
+        size = episode_len, insert_slot = 0. Leaves are (n, ...) tensors or
+        numpy arrays."""
+        tr = dict(transitions)
+        if not self.store_next_obs:
+            tr.pop("next_observations", None)
+        ep_ids = torch.as_tensor(ep_ids)
+        n = ep_ids.shape[0]
+        if n % episode_len != 0:
+            raise ValueError(f"{n} transitions do not divide into episodes of {episode_len}")
+        episodes = n // episode_len
+
+        def fold(x, spec):
+            """(n, ...) -> (episode_len, episodes, ...), in the example leaf's dtype."""
+            if isinstance(x, dict):
+                return {k: fold(v, None if spec is None else spec.get(k)) for k, v in x.items()}
+            x = torch.as_tensor(x).to(self.device, None if spec is None else spec.dtype)
+            # .contiguous(): K4 gathers from contiguous (slots, streams, ...) fields
+            return x.reshape((episodes, episode_len) + tuple(x.shape[1:])).transpose(0, 1).contiguous()
+
+        return ReplayBufferState(
+            data=fold(tr, self._example),
+            insert_slot=0,
+            size=int(episode_len),
+            ep_id=fold(ep_ids, torch.zeros((), dtype=torch.int32)),
+        )
+
     def insert(self, state: ReplayBufferState, transitions: Dict,
                ep_ids: torch.Tensor) -> ReplayBufferState:
         """Write one lockstep slot in place: `transitions` leaves are
@@ -177,6 +208,44 @@ class ReplayBuffer:
         if isinstance(out["observations"], dict):
             out["observations"].update(self._stack_obs(state, s, e))
         return out
+
+    def sample_mixed(self, state_a: ReplayBufferState, state_b: ReplayBufferState,
+                     batch_size: int, *, generator: Optional[torch.Generator] = None,
+                     buffer_b: Optional["ReplayBuffer"] = None,
+                     u_a: Optional[torch.Tensor] = None, e_a: Optional[torch.Tensor] = None,
+                     u_b: Optional[torch.Tensor] = None,
+                     e_b: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """RLPD's 50/50 batch: batch_size // 2 rows from `state_a` (this
+        buffer), the rest from `state_b` (of `buffer_b`, this buffer unless
+        given), each half drawn as `sample` draws it (`u_a`, `e_a`, `u_b`,
+        `e_b` are each half's `u` and `e`). For an even batch the rows are
+        interleaved, a0, b0, a1, b1, ..., so that every contiguous minibatch
+        `update_high_utd` cuts from it is itself half and half; an odd batch
+        is the two halves concatenated."""
+        buffer_b = buffer_b or self
+        half = batch_size // 2
+        a = self.sample(state_a, half, generator=generator, u=u_a, e=e_a)
+        b = buffer_b.sample(state_b, batch_size - half, generator=generator, u=u_b, e=e_b)
+        if batch_size % 2 == 0:
+            return _map2(lambda x, y: torch.stack([x, y], 1).reshape((batch_size,) + tuple(x.shape[1:])),
+                         a, b)
+        return _map2(lambda x, y: torch.cat([x, y], 0), a, b)
+
+    def load_transitions(self, state: ReplayBufferState, transitions: Dict) -> ReplayBufferState:
+        """Preload into an existing state: `transitions` holds (n, ...)
+        leaves and (n,) `ep_ids`, inserted slot by slot in groups of
+        `streams` rows (n must divide by the stream count)."""
+        tr = dict(transitions)
+        ep_ids = torch.as_tensor(tr.pop("ep_ids"))
+        streams = state.ep_id.shape[1]
+        n = ep_ids.shape[0]
+        if n % streams != 0:
+            raise ValueError(f"{n} transitions do not divide over {streams} streams")
+        tr = _map(torch.as_tensor, tr)
+        for i in range(n // streams):
+            rows = slice(i * streams, (i + 1) * streams)
+            self.insert(state, _map(lambda x: x[rows], tr), ep_ids[rows])
+        return state
 
     def _stack_obs(self, state: ReplayBufferState, s: torch.Tensor, e: torch.Tensor) -> Dict:
         """(B, T, ...) frame stacks of the image keys anchored at rows (s, e)."""

@@ -1,0 +1,98 @@
+"""The learning check: RLPD on the state workload, several seeds at once.
+
+Starts `serl_tpu_torch.examples.fused_sac_state_sim --rlpd` once per seed,
+all concurrently on one card (the loop is host-bound, so they overlap), and
+when all have ended writes `<out>/summary.json`: per seed, the evaluations
+(env steps, eval success and return), the env step at which the seed was
+solved (two evaluations in a row at or above --success_stop) or null, and
+the last logged env-steps/s; with the card's name and power limit.
+
+    python -m serl_tpu_torch.examples.learning_check --out runs/learning \\
+        --seeds 0 1 2 --total_env_steps 200000 --success_stop 0.97
+
+Each seed's output goes to <out>/seed<S>.log and its chunk logs to
+<out>/seed<S>/*.jsonl. Exits non-zero if a seed's process fails.
+"""
+
+import argparse
+import glob
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+# CPU threads of each seed's process: the seeds run at once, share the
+# host's cores, and each seed's loop is host-bound
+THREADS_PER_SEED = 2
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def summarise(out: str, seed: int) -> dict:
+    """One seed's curve from its chunk log and its printed SOLVED line."""
+    rows = []
+    for path in sorted(glob.glob(os.path.join(out, f"seed{seed}", "*.jsonl"))):
+        with open(path) as f:
+            rows += [json.loads(line) for line in f if line.strip()]
+    rows = [r for r in rows if "env_steps" in r]
+    evals = [{"env_steps": r["env_steps"], "eval_success": r["eval/success_rate"],
+              "eval_return": r["eval/return_mean"], "train_success": r["train/success_rate"],
+              "env_steps_per_s": r["env_steps_per_s"]} for r in rows if "eval/success_rate" in r]
+    solved = None
+    with open(os.path.join(out, f"seed{seed}.log")) as f:
+        for line in f:
+            found = re.search(r"SOLVED .* at (\d+) env steps", line)
+            if found:
+                solved = int(found.group(1))
+    return {"seed": seed, "evals": evals, "solved_at_env_steps": solved,
+            "last_env_steps": rows[-1]["env_steps"] if rows else None,
+            "env_steps_per_s": rows[-1]["env_steps_per_s"] if rows else None}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", required=True)
+    p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    p.add_argument("--total_env_steps", type=int, default=200_000)
+    p.add_argument("--success_stop", type=float, default=0.97)
+    args = p.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    env = dict(os.environ, OMP_NUM_THREADS=str(THREADS_PER_SEED))
+    procs, logs = {}, []
+    t0 = time.time()
+    try:
+        for seed in args.seeds:
+            log = open(os.path.join(args.out, f"seed{seed}.log"), "w")
+            logs.append(log)
+            procs[seed] = subprocess.Popen(
+                [sys.executable, "-m", "serl_tpu_torch.examples.fused_sac_state_sim", "--rlpd",
+                 "--seed", str(seed), "--total_env_steps", str(args.total_env_steps),
+                 "--success_stop", str(args.success_stop),
+                 "--log_dir", os.path.join(args.out, f"seed{seed}")],
+                stdout=log, stderr=subprocess.STDOUT, env=env)
+        codes = {seed: proc.wait() for seed, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    summary = {"card": card, "wall_s": time.time() - t0, "exit_codes": codes,
+               "seeds": [summarise(args.out, seed) for seed in args.seeds]}
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary))
+    return 0 if all(code == 0 for code in codes.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,26 +13,35 @@ insert on host integers, the learner runs `updates_per_iter` x (sample ->
 iterations as one jitted `lax.scan`; here it is a Python loop over eager
 PyTorch and the kernels, with no host sync inside an iteration.
 
+RLPD: with `demo_fraction > 0` and a demo ring passed to `init_fn`, every
+learner batch is `sample_mixed`'s half-demo one (`demo_fraction` acts as a
+flag, as in the JAX package). Interventions: a scripted expert overrides the
+policy's action, and the expert's action is the one stored, per step
+("step"), for whole episodes ("episode") or from a step to the episode's
+end ("rescue"), with a probability that may decay linearly to a floor over
+the env steps (computed on the host from the host-integer step count).
+
 Not ported yet, and raising rather than passing silently: the loop's
-frame-stack history (`num_stack > 1`), demo buffers and interventions.
+frame-stack history (`num_stack > 1`) and pixel buffers that store next
+observations.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Union
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
 from serl_tpu_torch.data.replay_buffer import ReplayBuffer, ReplayBufferState
 from serl_tpu_torch.envs.panda_pick import ACTION_DIM, PandaPickCubeEnv, flatten_obs
+from serl_tpu_torch.envs.scripted_expert import expert_action
 from serl_tpu_torch.envs.wrappers import add_stack_axis, serl_obs
+
+INTERVENTION_MODES = ("step", "episode", "rescue")
 
 
 class LoopConfig(NamedTuple):
-    """The JAX package's LoopConfig, cut to the fields the port reads: the
-    demo and intervention settings come with their code."""
-
     num_envs: int = 128
     batch_size: int = 256
     utd_ratio: int = 8  # critic updates per actor update (critic_actor_ratio)
@@ -40,7 +49,15 @@ class LoopConfig(NamedTuple):
     training_starts: int = 1000  # transitions before learning
     random_steps: int = 1000  # uniform-random action warmup
     buffer_capacity: int = 200_000
-    intervention_prob: float = 0.0  # interventions are not ported: > 0 raises
+    demo_fraction: float = 0.0  # > 0: RLPD's half-demo batches (a flag, not a fraction)
+    # the expert overrides the policy, and its action is stored: "step", a
+    # fresh Bernoulli(prob) per env and step; "episode", whole episodes,
+    # drawn at each episode's start; "rescue", from a Bernoulli(prob) step
+    # to the end of that episode
+    intervention_prob: float = 0.0
+    intervention_mode: str = "step"
+    intervention_decay_steps: Optional[int] = None  # linear decay to 0 over these env steps
+    intervention_min_prob: float = 0.0  # the decayed probability's floor
 
 
 class LoopCarry(NamedTuple):
@@ -48,12 +65,25 @@ class LoopCarry(NamedTuple):
     env_states: Any
     obs: Any  # flattened (N, obs_dim), or the SERL pixel dict
     rb_state: ReplayBufferState
+    demo_state: Optional[ReplayBufferState]
     rng: torch.Generator  # on the env's device
     env_steps: int  # total transitions collected
     ep_return: torch.Tensor  # (N,) running episode returns
     ep_count: torch.Tensor  # () int32 completed episodes
     ret_sum: torch.Tensor  # () sum of completed episode returns
     succ_sum: torch.Tensor  # () sum of per-episode success at episode end
+    intervening: torch.Tensor  # (N,) bool: the expert owns this env's episode
+
+
+def intervention_probability(config: LoopConfig, env_steps: int) -> float:
+    """The intervention probability after `env_steps` env steps: decayed
+    linearly to 0 over `intervention_decay_steps`, floored at
+    `intervention_min_prob` (both only when a decay is set)."""
+    p = config.intervention_prob
+    if config.intervention_decay_steps:
+        frac = min(max(1.0 - env_steps / float(config.intervention_decay_steps), 0.0), 1.0)
+        p = max(p * frac, config.intervention_min_prob)
+    return p
 
 
 def _generator(rng: Union[int, torch.Generator, None], device) -> torch.Generator:
@@ -67,21 +97,30 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
     """Returns (init_fn, run_chunk).
 
     init_fn(agent, rng, demo_state=None) -> LoopCarry, where `rng` is a
-    torch.Generator on the env's device or an int seed (a demo buffer is not
-    ported yet and raises);
+    torch.Generator on the env's device or an int seed, and `demo_state` a
+    demo ring (`data/demos.py::demos_to_buffer`) for RLPD;
     run_chunk(carry, num_iters) -> (carry, metrics dict of (num_iters,) tensors)
     with the JAX package's metric names.
+
+    `expert_fn(env_states) -> (N, action_dim)` (or one action for every
+    env) is the intervening expert; by default the scripted pick expert
+    without noise.
     """
+    if config.intervention_mode not in INTERVENTION_MODES:
+        raise ValueError(f"intervention_mode must be 'step', 'episode' or 'rescue', got "
+                         f"{config.intervention_mode!r}")
     pixel_keys = rb.image_keys
     if pixel_keys and rb.num_stack > 1:
         raise NotImplementedError("the loop's frame-stack history (num_stack > 1) is not ported yet")
     if pixel_keys and rb.store_next_obs:
         raise NotImplementedError("pixel buffers that store next_observations are not ported")
-    if config.intervention_prob > 0.0 or expert_fn is not None:
-        raise NotImplementedError("interventions are not ported yet")
+    if expert_fn is None:
+        expert_fn = expert_action
     action_dim = getattr(env, "ACTION_DIM", ACTION_DIM)
     num_envs = config.num_envs
     device = env.device
+    intervenes = config.intervention_prob > 0.0
+    mode = config.intervention_mode
     # rb_state.size counts SLOTS; each slot holds num_envs transitions
     train_threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
     env_index = torch.arange(num_envs, dtype=torch.int32, device=device)
@@ -92,23 +131,28 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
     def to_agent_obs(obs):
         return add_stack_axis(obs, pixel_keys) if pixel_keys else obs
 
+    def draw(g, p: float) -> torch.Tensor:
+        return torch.rand((num_envs,), generator=g, device=device) < p
+
     def init_fn(agent, rng, demo_state=None):
-        if demo_state is not None:
-            raise NotImplementedError("demo buffers are not ported yet")
         g = _generator(rng, device)
         env_states, obs = env.reset(num_envs, g)
+        intervening = (draw(g, config.intervention_prob) if mode == "episode"
+                       else torch.zeros((num_envs,), dtype=torch.bool, device=device))
         zero = torch.zeros((), device=device)
         return LoopCarry(
             agent=agent,
             env_states=env_states,
             obs=to_buffer_obs(obs),
             rb_state=rb.init_state(streams=num_envs),
+            demo_state=demo_state,
             rng=g,
             env_steps=0,
             ep_return=torch.zeros((num_envs,), device=device),
             ep_count=torch.zeros((), dtype=torch.int32, device=device),
             ret_sum=zero,
             succ_sum=zero.clone(),
+            intervening=intervening,
         )
 
     def iter_body(carry: LoopCarry):
@@ -119,6 +163,16 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
             actions = torch.rand((num_envs, action_dim), generator=g, device=device) * 2.0 - 1.0
         else:
             actions = carry.agent.sample_actions(to_agent_obs(carry.obs), generator=g)
+        intervening = carry.intervening
+        if intervenes:
+            p = intervention_probability(config, carry.env_steps)
+            if mode == "episode":
+                intervene = intervening
+            elif mode == "rescue":
+                intervene = intervening = intervening | draw(g, p)
+            else:
+                intervene = draw(g, p)
+            actions = torch.where(intervene[:, None], expert_fn(carry.env_states), actions)
         # the pre-reset observation is a second render with pixels: ask for
         # it only where the buffer stores it
         env_states, next_obs_d, rewards, dones, info = env.step_auto_reset(
@@ -147,13 +201,23 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         ret_sum = carry.ret_sum + torch.where(done_mask, ep_return, 0.0).sum()
         succ_sum = carry.succ_sum + torch.where(done_mask, info["success"], 0.0).sum()
         ep_return = torch.where(done_mask, 0.0, ep_return)
+        if intervenes and mode == "episode":
+            # the expert's ownership of each new episode is drawn as it starts
+            intervening = torch.where(done_mask, draw(g, p), intervening)
+        elif mode == "rescue":
+            # a rescue never carries across an episode boundary
+            intervening = intervening & ~done_mask
         env_steps = carry.env_steps + num_envs
 
         # ---- learner ----
         if rb_state.size * num_envs >= train_threshold:
+            rows = config.batch_size * config.utd_ratio
             infos = []
             for _ in range(config.updates_per_iter):
-                batch = rb.sample(rb_state, config.batch_size * config.utd_ratio, generator=g)
+                if config.demo_fraction > 0.0 and carry.demo_state is not None:
+                    batch = rb.sample_mixed(rb_state, carry.demo_state, rows, generator=g)
+                else:
+                    batch = rb.sample(rb_state, rows, generator=g)
                 _, update_info = carry.agent.update_high_utd(batch, utd_ratio=config.utd_ratio,
                                                              generator=g)
                 infos.append(update_info)
@@ -178,6 +242,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         new_carry = carry._replace(
             env_states=env_states, obs=next_obs, rb_state=rb_state, env_steps=env_steps,
             ep_return=ep_return, ep_count=ep_count, ret_sum=ret_sum, succ_sum=succ_sum,
+            intervening=intervening,
         )
         return new_carry, metrics
 
@@ -194,18 +259,19 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
 
 @torch.no_grad()
 def evaluate(env: PandaPickCubeEnv, agent: SACAgent, rng=None, num_episodes: int = 32,
-             pixel_keys=(), num_stack: int = 1):
+             obs_fn=None, pixel_keys=(), num_stack: int = 1):
     """Deterministic (argmax) policy evaluation: `num_episodes` full episodes
     in lockstep, each `env.time_limit_steps` long. `rng` (a torch.Generator on
     the env's device, or an int seed) draws the reset cube positions.
-    `pixel_keys` switches the observations to the SERL pixel convention
-    with a T = 1 stack axis (a longer stack is not ported yet)."""
+    `obs_fn` maps the env's observation dict to the agent's input; by
+    default the flat state vector, or with `pixel_keys` the SERL pixel
+    convention with a T = 1 stack axis (a longer stack is not ported yet)."""
     if num_stack != 1:
         raise NotImplementedError("frame-stack histories (num_stack > 1) are not ported yet")
     pixel_keys = tuple(pixel_keys)
-
-    def obs_fn(o):
-        return add_stack_axis(serl_obs(o), pixel_keys) if pixel_keys else flatten_obs(o)
+    if obs_fn is None:
+        def obs_fn(o):
+            return add_stack_axis(serl_obs(o), pixel_keys) if pixel_keys else flatten_obs(o)
 
     episode_len = int(getattr(env, "time_limit_steps", 100))
     states, obs = env.reset(num_episodes, _generator(rng, env.device))

@@ -1,0 +1,47 @@
+"""Phase timer: the port's own copy of `serl_tpu/utils/timer.py`'s `Timer`.
+
+tick/tock and a context manager; `get_average_times(reset=True)` returns the
+mean wall time per phase since the last reset. The host clock only: a phase
+that ends in asynchronous CUDA work is timed to its enqueue unless it
+synchronizes.
+"""
+
+import contextlib
+import time
+from collections import defaultdict
+
+
+class Timer:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.counts = defaultdict(int)
+        self.times = defaultdict(float)
+        self.start_times = {}
+
+    def tick(self, key: str):
+        if key in self.start_times:
+            raise ValueError(f"Timer is already ticking for key: {key}")
+        self.start_times[key] = time.perf_counter()
+
+    def tock(self, key: str):
+        if key not in self.start_times:
+            raise ValueError(f"Timer is not ticking for key: {key}")
+        self.counts[key] += 1
+        self.times[key] += time.perf_counter() - self.start_times[key]
+        del self.start_times[key]
+
+    @contextlib.contextmanager
+    def context(self, key: str):
+        self.tick(key)
+        try:
+            yield
+        finally:
+            self.tock(key)
+
+    def get_average_times(self, reset: bool = True):
+        ret = {k: self.times[k] / self.counts[k] for k in self.counts}
+        if reset:
+            self.reset()
+        return {k: round(v, 6) for k, v in ret.items()}

@@ -30,6 +30,11 @@ def test_torch_port_never_imports_jax_or_serl_tpu():
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_k1.py", ROOT / "tests" / "torch_k2.py",
         ROOT / "tests" / "torch_k5.py"]
     assert len(files) > 15
+    scanned = {str(path.relative_to(ROOT)) for path in files}
+    for module in ("data/demos.py", "envs/scripted_expert.py", "training/runner.py",
+                   "training/config.py", "common/logger.py", "utils/timer.py",
+                   "examples/fused_sac_state_sim.py", "examples/learning_check.py"):
+        assert f"serl_tpu_torch/{module}" in scanned, module
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

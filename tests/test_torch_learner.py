@@ -307,6 +307,28 @@ def test_torch_update_high_utd_matches_jax(start):
         tagent.update_high_utd(_tb(_batch(30, 0)), utd_ratio=4)
 
 
+def test_torch_twenty_update_high_utd_calls_track_jax(start):
+    """20 update_high_utd calls in a row (100 optimizer steps, 100 target
+    updates) from the mid-training state, each with JAX's draws: every
+    call's losses within 1e-4 relative and, at the end, params, targets and
+    Adam moments within 1e-4 of JAX's. Drift that builds up over steps (the
+    optimizer's count, the polyak targets, the temperature) shows here and
+    not in one call."""
+    jagent, _, mid, tagent = start
+    jagent = jax_with_state(jagent, mid, jax.random.PRNGKey(21))
+    load_train_state(tagent, mid)
+    for i in range(20):
+        batch = _batch(32, 200 + i)
+        draws = jax_high_utd_draws(jagent.state.rng, 32, 4)
+        jagent, jinfo = jagent.update_high_utd(_jb(batch), utd_ratio=4)
+        _, info = tagent.update_high_utd(_tb(batch), utd_ratio=4, draws=draws)
+        for g, k in (("critic", "critic_loss"), ("actor", "actor_loss"),
+                     ("actor", "temperature"), ("actor", "entropy")):
+            np.testing.assert_allclose(float(info[g][k]), float(jinfo[g][k]), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"call {i} {k}")
+    assert_states_close(train_state_to_jax_layout(tagent), jax_state_np(jagent), atol=1e-4)
+
+
 def test_torch_update_draws_from_generator_run():
     agent = SACAgent.create_states(torch.zeros(1, OBS), torch.zeros(1, ACT),
                                    generator=torch.Generator().manual_seed(0), **_kwargs("tanh"),

@@ -109,14 +109,16 @@ def test_torch_loop_raises_where_the_slice_ends():
         assert torch.isfinite(metrics[k]).all(), k
     assert agent.state.step == 2 * 2  # 2 learner iterations x (1 critic + 1 actor update)
     env, _, rb, config, *_ = make_state_sim_experiment(device="cpu", num_envs=4)
-    with pytest.raises(NotImplementedError):
-        make_fused_loop(env, rb, config._replace(intervention_prob=0.5))
+    with pytest.raises(ValueError, match="intervention_mode"):
+        make_fused_loop(env, rb, config._replace(intervention_mode="sometimes"))
     pixel_rb = ReplayBuffer({"observations": torch.zeros(3)}, 8, image_keys=("front",), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="next_observations"):
         make_fused_loop(env, pixel_rb, LoopConfig(num_envs=4))
-    init_fn, _ = make_fused_loop(env, rb, config)
-    with pytest.raises(NotImplementedError, match="demo"):
-        init_fn(agent, 0, demo_state=rb.init_state(streams=4))
+    stacked_rb = ReplayBuffer({"observations": {"front": torch.zeros((4, 4, 3), dtype=torch.uint8)}},
+                              8, store_next_obs=False, image_keys=("front",), num_stack=2,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="num_stack"):
+        make_fused_loop(env, stacked_rb, LoopConfig(num_envs=4))
 
 
 def test_torch_evaluate_runs_full_argmax_episodes():
