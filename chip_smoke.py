@@ -37,9 +37,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
      rings with episode boundaries and the seam, and on fields that reach
      each of its copy paths (16-byte, word and byte units, wide and narrow
-     rows, a base address 4 bytes off): exactly equal; K5 forward
-     and backward at every (E, M, K, D) of K5_SHAPES under the rule of
-     tests/torch_k5.py, its weight-grad sums repeating bit for bit;
+     rows, a base address 4 bytes off), and at the pixel RLPD path's
+     online half (3,125 x 16, 512 rows of 128 px frames) and that half on
+     the pixel path's ring: exactly equal; K5 forward
+     and backward at every (form, E, M, K, D) of K5_SHAPES (the ResNet heads'
+     bottleneck at K = 4,096 among them, and the shapes where the forward
+     splits K over blocks) under the rule of tests/torch_k5.py, its
+     forward (split or not) and its weight-grad sums repeating bit for
+     bit; K5_SHAPES holds every shape that a path of phase 3 gives K5:
+     each path's run logs K5's calls, and one at a shape outside
+     K5_SHAPES fails it;
   3. the actor path: make_state_sim_experiment with 128 envs and the
      full-width networks, 20 loop iterations (8 random, 12 policy) and a
      128-episode evaluate; the state learner path: bench.py::bench_state's
@@ -61,7 +68,29 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      equal, bit for bit, the same draws on CPU copies of both rings (the
      plain path), its even rows must be rows of the online ring and its odd
      rows rows of the demo ring, and a learner step with sample_mixed
-     runs under torch.cuda.set_sync_debug_mode("error"). Around each path
+     runs under torch.cuda.set_sync_debug_mode("error"); the pixel RLPD
+     path: examples/fused_drq_sim.py --rlpd at the drq_rlpd preset (16
+     envs, two 128 px cameras, small encoders, batch 256 x UTD 4, 2
+     update_high_utd calls per iteration, buffer 50,000): the example's
+     scripted_pixel_demos, 30 expert episodes through K1 and K2 (at least
+     15 must succeed), 20 selected on the card as a 20-stream uint8 demo
+     ring, a warm-up past the training threshold, run_fused for 2 chunks of
+     5 with a 32-episode evaluate after each, sample_mixed over the two
+     uint8 rings with explicit draws bit for bit equal to the same draws
+     on CPU copies of the rings, the interleave and a sync-free learner
+     step; the ResNet path: bench.py::bench_pixels("resnet-pretrained")'s
+     configuration, the frozen ResNet-10 grafted from resnet10_params.pkl
+     (every backbone tensor and its target copy equal to the pickle's
+     values cast to fp32), warmed up past its threshold, 3 chunks of 10
+     iterations timed (bench.py's 25 cut to 10), the backbones bit for bit
+     unchanged after them, a 16-episode evaluate, the card's backbone
+     features of 32 rendered frames against the CPU's fp32 features under
+     tests/torch_resnet.py's rule, where an iteration's time goes and the
+     loop's busy share; the trained ResNet: a DrQ agent with the "resnet"
+     encoder (a bf16 ResNet-10 per camera, trained through the critic
+     loss), 3 update_high_utd calls (batch 256 x UTD 4) on batches of the
+     ResNet path's ring, every parameter moving, the backbones' included.
+     Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -85,9 +114,11 @@ Phases, each fatal (non-zero exit, no result line) on failure:
 It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
 repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py,
-tests/torch_k5.py); it never imports JAX or serl_tpu.
+tests/torch_k5.py, tests/torch_resnet.py, resnet10_params.pkl); it never
+imports JAX or serl_tpu.
 """
 
+import copy
 import ctypes
 import dataclasses
 import importlib.util
@@ -119,6 +150,11 @@ K4_SHAPE = dict(slots=782, streams=128, rows_per_stream=16)  # 100,096 rows, bat
 # the RLPD path's online half: 200,000 rows over 32 streams, 1,024 of a 2,048-row batch
 K4_RLPD_SHAPE = dict(slots=6250, streams=32, rows_per_stream=32)
 K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows, batch 1024
+# the pixel rings K4 gathers from: bench_pixels' (small encoder and ResNet),
+# the pixel RLPD path's online half (50,000 rows over 16 streams, 512 of a
+# 1,024-row batch), and that half on bench_pixels' ring
+K4_PIXEL_SHAPES = (K4_PIXEL_SHAPE, dict(slots=3125, streams=16, rows_per_stream=32),
+                   dict(slots=625, streams=16, rows_per_stream=32))
 # bench.py::bench_pixels' configuration, passed to make_drq_sim_experiment
 BENCH_PIXELS = dict(seed=0, encoder_type="small", num_envs=16, batch_size=256, utd_ratio=4,
                     updates_per_iter=2, training_starts=0, random_steps=0,
@@ -135,6 +171,20 @@ K2_KERNELS = ("render_scene_kernel", "render_pixels_kernel")  # a render launche
 RLPD_PRESET = dict(demo_fraction=0.5)
 RLPD_DEMO_MIN_SUCCESS = 15  # fewer successful expert episodes fail the phase
 RLPD_CHUNK, RLPD_CHUNKS, RLPD_EVAL_EPISODES = 10, 3, 32
+# The pixel RLPD path: examples/fused_drq_sim.py --rlpd at the drq_rlpd
+# preset (16 envs, two 128 px cameras, small encoders, batch 256 x UTD 4, 2
+# update_high_utd calls per iteration, buffer 50,000) with 30 scripted pixel
+# demos (20 kept): overrides of WorkloadConfig.preset("drq_rlpd")
+PIXEL_RLPD_PRESET = dict(demo_fraction=0.5)
+PIXEL_RLPD_CHUNK, PIXEL_RLPD_CHUNKS = 5, 2
+# bench.py::bench_pixels("resnet-pretrained"): the frozen ResNet-10 from
+# resnet10_params.pkl, timed in chunks of RESNET_CHUNK (bench.py's 25 cut to
+# 10 to keep the whole run short); RESNET_FRAMES frames for the feature check
+BENCH_RESNET = dict(BENCH_PIXELS, encoder_type="resnet-pretrained")
+RESNET_CHUNK = 10
+RESNET_FRAMES = 32
+# the trained "resnet" encoder's update_high_utd calls on the ResNet path's ring
+RESNET_TRAINED_UPDATES = 3
 # K2's two builds, the shipped one (nvcc's default flags) first: (label,
 # extra nvcc flags)
 K2_BUILDS = (("-fmad=true", None), ("-fmad=false", ("-fmad=false",)))
@@ -156,16 +206,43 @@ K3_PATHS = (
 K5_SHAPES = {
     ("shared", 10, 256, 14, 256): (True, False),   # state critic, layer 1 (obs 10 + action 4)
     ("member", 10, 256, 256, 256): (True, True),   # critic, layer 2
-    ("member", 10, 2048, 256, 256): (False, True),  # the actor update's pass through the critic
+    ("shared", 10, 2048, 14, 256): (False, True),  # the actor update's pass through the critic
+    ("member", 10, 2048, 256, 256): (False, True),
     ("linear", 1, 2048, 10, 256): (True, False),   # state policy, layer 1, actor update
     ("linear", 1, 2048, 256, 256): (True, True),   # policy, layer 2
+    ("linear", 1, 256, 10, 256): (True, False),    # state policy, layer 1: next actions
+    # the state policy acting on 128 envs and evaluating 128 episodes
+    ("linear", 1, 128, 10, 256): (True, False),
+    ("linear", 1, 128, 256, 256): (True, True),
     ("shared", 10, 256, 580, 256): (True, True),   # pixel critic, layer 1 (2 x 256 + 64 + 4)
     ("linear", 1, 256, 7, 64): (True, False),      # pixel proprio Dense
-    ("linear", 1, 256, 256, 256): (True, True),    # pixel bottleneck, per camera
+    ("linear", 1, 256, 256, 256): (True, True),    # pixel bottleneck, per camera; policy 2
+    ("linear", 1, 256, 576, 256): (True, False),   # pixel policy, layer 1: next actions
+    # the pixel actor update (1,024 rows): the policy, the encoder's
+    # bottleneck and proprio (forward only there), the pass through the critic
+    ("linear", 1, 1024, 576, 256): (True, False),
+    ("linear", 1, 1024, 256, 256): (True, True),
+    ("linear", 1, 1024, 7, 64): (True, False),
+    ("shared", 10, 1024, 580, 256): (False, True),
+    ("member", 10, 1024, 256, 256): (False, True),
+    # pixel acting on 16 envs (and evaluating 16 episodes), the pixel RLPD
+    # path's 32-episode evaluations: forward only
+    ("linear", 1, 16, 576, 256): (True, False),
+    ("linear", 1, 16, 256, 256): (True, True),
+    ("linear", 1, 16, 7, 64): (True, False),
+    ("linear", 1, 32, 576, 256): (True, False),
+    ("linear", 1, 32, 7, 64): (True, False),
     # the RLPD path's policy acting on 32 envs and evaluating 32 episodes:
     # forward only there; the backward is held and timed as an update's
     ("linear", 1, 32, 10, 256): (True, False),
     ("linear", 1, 32, 256, 256): (True, True),
+    # the ResNet heads' bottleneck over the learned spatial embeddings
+    # (512 channels x 8): a critic minibatch (it trains, and the embeddings'
+    # kernel below it needs dx), the actor update's batch and acting on 16
+    # envs (forward only there; the backward is held and timed as an update's)
+    ("linear", 1, 256, 4096, 256): (True, True),
+    ("linear", 1, 1024, 4096, 256): (True, True),
+    ("linear", 1, 16, 4096, 256): (True, True),
 }
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
@@ -254,6 +331,40 @@ def rlpd_launches(config, demo_streams: int, warmup: int, iters: int, evals: int
             "control_step": demo_steps + warmup + iters + evals * eval_steps,
             "dense_layer_norm_tanh_fwd": train["dense_layer_norm_tanh_fwd"] - 2 * updating
             + 2 * policy_steps}
+
+
+def pixel_rlpd_launches(config, demo_streams: int, warmup: int, iters: int, evals: int,
+                        demo_steps: int = 100, eval_steps: int = 100) -> dict:
+    """Launches over the pixel RLPD path: the expert's pixel demos (a reset
+    render, then K1 and a render a step), the loop's reset render, `warmup`
+    iterations of which the last is the first to update, `iters` updating
+    iterations, and `evals` argmax evaluations (a reset render, then K1, a
+    render and a policy pass of 5 K5 forwards a step). A render call
+    launches two kernels; an updating iteration is the pixel path's, with
+    sample_mixed's halves in place of one sample (K4 for a half that divides
+    over its ring's streams); iterations before random_steps act at random."""
+    per_update = pixel_rlpd_launches_per_update(config, demo_streams)
+    updating = 1 + iters
+    random_iters = -(-config.random_steps // config.num_envs)
+    policy_steps = warmup + iters - random_iters + evals * eval_steps
+    return {"control_step": demo_steps + warmup + iters + evals * eval_steps,
+            "render": 2 * (1 + demo_steps) + 2 + 2 * (warmup + iters)
+            + evals * 2 * (1 + eval_steps),
+            "random_crop": updating * per_update["random_crop"],
+            "replay_gather": updating * per_update["replay_gather"],
+            "dense_layer_norm_tanh_fwd": updating * (per_update["dense_layer_norm_tanh_fwd"] - 5)
+            + 5 * policy_steps,
+            "dense_layer_norm_tanh_bwd": updating * per_update["dense_layer_norm_tanh_bwd"]}
+
+
+def pixel_rlpd_launches_per_update(config, demo_streams: int) -> dict:
+    """Launches per updating pixel RLPD iteration: the pixel path's, with
+    sample_mixed's halves in place of one sample."""
+    rows = config.batch_size * config.utd_ratio
+    half = rows // 2
+    per_sample = int(half % config.num_envs == 0) + int((rows - half) % demo_streams == 0)
+    per_iter = pixel_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    return {**per_iter, "replay_gather": config.updates_per_iter * per_sample}
 
 
 def fail(msg: str) -> int:
@@ -378,12 +489,38 @@ def launch_counters():
 
 
 def reset_launches() -> None:
+    """Every count to 0, and K5's calls logged from here (check_k5_shapes)."""
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+
     for wrapper in launch_counters().values():
         wrapper.launches = 0
+    k5.shape_log = set()
 
 
 def read_launches() -> dict:
-    return {name: wrapper.launches for name, wrapper in launch_counters().items()}
+    """The counts since reset_launches; K5's calls since then must all be
+    at shapes that phase 2 held (check_k5_shapes)."""
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+
+    counts = {name: wrapper.launches for name, wrapper in launch_counters().items()}
+    log, k5.shape_log = k5.shape_log, None
+    if log is not None:
+        check_k5_shapes(log)
+    return counts
+
+
+def check_k5_shapes(log) -> None:
+    """Fails unless every (form, E, M, K, D) that K5 ran at since
+    reset_launches is one of K5_SHAPES, where phase 2 held the kernels
+    against their plain versions (both directions) and phase 4 timed them."""
+    calls = sorted(s for s in log if len(s) == 5)
+    backward = sorted(s for s in log if len(s) == 7)
+    missing = sorted({s[:5] for s in log} - set(K5_SHAPES))
+    print(f"K5 on this path: forward at {[k5_label(s) for s in calls]}; backward (weight grads, "
+          f"dx) at {[f'{k5_label(s[:5])} {s[5:]}' for s in backward]}; "
+          + ("every shape held in phase 2" if not missing else f"NOT held: {missing}"))
+    if missing:
+        raise AssertionError(f"K5 ran at shapes that K5_SHAPES does not hold: {missing}")
 
 
 # ---------------------------------------------------------------- phases
@@ -988,10 +1125,10 @@ def phase_k3_vs_plain(torch, device):
     return 0.0
 
 
-def _pixel_ring(torch, device, g):
-    """A full, wrapped ring at K4_PIXEL_SHAPE with 100-slot episodes that end
+def _pixel_ring(torch, device, g, slots=K4_PIXEL_SHAPE["slots"],
+                streams=K4_PIXEL_SHAPE["streams"]):
+    """A full, wrapped ring of slots x streams with 100-slot episodes that end
     at another slot in every stream: (data, ep_id, insert_slot)."""
-    slots, streams = K4_PIXEL_SHAPE["slots"], K4_PIXEL_SHAPE["streams"]
     frame = (PIXEL_SIZE, PIXEL_SIZE, 3)
     data = {"observations": {"state": torch.randn((slots, streams, 7), generator=g, device=device),
                              **{k: torch.randint(0, 256, (slots, streams) + frame, generator=g,
@@ -1008,14 +1145,19 @@ def _pixel_ring(torch, device, g):
 
 
 def phase_k4_pixel_vs_plain(torch, device):
-    """K4's pixel gather against its plain version at the pixel path's
-    shapes: T = 1 and 3, rows at episode starts (clamped stacks), at episode
-    ends (successor fallback) and at the ring's seam: exactly equal."""
+    """K4's pixel gather against its plain version at the pixel paths'
+    shapes (K4_PIXEL_SHAPES): T = 1 and 3, rows at episode starts (clamped
+    stacks), at episode ends (successor fallback) and at the ring's seam:
+    exactly equal."""
+    g = torch.Generator(device=device).manual_seed(44)
+    return max(_k4_pixel_vs_plain(torch, device, g, **shape) for shape in K4_PIXEL_SHAPES)
+
+
+def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream):
     from serl_tpu_torch.data import replay_buffer as rbm
 
-    slots, streams, r = (K4_PIXEL_SHAPE[k] for k in ("slots", "streams", "rows_per_stream"))
-    g = torch.Generator(device=device).manual_seed(44)
-    data, ep_id, insert_slot = _pixel_ring(torch, device, g)
+    r = rows_per_stream
+    data, ep_id, insert_slot = _pixel_ring(torch, device, g, slots, streams)
     stream = torch.arange(streams, device=device)
     starts = ((ep_id != ep_id.roll(1, 0)).to(torch.int32).argmax(0))  # an episode's first slot
     u = torch.randint(0, slots - 1, (r, streams), generator=g, device=device)
@@ -1318,6 +1460,32 @@ def phase_pixel_times(torch, device, card, k2, builds, env, agent, rb, config, c
     return rows
 
 
+def _ring_on_cpu(state):
+    """A replay ring's state with CPU copies of its tensors (nested dicts too)."""
+    def cpu(tree):
+        return {k: cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+    return dataclasses.replace(state, data=cpu(state.data), ep_id=state.ep_id.cpu())
+
+
+def _sample_draws(torch, g, rb, state, n, device):
+    """`sample`'s draws for n rows of `state`: (u, e), e None when aligned."""
+    streams = state.ep_id.shape[1]
+    n_valid = state.size if rb.store_next_obs else state.size - 1
+    if n % streams == 0:
+        return torch.randint(0, n_valid, (n // streams, streams), generator=g, device=device), None
+    return (torch.randint(0, n_valid, (n,), generator=g, device=device),
+            torch.randint(0, streams, (n,), generator=g, device=device))
+
+
+def _unequal(got, want, path=""):
+    """Paths where two (nested) batches differ; `got` on the card."""
+    if isinstance(want, dict):
+        return [p for k in want for p in _unequal(got[k], want[k], f"{path}/{k}")]
+    same = got.shape == want.shape and got.dtype == want.dtype and bool((got.cpu() == want).all())
+    return [] if same else [path]
+
+
 def _rows_in(rows: "torch.Tensor", ring: "torch.Tensor") -> "torch.Tensor":
     """(B,) whether each of the (B, F) rows equals some row of the (R, F) ring."""
     return (rows[:, None, :] == ring[None, :, :]).all(-1).any(-1)
@@ -1392,31 +1560,14 @@ def phase_rlpd_path(torch, device, card):
     half = rows // 2
     g = torch.Generator(device=device).manual_seed(12)
     online, demo = carry.rb_state, demo_state
-
-    def draws(state, n):
-        """`sample`'s draws for n rows of `state`: (u, e), e None if aligned."""
-        streams = state.ep_id.shape[1]
-        n_valid = state.size if rb.store_next_obs else state.size - 1
-        if n % streams == 0:
-            return torch.randint(0, n_valid, (n // streams, streams), generator=g,
-                                 device=device), None
-        return (torch.randint(0, n_valid, (n,), generator=g, device=device),
-                torch.randint(0, streams, (n,), generator=g, device=device))
-
-    def on_cpu(x):
-        return None if x is None else x.cpu()
-
-    def ring_on_cpu(state):
-        return dataclasses.replace(state, data={k: v.cpu() for k, v in state.data.items()},
-                                   ep_id=state.ep_id.cpu())
-
-    (u_a, e_a), (u_b, e_b) = draws(online, half), draws(demo, rows - half)
+    (u_a, e_a), (u_b, e_b) = (_sample_draws(torch, g, rb, online, half, device),
+                              _sample_draws(torch, g, rb, demo, rows - half, device))
     batch = rb.sample_mixed(online, demo, rows, u_a=u_a, e_a=e_a, u_b=u_b, e_b=e_b)
-    plain = rb.sample_mixed(ring_on_cpu(online), ring_on_cpu(demo), rows, u_a=on_cpu(u_a),
+    on_cpu = lambda x: None if x is None else x.cpu()
+    plain = rb.sample_mixed(_ring_on_cpu(online), _ring_on_cpu(demo), rows, u_a=on_cpu(u_a),
                             e_a=on_cpu(e_a), u_b=on_cpu(u_b), e_b=on_cpu(e_b))
     torch.cuda.synchronize()
-    unequal = [k for k in plain if batch[k].shape != plain[k].shape
-               or not torch.equal(batch[k].cpu(), plain[k])]
+    unequal = _unequal(batch, plain)
     print(f"RLPD sample_mixed of {rows} rows ({half} online over {online.ep_id.shape[1]} "
           f"streams{' through K4' if e_a is None else ''}, {rows - half} demo over "
           f"{demo_streams} streams{' through K4' if e_b is None else ' by plain indexing'}) "
@@ -1504,6 +1655,388 @@ def phase_rlpd_times(torch, device, card, agent, rb, config, carry, run_chunk):
     out["seconds"] = {"samples": t1 - t0, "iteration": t2 - t1,
                       "busy_share": time.perf_counter() - t2}
     return out
+
+
+def phase_pixel_rlpd_path(torch, device, card):
+    """examples/fused_drq_sim.py --rlpd at the drq_rlpd preset, small
+    encoder: the example's scripted_pixel_demos (num_demos + 10 expert
+    episodes with both cameras rendered by K2 a step, noise 0.02 shared by
+    every env; the first num_demos successful ones selected on the card), a
+    demo ring of one stream per episode, a warm-up past the training
+    threshold, then run_fused for PIXEL_RLPD_CHUNKS chunks of
+    PIXEL_RLPD_CHUNK iterations with an evaluation after each. Launches are
+    counted over the whole path. Then sample_mixed over the two uint8 rings
+    with explicit draws against the same draws on CPU copies of the rings,
+    the interleave, and a learner step with no host sync."""
+    from serl_tpu_torch.common.logger import Logger
+    from serl_tpu_torch.data.demos import demos_to_buffer
+    from serl_tpu_torch.examples.fused_drq_sim import scripted_pixel_demos
+    from serl_tpu_torch.training.config import WorkloadConfig
+    from serl_tpu_torch.training.launcher import make_drq_sim_experiment
+    from serl_tpu_torch.training.runner import run_fused
+
+    cfg = WorkloadConfig.preset("drq_rlpd", **PIXEL_RLPD_PRESET)
+    env, agent, rb, config, init_fn, run_chunk = make_drq_sim_experiment(
+        seed=cfg.seed, encoder_type=cfg.encoder_type, image_size=cfg.image_size, device=device,
+        **cfg.loop_overrides())
+    episodes = cfg.num_demos + 10
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    demos, succeeded = scripted_pixel_demos(env, cfg.seed, cfg.num_demos)
+    torch.cuda.synchronize()
+    demo_ms = (time.perf_counter() - t0) * 1e3
+    print(f"pixel RLPD demos: {episodes} expert episodes x 100 steps, two {cfg.image_size} px "
+          f"cameras, collected in {demo_ms:.1f} ms (host clock, ending in a sync); "
+          f"{succeeded} succeeded [{card}]")
+    if succeeded < RLPD_DEMO_MIN_SUCCESS:
+        raise AssertionError(f"only {succeeded} of {episodes} pixel expert episodes "
+                             f"succeeded (at least {RLPD_DEMO_MIN_SUCCESS} needed)")
+    demo_state = demos_to_buffer(rb, demos)
+    demo_streams = demo_state.ep_id.shape[1]
+    frames = demo_state.data["observations"][rb.image_keys[0]]
+    if (frames.dtype != torch.uint8 or tuple(frames.shape) != (100, cfg.num_demos, cfg.image_size,
+                                                               cfg.image_size, 3)
+            or frames.device.type != device.type or float(frames[:, :4].float().std()) <= 1):
+        raise AssertionError(f"the demo ring's frames: {frames.dtype} {tuple(frames.shape)}")
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = -(-threshold // config.num_envs)  # its last iteration runs the first update
+    before = []
+
+    def warm_init(agent, rng, demo_state=None):
+        carry = init_fn(agent, rng, demo_state=demo_state)
+        carry, m = run_chunk(carry, warmup)
+        if int(m["buffer_size"][-1]) < threshold or float(m["critic_loss"][-1]) == 0.0:
+            raise AssertionError("the pixel RLPD learner did not start at the training threshold")
+        before.extend(p.detach().clone() for p in agent.parameters())
+        return carry
+
+    logs = []
+    t1 = time.perf_counter()
+    carry, best = run_fused(
+        env, agent, rb, config, warm_init, run_chunk,
+        total_env_steps=(warmup + PIXEL_RLPD_CHUNKS * PIXEL_RLPD_CHUNK) * config.num_envs,
+        chunk_iters=PIXEL_RLPD_CHUNK, eval_period_chunks=1, eval_episodes=cfg.eval_episodes,
+        seed=cfg.seed, demo_state=demo_state, logger=Logger(debug=True),
+        log_fn=lambda log, carry: logs.append(log))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_launches()
+    want = pixel_rlpd_launches(config, demo_streams, warmup, PIXEL_RLPD_CHUNKS * PIXEL_RLPD_CHUNK,
+                               PIXEL_RLPD_CHUNKS)
+    print(f"pixel RLPD path (WorkloadConfig.preset('drq_rlpd', **{json.dumps(PIXEL_RLPD_PRESET)}):"
+          f" {json.dumps(config._asdict())}; demo ring {demo_state.ep_id.shape[0]} slots x "
+          f"{demo_streams} streams; {warmup} warm-up iterations, then run_fused for "
+          f"{PIXEL_RLPD_CHUNKS} chunks of {PIXEL_RLPD_CHUNK} with a {cfg.eval_episodes}-episode "
+          f"evaluate after each, {run_s:.2f} s in all): launches over the path "
+          f"{json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the pixel RLPD path, got {launches}")
+
+    rows = config.batch_size * config.utd_ratio
+    half = rows // 2
+    g = torch.Generator(device=device).manual_seed(14)
+    online = carry.rb_state
+    (u_a, e_a), (u_b, e_b) = (_sample_draws(torch, g, rb, online, half, device),
+                              _sample_draws(torch, g, rb, demo_state, rows - half, device))
+    batch = rb.sample_mixed(online, demo_state, rows, u_a=u_a, e_a=e_a, u_b=u_b, e_b=e_b)
+    on_cpu = lambda x: None if x is None else x.cpu()
+    plain = rb.sample_mixed(_ring_on_cpu(online), _ring_on_cpu(demo_state), rows,
+                            u_a=on_cpu(u_a), e_a=on_cpu(e_a), u_b=on_cpu(u_b), e_b=on_cpu(e_b))
+    torch.cuda.synchronize()
+    unequal = _unequal(batch, plain)
+    print(f"pixel RLPD sample_mixed of {rows} rows ({half} online over {online.ep_id.shape[1]} "
+          f"streams of {online.ep_id.shape[0]} slots{' through K4' if e_a is None else ''}, "
+          f"{rows - half} demo over {demo_streams} streams"
+          f"{' through K4' if e_b is None else ' by plain indexing'}; uint8 frames, T = "
+          f"{rb.num_stack}) on the card against the same draws on CPU copies of both rings: "
+          f"{'bit for bit equal' if not unequal else f'differs in {unequal}'}")
+    if unequal:
+        raise AssertionError(f"pixel sample_mixed on the card differs from the plain path in "
+                             f"{unequal}")
+
+    def flat(data, size):
+        return torch.cat([data["observations"]["state"][:size], data["actions"][:size]],
+                         -1).flatten(0, 1)
+
+    sampled = torch.cat([batch["observations"]["state"], batch["actions"]], -1)
+    in_online = _rows_in(sampled, flat(online.data, online.size))
+    in_demo = _rows_in(sampled, flat(demo_state.data, demo_state.size))
+    odd = torch.arange(rows, device=device) % 2 == 1
+    params = list(agent.parameters())
+    learner = {k: [log[f"train/{k}"] for log in logs]
+               for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+    evals = [{k: log[k] for k in ("eval/success_rate", "eval/return_mean")} for log in logs]
+    checks = {
+        "even rows from the online ring only": bool((in_online & ~in_demo)[~odd].all()),
+        "odd rows from the demo ring only": bool((in_demo & ~in_online)[odd].all()),
+        "one log and one evaluation per chunk": len(logs) == PIXEL_RLPD_CHUNKS,
+        "losses finite": all(math.isfinite(v) for vs in learner.values() for v in vs),
+        "losses non-zero": all(v != 0 for vs in learner.values() for v in vs),
+        "temperature > 0": all(v > 0 for v in learner["temperature"]),
+        "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+        "params moved, the encoders' included": all(not torch.equal(p, q)
+                                                    for p, q in zip(params, before)),
+        "best params kept": best["params"] is not None,
+        "evals finite": all(math.isfinite(v) and 0 <= v <= 100 for e in evals for v in e.values()),
+    }
+    print(f"pixel RLPD path outputs: "
+          f"{json.dumps({k: [round(v, 5) for v in vs] for k, vs in learner.items()})} (per "
+          f"chunk); optimizer steps {agent.state.step}; evals {json.dumps(evals)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"pixel RLPD path output checks failed: {bad}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        agent.update_high_utd(rb.sample_mixed(online, demo_state, rows, generator=g),
+                              utd_ratio=config.utd_ratio, generator=g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("pixel sample_mixed + update_high_utd ran under torch.cuda.set_sync_debug_mode('error')"
+          ": no host sync in the pixel RLPD learner step")
+    box = [carry]
+
+    def run(iters):
+        box[0], _ = run_chunk(box[0], iters)
+
+    iteration_ms = per_call_ms(lambda: run(1), calls=1, repeats=5)
+    print(f"pixel RLPD loop iteration: {iteration_ms:.3f} ms (median of 5 single iterations "
+          f"between CUDA events, host launch time included) [{card}]")
+    info = dict(demo_ms=demo_ms, demo_episodes=episodes, demo_success=succeeded,
+                demo_streams=demo_streams, iteration_ms=iteration_ms, run_s=run_s)
+    return launches, pixel_rlpd_launches_per_update(config, demo_streams), info
+
+
+def _backbone_graft_errors(torch, agent, raw):
+    """Paths of the backbones' (and the target backbones') tensors that
+    differ from the pickle's values cast to fp32 (kernels HWIO -> OIHW)."""
+    from serl_tpu_torch.utils.jax_params import resnet_pairs
+
+    group, targets = agent.state.params["critic"], agent.state.target_params["critic"]
+    bad = []
+    for key, enc in agent.encoder.encoders.items():
+        for path, tensor, layout in resnet_pairs(enc.pretrained_encoder):
+            node = raw
+            for k in path:
+                node = node[k]
+            want = torch.from_numpy(node.astype("float32"))
+            if layout == "HWIO":
+                want = want.permute(3, 2, 0, 1)
+            target = targets[next(i for i, p in enumerate(group) if p is tensor)]
+            for what, t in (("", tensor), ("target ", target)):
+                if t.dtype != torch.float32 or not torch.equal(t.detach().cpu(), want):
+                    bad.append(f"{what}{key}/{'/'.join(path)}")
+    return bad
+
+
+def phase_resnet_path(torch, device, card, resnet_checks):
+    """bench.py::bench_pixels("resnet-pretrained")'s configuration through
+    make_drq_sim_experiment: the frozen ResNet-10 grafted from
+    resnet10_params.pkl into both cameras' backbones (checked: every tensor,
+    and the target critic's copy, equal to the pickle's values cast to
+    fp32), warm-up chunks of RESNET_CHUNK past the training threshold, then
+    3 timed chunks of RESNET_CHUNK; the backbones unchanged after them; the
+    card's backbone features of rendered frames against the CPU's fp32
+    features under tests/torch_resnet.py's rule; where an iteration's time
+    goes and the loop's device busy share."""
+    from serl_tpu_torch.training.launcher import make_drq_sim_experiment
+    from serl_tpu_torch.training.loop import evaluate
+    from serl_tpu_torch.utils.pretrained import find_params_file, read_params
+
+    path = find_params_file()
+    if path is None:
+        raise AssertionError("resnet10_params.pkl is not in the working directory")
+    raw = read_params(path)
+    env, agent, rb, config, init_fn, run_chunk = make_drq_sim_experiment(device=device,
+                                                                         **BENCH_RESNET)
+    bad = _backbone_graft_errors(torch, agent, raw)
+    n_tensors = sum(len(list(e.pretrained_encoder.parameters()))
+                    for e in agent.encoder.encoders.values())
+    print(f"ResNet graft from {path}: {n_tensors} backbone tensors over "
+          f"{len(agent.encoder.encoders)} cameras and their target copies {'equal to' if not bad else 'differ from'} the "
+          f"pickle's float16 values cast to fp32" + (f": {bad[:4]}" if bad else ""))
+    if bad:
+        raise AssertionError(f"the graft differs from the pickle in {bad[:4]}")
+    carry = init_fn(agent, torch.Generator(device=device).manual_seed(15))
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = 0
+    while True:
+        carry, m = run_chunk(carry, RESNET_CHUNK)
+        warmup += RESNET_CHUNK
+        if int(m["buffer_size"][-1]) >= threshold:
+            break
+    if float(m["critic_loss"][-1]) == 0.0:
+        raise AssertionError("the ResNet learner did not start at the training threshold")
+    before = [p.detach().clone() for p in agent.parameters()]
+    torch.cuda.synchronize()
+    reset_launches()
+    best, chunks = float("inf"), []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        carry, m = run_chunk(carry, RESNET_CHUNK)
+        float(m["reward_mean"][-1])  # waits for the chunk, as bench.py's fetch
+        best = min(best, time.perf_counter() - t0)
+        chunks.append(m)
+    launches = read_launches()
+    iters = 3 * RESNET_CHUNK
+    per_iter = pixel_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    want = {k: v * iters for k, v in per_iter.items()}
+    env_steps_s = RESNET_CHUNK * config.num_envs / best
+    updates_s = RESNET_CHUNK * config.updates_per_iter * config.utd_ratio / best
+    print(f"ResNet path (bench_pixels('resnet-pretrained'): {json.dumps(BENCH_RESNET)}, {warmup} "
+          f"warm-up iterations, then 3 chunks of {RESNET_CHUNK}): best chunk {best:.4f} s (host "
+          f"clock ending in a sync): {env_steps_s:.1f} env-steps/s, {updates_s:.1f} critic "
+          f"updates/s; launches over the {iters} iterations {json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the ResNet path, got {launches}")
+    frozen_bad = _backbone_graft_errors(torch, agent, raw)
+    frozen_bad = [b for b in frozen_bad if not b.startswith("target ")]
+    backbone = {id(p) for e in agent.encoder.encoders.values()
+                for p in e.pretrained_encoder.parameters()}
+    params = list(agent.parameters())
+    moved = [not torch.equal(p, q) for p, q in zip(params, before) if id(p) not in backbone]
+    ev = evaluate(env, agent, torch.Generator(device=device).manual_seed(16), num_episodes=16,
+                  pixel_keys=rb.image_keys)
+    metrics = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+    learner = {k: metrics[k] for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+
+    # the card's backbone features against the CPU's, on the ring's frames
+    enc = agent.encoder.encoders[rb.image_keys[0]].pretrained_encoder
+    ring = carry.rb_state.data["observations"][rb.image_keys[0]]
+    frames = ring[: RESNET_FRAMES // config.num_envs].flatten(0, 1)
+    with torch.no_grad():
+        card_features = enc(frames)
+    cpu_enc = copy.deepcopy(enc).cpu()
+    cpu_frames = frames.cpu()
+    cpu_features = cpu_enc(cpu_frames)
+    emulated = resnet_checks.tf32_features(cpu_enc, cpu_frames)
+    failures, summary = resnet_checks.judge(card_features, cpu_features, emulated)
+    print(f"ResNet backbone features of {frames.shape[0]} rendered frames, (B, h, w, c) = "
+          f"{tuple(card_features.shape)}, the card's (TF32 convolutions) against the CPU's fp32: "
+          f"{json.dumps({k: float(f'{v:.4g}') for k, v in summary.items()})}; the rule "
+          f"(tests/torch_resnet.py): at most {resnet_checks.FACTOR} x the CPU's TF32 emulation's "
+          f"error, largest and mean [{card}]")
+    checks = {
+        "backbones unchanged, bit for bit": not frozen_bad,
+        "the heads, the critic and the policy moved": all(moved),
+        "losses finite": all(bool(torch.isfinite(v).all()) for v in learner.values()),
+        "losses non-zero": all(bool((v != 0).all()) for v in learner.values()),
+        "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+        "backbone features within the rule": not failures,
+        "eval finite": all(math.isfinite(v) and 0 <= v <= 100 for v in ev.values()),
+    }
+    print(f"ResNet path outputs: critic_loss {float(learner['critic_loss'][-1]):.5g}, actor_loss "
+          f"{float(learner['actor_loss'][-1]):.5g}, temperature "
+          f"{float(learner['temperature'][-1]):.5g}; optimizer steps {agent.state.step}; eval "
+          f"(16 episodes) {json.dumps(ev)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"ResNet path checks failed: {bad} {frozen_bad[:4]} {failures}")
+
+    # where a ResNet iteration's time goes
+    g = torch.Generator(device=device).manual_seed(17)
+    buf = carry.rb_state
+    rows = config.batch_size * config.utd_ratio
+    batch = rb.sample(buf, rows, generator=g)
+    mini = {k: ({kk: vv[: config.batch_size] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[: config.batch_size]) for k, v in batch.items()}
+    obs = mini["observations"]
+    imgs = obs[rb.image_keys[0]][:, 0]
+
+    def encode():
+        with torch.no_grad():
+            return agent.encoder(obs)
+
+    parts = {
+        "frozen backbone, one camera, 256 frames": lambda: enc(imgs),
+        "encoder forward (both cameras + heads, 256 rows, no grad)": encode,
+        "critic update (1 of utd_ratio, minibatch 256)": lambda: agent.update(
+            mini, networks_to_update=frozenset({"critic"}), generator=g),
+        "actor+temperature update (batch 1024)": lambda: agent.update(
+            batch, networks_to_update=frozenset({"actor", "temperature"}), generator=g),
+        "update_high_utd (crop + 4 critic + 1 actor)": lambda: agent.update_high_utd(
+            batch, utd_ratio=config.utd_ratio, generator=g),
+    }
+    split = {k: per_call_ms(fn, calls=1, repeats=5) for k, fn in parts.items()}
+    box = [carry]
+
+    def run(n):
+        box[0], _ = run_chunk(box[0], n)
+
+    split["whole loop iteration"] = per_call_ms(lambda: run(1), calls=1, repeats=5)
+    print("ResNet iteration, ms per call (median of 5 single calls between CUDA events, host "
+          "launch time included): " + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f" [{card}]")
+    print_busy_share(torch, "ResNet loop", run, card, ("K1", "K2", "K3", "K4", "K5"), iters=5)
+    return launches, dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best,
+                          features=summary, split=split, ring=(rb, carry.rb_state, config))
+
+
+def phase_resnet_trained(torch, device, card, rb, buf, config):
+    """The trained "resnet" encoder (a bf16 ResNet-10 per camera, trained
+    through the critic loss) on the card: a DrQ agent built as
+    make_drq_sim_experiment(encoder_type="resnet") builds it, then
+    RESNET_TRAINED_UPDATES update_high_utd calls (batch 256 x UTD 4) on
+    batches sampled from the ResNet path's ring. Launches counted against
+    the pixel learner's per update; losses finite and non-zero; every
+    parameter moved, the backbones' included; params finite."""
+    from serl_tpu_torch.training import launcher
+
+    size = buf.data["observations"][rb.image_keys[0]].shape[-2]
+    sample = {"state": torch.zeros((1, launcher.PIXEL_STATE_DIM)),
+              **{k: torch.zeros((1, 1, size, size, 3), dtype=torch.uint8) for k in rb.image_keys}}
+    agent = launcher.make_drq_agent(0, sample, torch.zeros((1, launcher.ACTION_DIM)),
+                                    image_keys=rb.image_keys, encoder_type="resnet",
+                                    device=device)
+    encoders = list(agent.encoder.encoders.values())
+    if any(e.compute_dtype != torch.bfloat16 for e in encoders):
+        raise AssertionError("the resnet encoder should convolve in bf16")
+    backbone = {id(p) for e in encoders for m in (e.conv_init, e.norm_init, e.blocks)
+                for p in m.parameters()}
+    before = [p.detach().clone() for p in agent.parameters()]
+    g = torch.Generator(device=device).manual_seed(18)
+    rows = config.batch_size * config.utd_ratio
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    infos = []
+    for _ in range(RESNET_TRAINED_UPDATES):
+        batch = rb.sample(buf, rows, generator=g)
+        _, info = agent.update_high_utd(batch, utd_ratio=config.utd_ratio, generator=g)
+        infos.append(info)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    per = pixel_launches_per_iter(config.utd_ratio, 1)
+    want = {"control_step": 0, "render": 0,
+            **{k: RESNET_TRAINED_UPDATES * per[k] for k in ("random_crop", "replay_gather",
+                                                             "dense_layer_norm_tanh_bwd")},
+            "dense_layer_norm_tanh_fwd": RESNET_TRAINED_UPDATES
+            * (per["dense_layer_norm_tanh_fwd"] - 5)}  # no acting
+    losses = {k: torch.stack([i[group][k] for i in infos]) for group, k in
+              (("critic", "critic_loss"), ("actor", "actor_loss"), ("actor", "entropy"))}
+    params = list(agent.parameters())
+    moved = [not torch.equal(p, q) for p, q in zip(params, before)]
+    checks = {
+        "launches as the pixel learner's": launches == want,
+        "losses finite": all(bool(torch.isfinite(v).all()) for v in losses.values()),
+        "losses non-zero": all(bool((v != 0).all()) for v in losses.values()),
+        "every parameter moved": all(moved),
+        "the backbones moved": all(m for p, m in zip(params, moved) if id(p) in backbone),
+        "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+    }
+    print(f"ResNet trained (\"resnet\", bf16): {RESNET_TRAINED_UPDATES} update_high_utd calls "
+          f"(batch {config.batch_size} x UTD {config.utd_ratio}) in {seconds:.3f} s, the first "
+          f"with cuDNN's bf16 set-up; {len(backbone)} backbone tensors, {sum(moved)} of "
+          f"{len(params)} parameters moved; critic_loss "
+          f"{[round(float(v), 5) for v in losses['critic_loss']]}; launches {json.dumps(launches)} "
+          f"[{card}]")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"trained ResNet checks failed: {bad}; launches {launches}, "
+                             f"expected {want}")
+    return launches
 
 
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
@@ -1613,7 +2146,8 @@ def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     for part in ("serl_tpu_torch", os.path.join("tests", "torch_k1.py"),
-                 os.path.join("tests", "torch_k2.py"), os.path.join("tests", "torch_k5.py")):
+                 os.path.join("tests", "torch_k2.py"), os.path.join("tests", "torch_k5.py"),
+                 os.path.join("tests", "torch_resnet.py"), "resnet10_params.pkl"):
         if not os.path.exists(os.path.join(HERE, part)):
             return fail(f"{part} is not beside chip_smoke.py: run it from the repository")
     sys.path.insert(0, HERE)
@@ -1627,7 +2161,12 @@ def main(kernels_only: bool = False) -> int:
     # phase 1: device and builds (one nvcc per kernel source, all started
     # together, in a thread, while g++ builds the op-counting host code here)
     card = card_line()
-    print(f"card: {card}")
+    import numpy
+
+    print(f"card: {card}; python {sys.version.split()[0]}, torch {torch.__version__} (CUDA "
+          f"{torch.version.cuda}), numpy {numpy.__version__}")
+    # the pretrained backbone's pickle beside this script, unless the caller names another
+    os.environ.setdefault("SERL_RESNET10_PARAMS", os.path.join(HERE, "resnet10_params.pkl"))
     from serl_tpu_torch.data import replay_buffer as rbm
     from serl_tpu_torch.envs import rendering
     from serl_tpu_torch.envs.physics import engine
@@ -1638,6 +2177,7 @@ def main(kernels_only: bool = False) -> int:
     checks = load_checks("torch_k1")
     k2 = load_checks("torch_k2")
     k5_checks = load_checks("torch_k5")
+    resnet_checks = load_checks("torch_resnet")
     t0 = time.perf_counter()
     built = {}
 
@@ -1699,13 +2239,25 @@ def main(kernels_only: bool = False) -> int:
     rlpd_launches_path, rlpd_per_update, rlpd_info, r_agent, r_rb, r_config, r_carry, r_run = \
         phase_rlpd_path(torch, device, card)
     rlpd_s = {"path": time.perf_counter() - t_rlpd}
+    t_new = time.perf_counter()
+    pixel_rlpd_launches_path, pixel_rlpd_per_update, pixel_rlpd_info = \
+        phase_pixel_rlpd_path(torch, device, card)
+    new_s = {"pixel_rlpd": time.perf_counter() - t_new}
+    t_new = time.perf_counter()
+    resnet_launches, resnet_info = phase_resnet_path(torch, device, card, resnet_checks)
+    new_s["resnet"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    trained_launches = phase_resnet_trained(torch, device, card, *resnet_info.pop("ring"))
+    new_s["resnet_trained"] = time.perf_counter() - t_new
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
     lrows = phase_learner_times(torch, device, card, l_agent, l_rb, l_config, l_carry, l_run)
     prows = phase_pixel_times(torch, device, card, k2, k2_libs, p_env, p_agent, p_rb, p_config,
                               p_carry, p_run)
+    t_k5 = time.perf_counter()
     k5rows = phase_k5_times(torch, k5_checks, device, card)
+    new_s["k5_times"] = time.perf_counter() - t_k5
     t_rlpd = time.perf_counter()
     rlpd_rows = phase_rlpd_times(torch, device, card, r_agent, r_rb, r_config, r_carry, r_run)
     rlpd_s["times"] = time.perf_counter() - t_rlpd
@@ -1714,10 +2266,18 @@ def main(kernels_only: bool = False) -> int:
                 "learner": learner_launches_per_iter(l_config.utd_ratio,
                                                      l_config.updates_per_iter),
                 "pixel": pixel_launches_per_iter(p_config.utd_ratio, p_config.updates_per_iter),
-                "rlpd": rlpd_per_update}  # per updating iteration
+                "rlpd": rlpd_per_update,  # per updating iteration
+                "pixel_rlpd": pixel_rlpd_per_update,  # per updating iteration
+                "resnet": pixel_launches_per_iter(BENCH_RESNET["utd_ratio"],
+                                                  BENCH_RESNET["updates_per_iter"]),
+                "resnet_trained": {k: v // RESNET_TRAINED_UPDATES
+                                   for k, v in trained_launches.items()}}  # per update_high_utd
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
-                            "pixel": pixel_launches, "rlpd": rlpd_launches_path}, per_iter, ptxas)
+                            "pixel": pixel_launches, "rlpd": rlpd_launches_path,
+                            "pixel_rlpd": pixel_rlpd_launches_path, "resnet": resnet_launches,
+                            "resnet_trained": trained_launches},
+                           per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
             kernel["rlpd_sample"] = {k: rlpd_rows[k] for k in ("sample_mixed", "sample")}
@@ -1733,6 +2293,14 @@ def main(kernels_only: bool = False) -> int:
           f"the RLPD path's phase took {rlpd_s['path']:.1f} s and its times' "
           f"{rlpd_s['times']:.1f} s (host clock; the times' parts "
           f"{json.dumps({k: round(v, 1) for k, v in rlpd_rows['seconds'].items()})}) [{card}]")
+    print(f"pixel RLPD: demo collection {pixel_rlpd_info['demo_ms']:.1f} ms "
+          f"({pixel_rlpd_info['demo_success']} of {pixel_rlpd_info['demo_episodes']} expert "
+          f"episodes succeeded, demo ring of {pixel_rlpd_info['demo_streams']} streams); "
+          f"iteration {pixel_rlpd_info['iteration_ms']:.3f} ms [{card}]")
+    print(f"ResNet rates: {resnet_info['env_steps_s']:.1f} env-steps/s, "
+          f"{resnet_info['updates_s']:.1f} critic updates/s [{card}]")
+    print("the pixel RLPD, ResNet, trained ResNet and K5 timing phases' seconds (host clock): "
+          + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
            or m == "serl_tpu"]
     if bad:

@@ -11,8 +11,15 @@ window offset per (batch, stack) image, all cut by one K3 launch
 (`vision/augmentations.py::crop_images`). Its offsets are part of the
 update's draws, so the tests can feed the JAX package's.
 
-Not ported yet, and raising: the "resnet" and "resnet-pretrained" encoders,
-and `update_critics` (the fused loop does not call it).
+The registry's "resnet" is a ResNet-10 per camera (bf16 convolutions,
+trained, a learned-spatial-embedding head with dropout and a 256-wide
+bottleneck); "resnet-pretrained" a frozen fp32 ResNet-10 backbone per
+camera (one instance per key, as the JAX package's flax tree has it) under
+a trained head of the same kind, grafted from `resnet10_params.pkl` by
+`create_drq` (strict: no file, no agent).
+
+Not ported yet, and raising: `update_critics` (the fused loop does not call
+it).
 """
 
 from __future__ import annotations
@@ -23,19 +30,21 @@ from typing import Dict, Iterable, Optional
 import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
+from serl_tpu_torch.utils.pretrained import load_resnet10_params
 from serl_tpu_torch.vision.augmentations import crop_images, crop_offsets
-from serl_tpu_torch.vision.encoders import SmallEncoder
+from serl_tpu_torch.vision.encoders import PreTrainedResNetEncoder, SmallEncoder, resnetv1_configs
 from serl_tpu_torch.vision.encoding import ObsEncoder
 
 CROP_PADDING = 4
 
 
 def make_image_encoders(encoder_type: str, image_keys: Iterable[str], shared: bool = False,
-                        in_channels: int = 3,
+                        in_channels: int = 3, image_size=128,
                         generator: Optional[torch.Generator] = None) -> Dict[str, torch.nn.Module]:
     """Encoder registry: image key -> encoder module (`shared=True` maps one
-    module to every key). `in_channels` is each camera's channels times its
-    frame stack."""
+    module to every key; "resnet-pretrained" always builds one per key).
+    `in_channels` is each camera's channels times its frame stack,
+    `image_size` its (H, W) or side."""
     image_keys = tuple(image_keys)
     if encoder_type == "small":
         def small():
@@ -48,8 +57,23 @@ def make_image_encoders(encoder_type: str, image_keys: Iterable[str], shared: bo
             enc = small()
             return {key: enc for key in image_keys}
         return {key: small() for key in image_keys}
-    if encoder_type in ("resnet", "resnet-pretrained"):
-        raise NotImplementedError(f"the {encoder_type!r} encoder is not ported yet")
+    if encoder_type == "resnet":
+        def resnet():
+            return resnetv1_configs["resnetv1-10"](
+                pooling_method="spatial_learned_embeddings", num_spatial_blocks=8,
+                bottleneck_dim=256, compute_dtype=torch.bfloat16, in_channels=in_channels,
+                image_size=image_size, generator=generator)
+
+        if shared:
+            enc = resnet()
+            return {key: enc for key in image_keys}
+        return {key: resnet() for key in image_keys}
+    if encoder_type == "resnet-pretrained":
+        return {key: PreTrainedResNetEncoder(
+            resnetv1_configs["resnetv1-10-frozen"](in_channels=in_channels,
+                                                   image_size=image_size, generator=generator),
+            pooling_method="spatial_learned_embeddings", num_spatial_blocks=8,
+            bottleneck_dim=256, generator=generator) for key in image_keys}
     raise NotImplementedError(f"unknown encoder type {encoder_type}")
 
 
@@ -149,7 +173,7 @@ class DrQAgent(SACAgent):
         in_channels = first.shape[-1] * (first.shape[-4] if first.dim() == 5 else 1)
         encoders = custom_encoders or make_image_encoders(
             encoder_type, image_keys, shared=shared_encoder, in_channels=in_channels,
-            generator=generator)
+            image_size=tuple(first.shape[-3:-1]), generator=generator)
         state = observations["state"]
         state_dim = (sum(v.shape[-1] for v in state.values()) if isinstance(state, dict)
                      else state.shape[-1])
@@ -159,4 +183,8 @@ class DrQAgent(SACAgent):
         agent = cls.create_pixels(observations, actions, encoder=encoder, image_keys=image_keys,
                                   generator=generator, device=device, **kwargs)
         agent.config = agent.config._replace(augment=bool(augment))
+        if encoder_type == "resnet-pretrained":
+            # pretrained weights were asked for: no file, no agent (never a
+            # silently random frozen backbone)
+            load_resnet10_params(agent, image_keys)
         return agent

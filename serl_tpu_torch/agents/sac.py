@@ -25,9 +25,16 @@ The learner's traps, kept as in the JAX package:
     `utd_ratio` critic-only updates on contiguous minibatches, then one
     actor+temperature update on the full batch, in which the critic steps
     with zero grads and its target stays.
-Every draw (next-action noise per loss, subsample indices, actor noise) is
-taken from an explicit `draws` dict when one is given (the tests feed the
-JAX package's draws that way) and from a `torch.Generator` otherwise.
+The losses run the encoder in train mode, as the JAX package's pass
+`train=True` and a dropout rng: an encoder whose pooling head has dropout
+(the ResNet heads' learned spatial embeddings) drops features in every
+encoder pass of a loss, each pass with its own keep-masks;
+`sample_actions` runs it without. With the SmallEncoder ("avg" pooling)
+train mode changes nothing.
+Every draw (next-action noise per loss, subsample indices, actor noise,
+dropout keep-masks) is taken from an explicit `draws` dict when one is
+given (the tests feed the JAX package's draws that way) and from a
+`torch.Generator` otherwise.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from serl_tpu_torch.networks.lagrange import (
     lagrange_penalty,
     lagrange_value,
 )
+from serl_tpu_torch.vision.encoders import DROPOUT_RATE
 
 NETWORKS = frozenset({"actor", "critic", "temperature"})
 
@@ -117,29 +125,36 @@ class SACAgent(nn.Module):
     # Forward passes
     # ------------------------------------------------------------------ #
 
-    def _encode(self, obs, params: Optional[List[torch.Tensor]] = None):
+    def _encode(self, obs, params: Optional[List[torch.Tensor]] = None, train: bool = False,
+                dropout: Optional[Dict[str, torch.Tensor]] = None):
         """Observations -> flat features through the encoder, if any, with
-        `params` (the encoder's tensors) in place of its own when given."""
+        `params` (the encoder's tensors) in place of its own when given;
+        `train` turns on the encoder's dropout, with the keep-masks
+        `dropout` ({image key: mask}) where given."""
         if self.encoder is None:
             return obs
+        kwargs = {"train": train, "dropout": dropout}
         if params is None:
-            return self.encoder(obs)
-        return functional_call(self.encoder, dict(zip(self._encoder_names, params)), (obs,))
+            return self.encoder(obs, **kwargs)
+        return functional_call(self.encoder, dict(zip(self._encoder_names, params)), (obs,),
+                               kwargs)
 
-    def forward_policy(self, obs, *, temperature: float = 1.0):
+    def forward_policy(self, obs, *, temperature: float = 1.0, train: bool = False,
+                       dropout: Optional[Dict[str, torch.Tensor]] = None):
         with torch.no_grad():  # the actor never trains the encoder
-            feats = self._encode(obs)
+            feats = self._encode(obs, train=train, dropout=dropout)
         return self.actor(feats, temperature=temperature)
 
     def forward_critic(self, obs, actions: torch.Tensor,
-                       params: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                       params: Optional[List[torch.Tensor]] = None, train: bool = False,
+                       dropout: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """(E, B) Q-values; `params` (in `critic_group()` order: encoder,
         then head) replaces the critic's own tensors, as for the target
         critic."""
         if params is None:
-            return self.critic(self._encode(obs), actions)
+            return self.critic(self._encode(obs, train=train, dropout=dropout), actions)
         n = len(self._encoder_names)
-        feats = self._encode(obs, params[:n])
+        feats = self._encode(obs, params[:n], train, dropout)
         return functional_call(self.critic, dict(zip(self._critic_names, params[n:])),
                                (feats, actions))
 
@@ -170,10 +185,12 @@ class SACAgent(nn.Module):
 
     def critic_loss_fn(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
         with torch.no_grad():
-            dist = self.forward_policy(batch["next_observations"])
+            dist = self.forward_policy(batch["next_observations"], train=True,
+                                       dropout=draws.get("critic_next_dropout"))
             next_actions, next_log_probs = dist.sample_and_log_prob(eps=draws["critic_next_eps"])
             target_next_qs = self.forward_critic(batch["next_observations"], next_actions,
-                                                 params=self.state.target_params["critic"])
+                                                 params=self.state.target_params["critic"],
+                                                 train=True, dropout=draws.get("target_dropout"))
             target_next_qs = subsample_ensemble(
                 target_next_qs, self.config.critic_subsample_size,
                 self.config.critic_ensemble_size, idx=draws.get("subsample_idx"))
@@ -182,7 +199,8 @@ class SACAgent(nn.Module):
                         + self.config.discount * batch["masks"] * target_next_min_q)
             if self.config.backup_entropy:
                 target_q = target_q - self.temperature() * next_log_probs
-        predicted_qs = self.forward_critic(batch["observations"], batch["actions"])
+        predicted_qs = self.forward_critic(batch["observations"], batch["actions"], train=True,
+                                           dropout=draws.get("critic_dropout"))
         critic_loss = ((predicted_qs - target_q[None]) ** 2).mean()
         return critic_loss, {
             "critic_loss": critic_loss.detach(),
@@ -192,11 +210,13 @@ class SACAgent(nn.Module):
 
     def policy_loss_fn(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
         temperature = self.temperature().detach()
-        dist = self.forward_policy(batch["observations"])
+        dist = self.forward_policy(batch["observations"], train=True,
+                                   dropout=draws.get("actor_dropout"))
         actions, log_probs = dist.sample_and_log_prob(eps=draws["actor_eps"])
         critic_params = [p.detach() for p in self.state.params["critic"]]
-        predicted_q = self.forward_critic(batch["observations"], actions,
-                                          params=critic_params).mean(0)
+        predicted_q = self.forward_critic(batch["observations"], actions, params=critic_params,
+                                          train=True,
+                                          dropout=draws.get("actor_critic_dropout")).mean(0)
         actor_loss = -(predicted_q - temperature * log_probs).mean()
         return actor_loss, {
             "actor_loss": actor_loss.detach(),
@@ -206,7 +226,8 @@ class SACAgent(nn.Module):
 
     def temperature_loss_fn(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
         with torch.no_grad():
-            dist = self.forward_policy(batch["next_observations"])
+            dist = self.forward_policy(batch["next_observations"], train=True,
+                                       dropout=draws.get("temperature_next_dropout"))
             _, next_log_probs = dist.sample_and_log_prob(eps=draws["temperature_next_eps"])
             entropy = -next_log_probs.mean()
         loss = lagrange_penalty({"raw": self.temperature_raw}, lhs=entropy,
@@ -234,6 +255,17 @@ class SACAgent(nn.Module):
             draws["actor_eps"] = normal()
         if "temperature" in networks_to_update:
             draws["temperature_next_eps"] = normal()
+        # the encoder's dropout keep-masks, one set per encoder pass of the losses
+        shapes = {} if self.encoder is None else self.encoder.dropout_shapes(batch_size)
+        if shapes:
+            passes = {"critic": ("critic_next", "target", "critic"),
+                      "actor": ("actor", "actor_critic"), "temperature": ("temperature_next",)}
+            keep = 1.0 - DROPOUT_RATE
+            for net in sorted(networks_to_update):
+                for name in passes[net]:
+                    draws[f"{name}_dropout"] = {
+                        k: torch.rand(shape, generator=generator, device=device) < keep
+                        for k, shape in shapes.items()}
         return draws
 
     def high_utd_draws(self, batch_size: int, utd_ratio: int,

@@ -30,6 +30,17 @@
 // sign(z) (1 - e) / (1 + e) with e = expf(-2|z|). The pre-activation h and
 // the row mean and rstd are stored only when autograd needs them.
 //
+// Split K. Where the row blocks fill less than the card (few rows, or a
+// deep K such as the ResNet heads' 4,096), each 16-row tile is cut into S
+// blocks along K (gridDim.z = S), each walking its own slice of the chunks.
+// A block writes its accumulators to scratch in its threads' fragment
+// order, takes a ticket from an int32 counter for its tile, and the last of
+// the S adds the S partials in slice order (a fixed order: the result
+// repeats bit for bit) and runs the epilogue; it resets the counter. S is
+// the most that keeps every slice at least kMinSliceChunks chunks long,
+// the blocks within one wave of the SMs and S <= kMaxSplits (the last
+// block reads S partials of 16 x D floats alone).
+//
 // Backward. One block of 8 warps owns 32 rows of one member, a warp a row at
 // a time, a lane every 32nd column. With g = dy (1 - y^2) and
 // x_hat = (h - mean) rstd it writes
@@ -48,7 +59,10 @@
 // (E, M, K, D) = (10, 256, 256, 256) forward moves x, W, y and (with
 // autograd) h, 10.5 MB, 3.1 us at 3.35 TB/s; its 336 MFLOP, tripled by
 // 3xTF32, take 2.0 us at the tensor cores' 495 TFLOP/s (plain fp32 FFMA
-// would take 5.0 us at 67 TFLOP/s and make it bound by operations). The
+// would take 5.0 us at 67 TFLOP/s and make it bound by operations). At
+// (1, 256, 4096, 256), the ResNet heads' bottleneck, the 3xTF32 product
+// (1.6 GFLOP, 3.3 us) bounds it, but without split K its 16 blocks would
+// each walk 128 chunks on 16 of the 132 SMs. The
 // backward reads dy, y, h and writes dh: 16 bytes and ~16 fp32 operations an
 // element. At these sizes a launch costs as much as the work, so each
 // direction is one launch, reads each input once and keeps a row in
@@ -71,6 +85,8 @@ constexpr int kBwdRows = 32;      // rows of one member per backward block
 constexpr int kBwdWarps = 8;
 constexpr int kRowsPerWarp = kBwdRows / kBwdWarps;
 constexpr int kGroup = 16;        // backward blocks per first-level partial sum
+constexpr int kMinSliceChunks = 2;  // split K: chunks per block at least
+constexpr int kMaxSplits = 16;      // split K: blocks per 16-row tile at most
 constexpr int kMaxDevices = 64;
 
 // ROWS rows of one member per forward block: 32, or 16 where 32-row blocks
@@ -131,10 +147,27 @@ struct FwdArgs {
   float* h;  // null: h, mean and rstd are not stored
   float* mean;
   float* rstd;
+  float* partial;  // split K: [tile][split][ROWS * D] accumulators
+  int* counters;   // split K: a ticket per tile, zero between launches
   int rows, k;
   float eps;
   bool x_vec, w_vec;  // 16-byte copies allowed
 };
+
+// True in the block that arrives last of `expected` at `counter`, which it
+// resets; the partials written before the call are visible to it.
+__device__ __forceinline__ bool arrive_last(int* counter, int expected) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == expected - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
 
 // Stage one K-chunk of the block's x rows and of W into shared memory.
 template <int D, bool KD, int ROWS>
@@ -221,13 +254,17 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
 
-  // kStages - 1 chunks in flight: one commit group per chunk (empty past
-  // the last), chunk c in stage c % kStages
-  const int chunks = (a.k + kChunk - 1) / kChunk;
+  // this block's slice of the K-chunks (all of them unless K is split):
+  // kStages - 1 chunks in flight, one commit group per chunk (empty past
+  // the last), the slice's chunk c in stage c % kStages
+  const int all_chunks = (a.k + kChunk - 1) / kChunk;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int first = (int)((int64_t)all_chunks * split / splits);
+  const int chunks = (int)((int64_t)all_chunks * (split + 1) / splits) - first;
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < chunks)
-      load_chunk<D, KD, ROWS>(a, x, w, row0, c * kChunk, xs0 + c * Tile::kXStage,
+      load_chunk<D, KD, ROWS>(a, x, w, row0, (first + c) * kChunk, xs0 + c * Tile::kXStage,
                         ws0 + c * Tile::kWStage);
     cp_async_commit();
   }
@@ -236,7 +273,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
     __syncthreads();  // chunk c landed for every thread; chunk c - 1 is consumed
     const int next = c + kStages - 1;
     if (next < chunks)
-      load_chunk<D, KD, ROWS>(a, x, w, row0, next * kChunk, xs0 + (next % kStages) * Tile::kXStage,
+      load_chunk<D, KD, ROWS>(a, x, w, row0, (first + next) * kChunk,
+                        xs0 + (next % kStages) * Tile::kXStage,
                         ws0 + (next % kStages) * Tile::kWStage);
     cp_async_commit();
     const float* xs = xs0 + (c % kStages) * Tile::kXStage;
@@ -283,6 +321,37 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
     }
   }
   cp_async_wait<0>();
+
+  if (splits > 1) {  // split K: the last block of the tile adds the slices in order
+    constexpr int kThreads = kFwdWarps * 32, kAcc = kMT * kNT * 4;  // kThreads * kAcc = ROWS * D
+    const int64_t tile = (int64_t)e * gridDim.x + blockIdx.x;
+    float* mine = a.partial + (tile * splits + split) * kAcc * kThreads + threadIdx.x;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          __stcg(mine + ((mt * kNT + nt) * 4 + q) * kThreads, acc[mt][nt][q]);
+    if (!arrive_last(a.counters + tile, splits)) return;
+    const float* slices = a.partial + tile * splits * kAcc * kThreads + threadIdx.x;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float* slice = slices + (int64_t)s * kAcc * kThreads;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[mt][nt][q] += __ldcg(slice + ((mt * kNT + nt) * 4 + q) * kThreads);
+    }
+  }
 
   // epilogue: acc[mt][nt][2 * half + j] is row mt * 16 + g + 8 * half,
   // column n0 + nt * 8 + 2 * t + j
@@ -398,21 +467,6 @@ struct BwdArgs {
   float* dbias;  // [members][D]
   int* counters;  // 1 + members + members * groups, zero between launches
 };
-
-// True in the block that arrives last of `expected` at `counter`, which it
-// resets; the partials written before the call are visible to it.
-__device__ __forceinline__ bool arrive_last(int* counter, int expected) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(counter, 1) == expected - 1;
-    if (last) *counter = 0;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
 
 // store(i, sum over s < n of src[s * width + i]) for i < width, the sum taken
 // in order of s, by the whole block
@@ -552,7 +606,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32) dense_ln_tanh_bwd_kernel(const
 }
 
 template <int D, bool KD, int ROWS>
-int launch_forward(const FwdArgs& a, int members, int device, cudaStream_t stream) {
+int launch_forward(const FwdArgs& a, int members, int splits, int device, cudaStream_t stream) {
   static bool attribute_set[kMaxDevices] = {};
   constexpr int smem = FwdTile<D, KD, ROWS>::kSmemBytes;
   if (!attribute_set[device]) {
@@ -561,18 +615,20 @@ int launch_forward(const FwdArgs& a, int members, int device, cudaStream_t strea
     if (err != cudaSuccess) return (int)err;
     attribute_set[device] = true;
   }
-  const dim3 grid((unsigned)((a.rows + ROWS - 1) / ROWS), (unsigned)members);
+  const dim3 grid((unsigned)((a.rows + ROWS - 1) / ROWS), (unsigned)members, (unsigned)splits);
   dense_ln_tanh_fwd_kernel<D, KD, ROWS><<<grid, kFwdWarps * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// 32-row blocks where they fill every SM, else 16-row ones. A block's time
-// is set by its mma.sync rate and its W traffic from L2, both per SM, and
-// not by the depth of the copy pipeline: spreading a call over more SMs
-// helps where 32-row blocks leave SMs idle, and costs W traffic where they
-// fill the card several times over.
+// 32-row blocks where they fill every SM, else 16-row ones, and those split
+// along K where they too leave SMs idle (and scratch and tickets allow). A
+// block's time is set by its mma.sync rate and its W traffic from L2, both
+// per SM, and not by the depth of the copy pipeline: spreading a call over
+// more SMs helps where 32-row blocks leave SMs idle, and costs W traffic
+// where they fill the card several times over.
 template <bool KD>
-int forward_for_layout(const FwdArgs& a, int members, int d, cudaStream_t stream) {
+int forward_for_layout(const FwdArgs& a, int members, int d, long long n_partial,
+                       int n_counters, cudaStream_t stream) {
   static int sms[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -583,13 +639,22 @@ int forward_for_layout(const FwdArgs& a, int members, int d, cudaStream_t stream
     if (err != cudaSuccess) return (int)err;
   }
   const bool wide = (int64_t)members * ((a.rows + 31) / 32) >= sms[device];
+  int splits = 1;
+  if (!wide && a.partial != nullptr) {
+    const int64_t tiles = (int64_t)members * ((a.rows + 15) / 16);
+    const int chunks = (a.k + kChunk - 1) / kChunk;
+    int64_t s = sms[device] / tiles;
+    if (s > chunks / kMinSliceChunks) s = chunks / kMinSliceChunks;
+    if (s > kMaxSplits) s = kMaxSplits;
+    if (s > 1 && tiles <= n_counters && tiles * s * 16 * d <= n_partial) splits = (int)s;
+  }
   switch (d * 2 + wide) {
-    case 128: return launch_forward<64, KD, 16>(a, members, device, stream);
-    case 129: return launch_forward<64, KD, 32>(a, members, device, stream);
-    case 256: return launch_forward<128, KD, 16>(a, members, device, stream);
-    case 257: return launch_forward<128, KD, 32>(a, members, device, stream);
-    case 512: return launch_forward<256, KD, 16>(a, members, device, stream);
-    case 513: return launch_forward<256, KD, 32>(a, members, device, stream);
+    case 128: return launch_forward<64, KD, 16>(a, members, splits, device, stream);
+    case 129: return launch_forward<64, KD, 32>(a, members, 1, device, stream);
+    case 256: return launch_forward<128, KD, 16>(a, members, splits, device, stream);
+    case 257: return launch_forward<128, KD, 32>(a, members, 1, device, stream);
+    case 512: return launch_forward<256, KD, 16>(a, members, splits, device, stream);
+    case 513: return launch_forward<256, KD, 32>(a, members, 1, device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -621,15 +686,19 @@ const char* serl_dense_ln_tanh_error_string(int err) {
 // (x_member_stride 0: shared by the members); w: member e at
 // w + e * w_member_stride, (K, D) row-major if w_layout_kd else (D, K)
 // row-major; bias: D floats at bias + e * bias_member_stride; y (and h if
-// not null): (members, rows, D); mean, rstd: (members, rows).
+// not null): (members, rows, D); mean, rstd: (members, rows). partial
+// (n_partial floats) and counters (n_counters ints, all zero: each launch
+// leaves them so) let the kernel split K; with partial null it does not.
 int serl_dense_ln_tanh_forward(const float* x, long long x_member_stride, long long x_row_stride,
                                const float* w, long long w_member_stride, int w_layout_kd,
                                const float* bias, long long bias_member_stride,
                                const float* gamma, const float* beta, float* y, float* h,
                                float* mean, float* rstd, int members, int rows, int k, int d,
-                               float eps, void* stream) {
+                               float eps, float* partial, long long n_partial, int* counters,
+                               int n_counters, void* stream) {
   if (members <= 0 || members > 65535 || rows < 0 || k <= 0) return (int)cudaErrorInvalidValue;
   if (h != nullptr && (mean == nullptr || rstd == nullptr)) return (int)cudaErrorInvalidValue;
+  if (partial != nullptr && counters == nullptr) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   FwdArgs a;
   a.x = x;
@@ -645,14 +714,18 @@ int serl_dense_ln_tanh_forward(const float* x, long long x_member_stride, long l
   a.h = h;
   a.mean = mean;
   a.rstd = rstd;
+  a.partial = partial;
+  a.counters = counters;
   a.rows = rows;
   a.k = k;
   a.eps = eps;
   a.x_vec = aligned16(x) && k % 4 == 0 && x_row_stride % 4 == 0 && x_member_stride % 4 == 0;
   a.w_vec = aligned16(w) && (w_layout_kd ? d % 4 == 0 : k % 4 == 0) && w_member_stride % 4 == 0;
   if (!aligned16(y) || (h != nullptr && !aligned16(h))) return (int)cudaErrorInvalidValue;
-  return w_layout_kd ? forward_for_layout<true>(a, members, d, (cudaStream_t)stream)
-                     : forward_for_layout<false>(a, members, d, (cudaStream_t)stream);
+  return w_layout_kd ? forward_for_layout<true>(a, members, d, n_partial, n_counters,
+                                                (cudaStream_t)stream)
+                     : forward_for_layout<false>(a, members, d, n_partial, n_counters,
+                                                 (cudaStream_t)stream);
 }
 
 // dy, y, h, dh: (members, rows, D); mean, rstd: (members, rows). With

@@ -4,8 +4,11 @@ Port of `serl_tpu/data/demos.py`: roll a (scripted or learned) policy out
 over N lockstep envs and return a flat transitions dict, keep the
 successful episodes, save and load them, and turn them into a write-once
 demo ring for RLPD's `sample_mixed`. The pickle holds numpy arrays, so a
-demo file written by the JAX package loads here, and the reverse. State
-observations only: pixel demos and `collect_state_bank` are not ported yet.
+demo file written by the JAX package loads here, and the reverse.
+Observations are the flat state vector, or with `pixel_obs=True` the SERL
+pixel dict {"state": (7,), "<camera>": (H, W, 3) uint8} (`serl_obs`), each
+frame rendered by the env (K2) and kept on its device: nothing here copies
+a frame to the host. `collect_state_bank` is not ported yet.
 """
 
 import pickle
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from serl_tpu_torch.envs.panda_pick import PandaPickCubeEnv, flatten_obs
+from serl_tpu_torch.envs.wrappers import serl_obs
 
 
 def _map(fn, tree):
@@ -35,9 +39,9 @@ def collect_episodes(env: PandaPickCubeEnv, policy_fn: Callable, generator: torc
     `auto_reset=False`: one fixed-length episode per stream, ep_ids the
     stream index. `auto_reset=True`: ended episodes are replaced by fresh
     ones within the stream, whose rows carry ep_id * num_episodes + stream,
-    and next_observations is the pre-reset observation."""
-    if pixel_obs:
-        raise NotImplementedError("pixel demos are not ported yet")
+    and next_observations is the pre-reset observation. `pixel_obs=True`
+    (an env with `image_obs`): observations in `serl_obs`' layout."""
+    to_obs = serl_obs if pixel_obs else flatten_obs
     states, obs = env.reset(num_episodes, generator)
     streams = torch.arange(num_episodes, dtype=torch.int32, device=env.device)
     steps = []
@@ -46,14 +50,14 @@ def collect_episodes(env: PandaPickCubeEnv, policy_fn: Callable, generator: torc
         if auto_reset:
             new_states, next_obs, rew, done, info = env.step_auto_reset(states, actions,
                                                                          generator=generator)
-            stored_next = flatten_obs(info["final_obs"])
+            stored_next = to_obs(info["final_obs"])
             row_ep = states.ep_id * num_episodes + streams
         else:
             new_states, next_obs, rew, done, info = env.step(states, actions)
-            stored_next = flatten_obs(next_obs)
+            stored_next = to_obs(next_obs)
             row_ep = streams
         steps.append({
-            "observations": flatten_obs(obs),
+            "observations": to_obs(obs),
             "actions": actions,
             "next_observations": stored_next,
             "rewards": rew,
@@ -64,10 +68,17 @@ def collect_episodes(env: PandaPickCubeEnv, policy_fn: Callable, generator: torc
         })
         states, obs = new_states, next_obs
     # (T, N, ...) -> (N * T, ...), stream-major
-    out = {k: torch.stack([s[k] for s in steps], 1).flatten(0, 1) for k in steps[0]}
+    out = _map_steps(lambda xs: torch.stack(xs, 1).flatten(0, 1), steps)
     if not auto_reset:
         out["ep_ids"] = streams.repeat_interleave(episode_len)
     return out
+
+
+def _map_steps(fn, steps):
+    """fn over the list of each leaf's per-step values, for nested dicts."""
+    if isinstance(steps[0], dict):
+        return {k: _map_steps(fn, [s[k] for s in steps]) for k in steps[0]}
+    return fn(steps)
 
 
 def _tensors(transitions: Dict) -> Dict:

@@ -27,8 +27,11 @@ Two implementations of each direction sit side by side:
     tensors, or raise, counting their launches in `.launches`. The source
     says what bounds them and how the design meets it: the forward is a
     3xTF32 tensor-core product with the LayerNorm and tanh in its epilogue;
-    the backward writes dh and, with weight grads, dgamma, dbeta and the
-    Dense's dbias per member, summed in a fixed order in the same launch.
+    where the row blocks leave SMs idle (few rows, or the ResNet heads'
+    K = 4,096) the forward splits K over several blocks a row tile and the
+    last of them adds their partials in a fixed order; the backward writes
+    dh and, with weight grads, dgamma, dbeta and the Dense's dbias per
+    member, summed in a fixed order in the same launch.
 The backward's two matrix products, dW = x^T dh and dx = dh W^T (summed over
 the members for a shared input), stay torch.matmul / torch.bmm, as the JAX
 package leaves them to XLA.
@@ -37,10 +40,11 @@ The host path is kept short, since at the main path's sizes a call's host
 time is larger than its device time: shape and type checks only, the outputs
 from one `torch.empty`, the current stream, a device context only for a
 tensor off the current device. Under no_grad (the target critic, the next
-actions, acting) the forward stores only y. The backward's tickets use one
-zeroed int32 counter array per device, which each launch leaves zeroed; two
-backward launches must not run at once on one device (the port uses one
-stream).
+actions, acting) the forward stores only y. The tickets of the backward and
+of the split forward use one zeroed int32 counter array per device, which
+each launch leaves zeroed, and the split forward one scratch buffer per
+device: two K5 launches must not run at once on one device (the port uses
+one stream).
 """
 
 from __future__ import annotations
@@ -52,7 +56,12 @@ import torch
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 SUPPORTED_D = (64, 128, 256)  # the kernels' LayerNorm widths
-N_COUNTERS = 1 << 14  # backward tickets per device: 1 + E + E * groups of 16 row tiles
+# When a set, every `dense_layer_norm_tanh` call adds its (form, E, M, K, D)
+# ("linear", "shared" or "member", as `member_views` reads them), and every
+# backward through one adds (form, E, M, K, D, weight grads, dx): how a
+# caller learns the shapes that a run gives K5.
+shape_log = None
+N_COUNTERS = 1 << 14  # tickets per device: backward 1 + E + E * groups; split forward a tile
 
 
 def member_views(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, member_inputs: bool):
@@ -110,7 +119,8 @@ def _library():
     lib = load_library("dense_layer_norm_tanh")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.serl_dense_ln_tanh_forward.argtypes = [
-        p, i64, i64, p, i64, i32, p, i64, p, p, p, p, p, p, i32, i32, i32, i32, ctypes.c_float, p]
+        p, i64, i64, p, i64, i32, p, i64, p, p, p, p, p, p, i32, i32, i32, i32, ctypes.c_float,
+        p, i64, p, i32, p]
     lib.serl_dense_ln_tanh_forward.restype = i32
     lib.serl_dense_ln_tanh_backward.argtypes = [p] * 7 + [i32] * 3 + [p] * 5 + [i32, p]
     lib.serl_dense_ln_tanh_backward.restype = i32
@@ -122,6 +132,7 @@ def _library():
 
 
 _COUNTERS = {}
+_PARTIAL = {}
 
 
 def _counters(device: torch.device) -> torch.Tensor:
@@ -130,6 +141,16 @@ def _counters(device: torch.device) -> torch.Tensor:
         counters = _COUNTERS[device.index] = torch.zeros(N_COUNTERS, dtype=torch.int32,
                                                          device=device)
     return counters
+
+
+def _partial(device: torch.device) -> torch.Tensor:
+    """The split forward's scratch: a wave of 16-row tiles' accumulators at
+    the widest D (the kernel splits no further than it holds)."""
+    partial = _PARTIAL.get(device.index)
+    if partial is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        partial = _PARTIAL[device.index] = torch.empty(sms * 16 * max(SUPPORTED_D), device=device)
+    return partial
 
 
 def _launch(device: torch.device, call) -> None:
@@ -190,11 +211,12 @@ def dense_layer_norm_tanh_forward(x3, w3, b2, ln_weight, ln_bias, save=False):
         y, h, mean, rstd = torch.empty((e, m, d), device=device), None, None, None
         h_ptr = mean_ptr = rstd_ptr = None
     lib = _library()[0]
+    partial = _partial(device)
     _launch(device, lambda stream: lib.serl_dense_ln_tanh_forward(
         x3.data_ptr(), sx[0] if ex > 1 else 0, sx[1], w3.data_ptr(), sw[0] if e > 1 else 0,
         layout_kd, b2.data_ptr(), sb[0] if e > 1 else 0, ln_weight.data_ptr(),
         ln_bias.data_ptr(), y.data_ptr(), h_ptr, mean_ptr, rstd_ptr, e, m, k, d, LAYER_NORM_EPS,
-        stream))
+        partial.data_ptr(), partial.numel(), _counters(device).data_ptr(), N_COUNTERS, stream))
     dense_layer_norm_tanh_forward.launches += 1
     return y, h, mean, rstd
 
@@ -245,6 +267,17 @@ def dense_layer_norm_tanh_backward(dy, y, h, mean, rstd, ln_weight, need_weight_
 dense_layer_norm_tanh_backward.launches = 0
 
 
+def call_shape(x: torch.Tensor, kernel: torch.Tensor, member_inputs: bool) -> tuple:
+    """(form, E, M, K, D) of a `dense_layer_norm_tanh` call."""
+    k = x.shape[-1]
+    if kernel.dim() == 2:
+        return ("linear", 1, x.numel() // k, k, kernel.shape[0])
+    e, _, d = kernel.shape
+    if member_inputs:
+        return ("member", e, x.numel() // (k * e), k, d)
+    return ("shared", e, x.numel() // k, k, d)
+
+
 class _DenseLayerNormTanh(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, bias, ln_weight, ln_bias, member_inputs):
@@ -252,12 +285,15 @@ class _DenseLayerNormTanh(torch.autograd.Function):
         y, h, mean, rstd = dense_layer_norm_tanh_forward(x3, w3, b2, ln_weight, ln_bias, save=True)
         ctx.save_for_backward(x3, w3, y, h, mean, rstd, ln_weight)
         ctx.x_shape, ctx.linear, ctx.member_inputs = x.shape, kernel.dim() == 2, member_inputs
+        ctx.call_shape = None if shape_log is None else call_shape(x, kernel, member_inputs)
         return y.view(out_shape)
 
     @staticmethod
     def backward(ctx, dy):
         x3, w3, y, h, mean, rstd, ln_weight = ctx.saved_tensors
         need_x, need_w, need_b, need_gamma, need_beta, _ = ctx.needs_input_grad
+        if shape_log is not None and ctx.call_shape is not None:
+            shape_log.add(ctx.call_shape + (need_w or need_b or need_gamma or need_beta, need_x))
         dh, dgamma, dbeta, dbias = dense_layer_norm_tanh_backward(
             dy.contiguous().view(y.shape), y, h, mean, rstd, ln_weight,
             need_weight_grads=need_w or need_b or need_gamma or need_beta)
@@ -287,6 +323,8 @@ def dense_layer_norm_tanh(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
     1e-6, for the three input forms of the module docstring; differentiable
     in every tensor. Without autograd (no_grad, or no input that needs a
     grad) the forward stores only y."""
+    if shape_log is not None:
+        shape_log.add(call_shape(x, kernel, member_inputs))
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad or bias.requires_grad
                                     or ln_weight.requires_grad or ln_bias.requires_grad):
         return _DenseLayerNormTanh.apply(x, kernel, bias, ln_weight, ln_bias, member_inputs)

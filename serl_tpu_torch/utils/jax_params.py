@@ -11,7 +11,11 @@ The JAX agent's params are a nested dict
                                            "LayerNorm_i": {scale, bias}},
                          "EnsembleDense_0": {kernel, bias}}},
      "temperature": {"raw": ()}}
-whose leaves are numpy arrays here (this module never imports JAX). Dense
+whose leaves are numpy arrays here (this module never imports JAX). A ResNet
+camera encoder carries flax's ResNet names instead of Conv_i (`resnet_pairs`):
+"resnet" {"conv_init", "norm_init", "ResNetBlock_i", "SpatialLearnedEmbeddings_0",
+"Dense_0", "LayerNorm_0"}, "resnet-pretrained" the same with the backbone
+under "pretrained_encoder". Dense
 kernels (in, out) become Linear weights (out, in); conv kernels (H, W, in,
 out) become Conv2d weights (out, in, H, W); LayerNorm `scale` becomes
 `weight`; ensemble kernels keep their (E, in, out) layout. These are the
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
+from serl_tpu_torch.vision.encoders import PreTrainedResNetEncoder, ResNetEncoder
 
 
 def _to_torch(value: torch.Tensor, layout) -> torch.Tensor:
@@ -62,6 +67,57 @@ def _norm(path, norm):
     return [(path + ("scale",), norm.weight, None), (path + ("bias",), norm.bias, None)]
 
 
+def _head_pairs(prefix, enc):
+    """The pooling head's and the bottleneck's parameters of an encoder."""
+    out = []
+    pool = enc.pool
+    if pool is not None and pool.embeddings is not None:
+        out.append((prefix + ("SpatialLearnedEmbeddings_0", "kernel"), pool.embeddings.kernel,
+                    None))
+    softmax = None if pool is None else pool.softmax
+    if softmax is not None and softmax.softmax_temperature is not None:
+        out.append((prefix + ("SpatialSoftmax_0", "softmax_temperature"),
+                    pool.softmax.softmax_temperature, None))
+    if enc.bottleneck is not None:
+        out += _dense(prefix + ("Dense_0",), enc.bottleneck.dense)
+        out += _norm(prefix + ("LayerNorm_0",), enc.bottleneck.norm)
+    return out
+
+
+def resnet_pairs(enc, prefix=()):
+    """(flax path, tensor, layout) of a `ResNetEncoder`'s parameters, under
+    flax's names: conv_init, norm_init, ResNetBlock_i with Conv_j,
+    GroupNorm_j (or LayerNorm_j), conv_proj, norm_proj; then the pooling
+    head and the bottleneck."""
+    norm = "GroupNorm" if enc.norm_kind == "group" else "LayerNorm"
+    out = [(prefix + ("conv_init", "kernel"), enc.conv_init.weight, "HWIO")]
+    out += _norm(prefix + ("norm_init",), enc.norm_init)
+    for i, block in enumerate(enc.blocks):
+        bp = prefix + (f"ResNetBlock_{i}",)
+        for j, (conv, nrm) in enumerate(zip(block.convs, block.norms)):
+            out += [(bp + (f"Conv_{j}", "kernel"), conv.weight, "HWIO")]
+            out += _norm(bp + (f"{norm}_{j}",), nrm)
+        if block.conv_proj is not None:
+            out += [(bp + ("conv_proj", "kernel"), block.conv_proj.weight, "HWIO")]
+            out += _norm(bp + ("norm_proj",), block.norm_proj)
+    return out + _head_pairs(prefix, enc)
+
+
+def _camera_pairs(prefix, enc):
+    """One camera encoder's parameters: SmallEncoder, ResNetEncoder or
+    PreTrainedResNetEncoder."""
+    if isinstance(enc, ResNetEncoder):
+        return resnet_pairs(enc, prefix)
+    if isinstance(enc, PreTrainedResNetEncoder):
+        return (resnet_pairs(enc.pretrained_encoder, prefix + ("pretrained_encoder",))
+                + _head_pairs(prefix, enc))
+    out = []
+    for i, conv in enumerate(enc.convs):
+        out += [(prefix + (f"Conv_{i}", "kernel"), conv.weight, "HWIO"),
+                (prefix + (f"Conv_{i}", "bias"), conv.bias, None)]
+    return out + _head_pairs(prefix, enc)
+
+
 def _encoder_pairs(encoder, root=("critic", "encoder")):
     """(jax path, tensor, layout) of an ObsEncoder's parameters."""
     out, seen = [], set()
@@ -70,13 +126,7 @@ def _encoder_pairs(encoder, root=("critic", "encoder")):
         if id(enc) in seen:
             continue
         seen.add(id(enc))
-        prefix = root + (f"encoders_{key}",)
-        for i, conv in enumerate(enc.convs):
-            out += [(prefix + (f"Conv_{i}", "kernel"), conv.weight, "HWIO"),
-                    (prefix + (f"Conv_{i}", "bias"), conv.bias, None)]
-        if enc.bottleneck is not None:
-            out += _dense(prefix + ("Dense_0",), enc.bottleneck.dense)
-            out += _norm(prefix + ("LayerNorm_0",), enc.bottleneck.norm)
+        out += _camera_pairs(root + (f"encoders_{key}",), enc)
     if encoder.proprio is not None:
         out += _dense(root + ("Dense_0",), encoder.proprio)
         out += _norm(root + ("LayerNorm_0",), encoder.proprio_norm)
@@ -112,11 +162,11 @@ def _pairs(agent: SACAgent):
     return out
 
 
-def load_encoder_params(encoder, tree: Dict):
-    """Copy flax `ObsEncoder` params `tree` (numpy leaves) into the port's
-    ObsEncoder `encoder` (in place)."""
+def load_pairs(pairs, tree: Dict):
+    """Copy the leaves of the flax tree `tree` (numpy) into the tensors of
+    `pairs` ((path, tensor, layout), e.g. from `resnet_pairs`), in place."""
     with torch.no_grad():
-        for path, tensor, layout in _encoder_pairs(encoder, root=()):
+        for path, tensor, layout in pairs:
             node = tree
             for key in path:
                 node = node[key]
@@ -125,6 +175,12 @@ def load_encoder_params(encoder, tree: Dict):
                 raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}, "
                                  f"port expects {tuple(tensor.shape)}")
             tensor.copy_(value)
+
+
+def load_encoder_params(encoder, tree: Dict):
+    """Copy flax `ObsEncoder` params `tree` (numpy leaves) into the port's
+    ObsEncoder `encoder` (in place)."""
+    load_pairs(_encoder_pairs(encoder, root=()), tree)
     return encoder
 
 
@@ -132,16 +188,7 @@ def load_sac_params(agent: SACAgent, params_np: Dict) -> SACAgent:
     """Copy the JAX-layout params `params_np` into `agent` (in place)."""
     if params_np["critic"].get("encoder") and agent.encoder is None:
         raise ValueError("state agents have no encoder params")
-    with torch.no_grad():
-        for path, tensor, layout in _pairs(agent):
-            node = params_np
-            for key in path:
-                node = node[key]
-            value = _to_torch(torch.from_numpy(np.array(node, np.float32)), layout)
-            if value.shape != tensor.shape:
-                raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}, "
-                                 f"port expects {tuple(tensor.shape)}")
-            tensor.copy_(value)
+    load_pairs(_pairs(agent), params_np)
     return agent
 
 

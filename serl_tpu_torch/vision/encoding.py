@@ -10,7 +10,15 @@ concatenation camera features in `image_keys` order, then proprio.
 encoder module serves every camera (the images are then stacked on the
 batch axis and run through it once). The DrQ factory defaults it to True,
 which with separate per-camera encoders changes nothing (an inherited
-quirk). The goal- and language-conditioned encoders are not ported yet.
+quirk).
+
+`train` and the dropout keep-masks ({image key: (B, F) bool}, for the keys
+whose encoder pools with learned spatial embeddings; `dropout_shapes` gives
+their shapes) go to each camera's encoder; with one encoder shared and the cameras
+stacked, it takes the first key's mask for the stacked batch, as flax's one
+call draws one. Not ported yet: `is_encoded` (a head over given feature
+maps) and the goal- and language-conditioned encoders, which nothing on the
+port's paths calls.
 """
 
 from __future__ import annotations
@@ -64,19 +72,34 @@ class ObsEncoder(nn.Module):
             self.proprio_norm = nn.LayerNorm(proprio_latent_dim, eps=LAYER_NORM_EPS)
             self.out_features += proprio_latent_dim
 
-    def forward(self, observations: Dict) -> torch.Tensor:
+    def dropout_shapes(self, rows: int) -> Dict[str, tuple]:
+        """{image key: shape of the dropout mask its encoder draws in train
+        mode for a batch of `rows`}; empty when no encoder has dropout (the
+        SmallEncoder's "avg" pooling)."""
+        widths = {k: self.encoders[k].dropout_features for k in self.image_keys
+                  if getattr(self.encoders[k], "dropout_features", 0)}
+        if widths and self._stacks_cameras():
+            key = self.image_keys[0]
+            return {key: (rows * len(self.image_keys), widths[key])}
+        return {k: (rows, f) for k, f in widths.items()}
+
+    def _stacks_cameras(self) -> bool:
+        return (self.shared_batch_concat and len(self.image_keys) > 1
+                and len({id(self.encoders[k]) for k in self.image_keys}) == 1)
+
+    def forward(self, observations: Dict, train: bool = False,
+                dropout: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         images = observations.get("images", observations)
+        dropout = dropout or {}
         imgs = [fold_stack(images[k]) if self.enable_stacking else images[k]
                 for k in self.image_keys]
-        shared = (self.shared_batch_concat and len(self.image_keys) > 1
-                  and len({id(self.encoders[k]) for k in self.image_keys}) == 1
-                  and imgs[0].dim() == 4)
-        if shared:
-            feats = self.encoders[self.image_keys[0]](torch.cat(imgs, 0))
+        if self._stacks_cameras() and imgs[0].dim() == 4:
+            key = self.image_keys[0]
+            feats = self.encoders[key](torch.cat(imgs, 0), train=train, dropout=dropout.get(key))
             encoded = torch.cat(torch.chunk(feats, len(self.image_keys), 0), -1)
         else:
-            encoded = torch.cat([self.encoders[k](img) for k, img in zip(self.image_keys, imgs)],
-                                -1)
+            encoded = torch.cat([self.encoders[k](img, train=train, dropout=dropout.get(k))
+                                 for k, img in zip(self.image_keys, imgs)], -1)
         if self.use_proprio:
             state = observations["state"]
             if isinstance(state, dict):

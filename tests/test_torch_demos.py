@@ -168,8 +168,6 @@ def test_torch_collect_episodes_fixed_length_replays_through_jax():
                                  episode_len=steps)
     assert _replay(trs, seen, steps, auto_reset=False) == 0
     np.testing.assert_array_equal(trs["ep_ids"].numpy(), np.repeat(np.arange(N), steps))
-    with pytest.raises(NotImplementedError):
-        demos.collect_episodes(env, policy, torch.Generator(), N, pixel_obs=True)
 
 
 EPISODES, LEN = 5, 4

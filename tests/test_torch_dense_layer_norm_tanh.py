@@ -206,6 +206,33 @@ def test_torch_dense_layer_norm_tanh_constants_give_dx_only():
     assert all(c.grad is None for c in consts)
 
 
+def test_torch_dense_layer_norm_tanh_shape_log_names_each_call():
+    """With `shape_log` set, each call adds its (form, E, M, K, D) and each
+    backward that signature with (weight grads, dx); unset, nothing is kept."""
+    try:
+        k5.shape_log = set()
+        for form in ("linear", "shared", "member"):
+            x, kernel, bias, gamma, beta, dy = _dense_inputs(form, 14, 64, seed=6)
+            args = _port_args(form, x, kernel, bias, gamma, beta)
+            args[0].requires_grad_(form != "linear")
+            if form == "member":
+                for a in args[1:]:
+                    a.requires_grad_(False)
+            y = k5.dense_layer_norm_tanh(*args, member_inputs=form == "member")
+            (y * torch.from_numpy(dy)).sum().backward()
+            with torch.no_grad():
+                k5.dense_layer_norm_tanh(*args, member_inputs=form == "member")
+        m = int(np.prod(LEAD))
+        assert k5.shape_log == {("linear", 1, m, 14, 64), ("shared", E, m, 14, 64),
+                                ("member", E, m, 14, 64), ("linear", 1, m, 14, 64, True, False),
+                                ("shared", E, m, 14, 64, True, True),
+                                ("member", E, m, 14, 64, False, True)}
+    finally:
+        k5.shape_log = None
+    k5.dense_layer_norm_tanh(*_port_args("linear", *_dense_inputs("linear", 14, 64, seed=6)[:5]))
+    assert k5.shape_log is None
+
+
 def test_torch_dense_layer_norm_tanh_rejects_what_the_kernels_do_not_take():
     x, kernel, bias, gamma, beta, _ = _dense_inputs("shared", 14, 64, seed=4)
     x3, w3, b2, _ = k5.member_views(*(torch.from_numpy(a) for a in (x, kernel, bias)), False)
@@ -229,18 +256,23 @@ def test_torch_dense_layer_norm_tanh_kernels_match_plain_on_card():
     g = torch.Generator(device="cuda").manual_seed(5)
     for form, e, m, k, d in [("shared", 10, 256, 14, 256), ("member", 10, 256, 256, 256),
                              ("linear", 1, 2048, 10, 256), ("linear", 1, 256, 7, 64),
-                             ("shared", 10, 256, 580, 256), ("member", 3, 33, 33, 128)]:
+                             ("shared", 10, 256, 580, 256), ("member", 3, 33, 33, 128),
+                             # split along K: few row tiles, deep K
+                             ("linear", 1, 256, 4096, 256), ("linear", 1, 16, 576, 256),
+                             ("shared", 3, 20, 1000, 64)]:
         x, kernel, bias, gamma, beta, dy = torch_k5.inputs(form, e, m, k, d, g, "cuda")
         x3, w3, b2, _ = k5.member_views(x, kernel, bias, form == "member")
         fwd, bwd = (k5.dense_layer_norm_tanh_forward.launches,
                     k5.dense_layer_norm_tanh_backward.launches)
         out = k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta, save=True)
         assert not torch_k5.failures(*torch_k5.forward_errors(x3, w3, b2, gamma, beta, *out))
+        y_only = k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta)[0]
+        assert torch.equal(y_only, out[0])  # a split K's partials add in a fixed order
         py, ph, pmean, prstd = k5.dense_layer_norm_tanh_forward_plain(x3, w3, b2, gamma, beta)
         grads = k5.dense_layer_norm_tanh_backward(dy, py, ph, pmean, prstd, gamma)
         again = k5.dense_layer_norm_tanh_backward(dy, py, ph, pmean, prstd, gamma)
         assert (k5.dense_layer_norm_tanh_forward.launches,
-                k5.dense_layer_norm_tanh_backward.launches) == (fwd + 1, bwd + 2)
+                k5.dense_layer_norm_tanh_backward.launches) == (fwd + 2, bwd + 2)
         assert not torch_k5.failures(*torch_k5.backward_errors(dy, py, ph, pmean, prstd, gamma,
                                                                *grads))
         for got, rep in zip(grads[1:], again[1:]):
