@@ -22,7 +22,10 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      and a 100-step kernel-vs-plain rollout, under the tolerance rule of
      tests/torch_k1.py; two more launches on each input, at N = 2048 a
      launch on its first 101 envs and at N = 128 launches on its first 30
-     and 32 (the RLPD path's widths), equal bit for bit; K2 (both -fmad builds)
+     and 32 (the RLPD path's widths), equal bit for bit; K1 also at pose-task
+     inputs (the peg env's settled resets with their per-env yaw, and after
+     10 noisy pose-expert steps through the Euler box) at N = 16 and 2048,
+     under the same rule; K2 (both -fmad builds)
      at N = 16 and 128, 128 px, on rollout and grasp states (cube in the
      wrist camera's view) under the pixel rule of tests/torch_k2.py (failing
      the phase for the shipped build only), its scene rows (the kernel's
@@ -89,8 +92,23 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      loop's busy share; the trained ResNet: a DrQ agent with the "resnet"
      encoder (a bf16 ResNet-10 per camera, trained through the critic
      loss), 3 update_high_utd calls (batch 256 x UTD 4) on batches of the
-     ResNet path's ring, every parameter moving, the backbones' included.
-     Around each path
+     ResNet path's ring, every parameter moving, the backbones' included;
+     the pose-task paths: examples/fused_pcb_insert.py from states with the
+     BC term, cosine learning rates and the demo reset bank (16 envs, batch
+     256 x UTD 4, buffer 100,000): 20 auto-reset expert demo streams through
+     the pose expert (their successful episodes counted; at least 20), the
+     8-stream state bank, then run_fused with a checkpoint directory three
+     times: uninterrupted for 6 chunks of 16 iterations, paused by the pause
+     file after 4, and resumed to the end, whose loop carry must equal the
+     uninterrupted one's bit for bit in every leaf; the uninterrupted run's
+     last checkpoint restored onto a CPU agent and by eval_from_checkpoint
+     onto a card agent must equal its params; and
+     examples/fused_peg_insert.py --pixels at full width (16 envs, two 128
+     px cameras, small encoders, batch 256 x UTD 4, the 20,000-row uint8
+     ring): 20 pixel expert demo streams, a warm-up past the threshold, 3
+     timed chunks of 10 (env-steps/s and updates/s, best of 3), the busy
+     share and device ms by kernel; a pose env step launches K1 six times
+     (the step and every env's 5-step settled reset). Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -185,6 +203,21 @@ RESNET_CHUNK = 10
 RESNET_FRAMES = 32
 # the trained "resnet" encoder's update_high_utd calls on the ResNet path's ring
 RESNET_TRAINED_UPDATES = 3
+# The pose-task paths. PCB from states: examples/fused_pcb_insert.py with
+# PCB_ARGV (the BC term, cosine learning rates, the demo reset bank), run_fused
+# in POSE_CHUNKS chunks of POSE_CHUNK iterations (evaluations every
+# POSE_EVAL_PERIOD chunks), paused after POSE_PAUSE_AT and resumed; peg from
+# pixels: examples/fused_peg_insert.py --pixels, timed in chunks of
+# PEG_PIXEL_CHUNK. Their demo rings have POSE_DEMO_STREAMS streams; K1 is held
+# at pose-task inputs at POSE_K1_N envs (the loop's 16, and 2,048, whose
+# N // 100 budget covers the rare mat_to_quat sign flip at the tasks' roll of
+# pi: 2 of 2,048 envs in a CPU rehearsal with K1's host build).
+PCB_ARGV = ["--bc_weight", "0.1", "--lr_decay", "--demo_reset_prob", "0.2"]
+POSE_CHUNK, POSE_CHUNKS, POSE_PAUSE_AT, POSE_EVAL_PERIOD = 16, 6, 4, 3
+POSE_DEMO_STREAMS, POSE_DEMO_MIN_SUCCESS = 20, 20
+POSE_K1_N = (16, 2048)
+PEG_PIXEL_ARGV = ["--pixels"]
+PEG_PIXEL_CHUNK = 10
 # K2's two builds, the shipped one (nvcc's default flags) first: (label,
 # extra nvcc flags)
 K2_BUILDS = (("-fmad=true", None), ("-fmad=false", ("-fmad=false",)))
@@ -243,6 +276,23 @@ K5_SHAPES = {
     ("linear", 1, 256, 4096, 256): (True, True),
     ("linear", 1, 1024, 4096, 256): (True, True),
     ("linear", 1, 16, 4096, 256): (True, True),
+    # the pose tasks from states (13-dim observations, 7-dim actions): the
+    # critic's first layer on a minibatch and in the actor update's pass
+    # (the BC term's pass too), the policy's first layer on next actions,
+    # the actor update, acting on 16 envs and evaluating 32 episodes
+    ("shared", 10, 256, 20, 256): (True, False),
+    ("shared", 10, 1024, 20, 256): (False, True),
+    ("linear", 1, 256, 13, 256): (True, False),
+    ("linear", 1, 1024, 13, 256): (True, False),
+    ("linear", 1, 16, 13, 256): (True, False),
+    ("linear", 1, 32, 13, 256): (True, False),
+    # peg from pixels: the critic's first layer (2 x 256 + 64 + 7 = 583, an
+    # odd K: the 4-byte copy path), the 10-dim proprio Dense
+    ("shared", 10, 256, 583, 256): (True, True),
+    ("shared", 10, 1024, 583, 256): (False, True),
+    ("linear", 1, 256, 10, 64): (True, False),
+    ("linear", 1, 1024, 10, 64): (True, False),
+    ("linear", 1, 16, 10, 64): (True, False),
 }
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
@@ -2039,6 +2089,299 @@ def phase_resnet_trained(torch, device, card, rb, buf, config):
     return launches
 
 
+def _pose_run_launches(config, start: int, stop: int, evals: int, bc: bool) -> dict:
+    """Launches of one run_fused over loop iterations [start, stop) of the
+    state pose path, from its init_fn's reset, with `evals` 32-episode
+    evaluations. An env step launches K1 once, then 5 times for every env's
+    fresh reset (tasks.SETTLE_STEPS); iterations before random_steps act at
+    random, the others sample the policy (2 K5 forwards); an updating
+    iteration is one update_high_utd (the state learner's K5 calls, 2 more
+    forwards for the BC term's critic pass) on sample_mixed's halves (K4 for
+    a half that divides over its ring's streams)."""
+    from serl_tpu_torch.envs.tasks import SETTLE_STEPS
+
+    random_iters = -(-config.random_steps // config.num_envs)
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    first_update = -(-threshold // config.num_envs) - 1
+    policy = len([i for i in range(start, stop) if i >= random_iters])
+    updating = len([i for i in range(start, stop) if i >= first_update])
+    per = _pose_per_update(config, bc)
+    return {"control_step": SETTLE_STEPS + (1 + SETTLE_STEPS) * (stop - start)
+            + evals * (SETTLE_STEPS + 100),
+            "render": 0, "random_crop": 0, "replay_gather": per["replay_gather"] * updating,
+            "dense_layer_norm_tanh_fwd": 2 * policy + updating * (per["dense_layer_norm_tanh_fwd"]
+                                                                  - 2) + evals * 200,
+            "dense_layer_norm_tanh_bwd": updating * per["dense_layer_norm_tanh_bwd"]}
+
+
+def _pose_k4(config) -> int:
+    """K4 launches of one sample_mixed on the pose paths: the online half
+    divides over its 16 streams, the 20-stream demo half does not (plain)."""
+    rows = config.batch_size * config.utd_ratio
+    return (int((rows // 2) % config.num_envs == 0)
+            + int((rows - rows // 2) % POSE_DEMO_STREAMS == 0))
+
+
+def _pose_per_update(config, bc: bool) -> dict:
+    """Launches per updating iteration of the state pose path (acting included)."""
+    per = learner_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    return {**per, "control_step": 6, "replay_gather": config.updates_per_iter * _pose_k4(config),
+            "dense_layer_norm_tanh_fwd": per["dense_layer_norm_tanh_fwd"]
+            + 2 * bc * config.updates_per_iter}
+
+
+def _sum_launches(*counts) -> dict:
+    """Per kernel of launch_counters(), the sum of the partial counts."""
+    return {k: sum(c.get(k, 0) for c in counts) for k in launch_counters()}
+
+
+def _pose_pre_step_states(torch, device, n: int, g, steps: int = 10):
+    """Peg-task K1 inputs: the mocap target after `steps` noisy pose-expert
+    actions (rotations through the Euler box) from settled resets, as the
+    env hands them to the control step."""
+    from serl_tpu_torch.envs.physics import engine
+    from serl_tpu_torch.envs.tasks import PEG_INSERT_CONFIG, PandaPoseTaskEnv
+    from serl_tpu_torch.examples.fused_peg_insert import pose_expert
+
+    env = PandaPoseTaskEnv(PEG_INSERT_CONFIG, device=device)
+    expert = pose_expert(PEG_INSERT_CONFIG)
+    state = env._reset_state(env.sample_reset_draws(n, g))
+    captured, control_step = [], engine.control_step
+
+    def spy(p, obstacles=None):  # the kernel wrapper counts on the module's name
+        captured.append(p)
+        return control_step(p)
+
+    spy.launches = 0
+    engine.control_step = spy
+    try:
+        for _ in range(steps):
+            noise = 0.3 * torch.randn((n, 7), generator=g, device=device)
+            state, _ = env._apply_action(state, expert(state, noise=noise))
+    finally:
+        engine.control_step = control_step
+    return captured[0], captured[-1]
+
+
+def phase_k1_pose_vs_plain(torch, engine, checks, device) -> float:
+    """K1 against its plain version at pose-task inputs (per-env orientation
+    targets: yaw +-pi/6 on peg, roll at pi) under tests/torch_k1.py's rule,
+    at the pose paths' widths (POSE_K1_N); repeated launches equal bit for bit."""
+    g = torch.Generator(device=device).manual_seed(21)
+    worst = 0.0
+    for n in POSE_K1_N:
+        for source, s in zip(("first step after the settled reset", "after 10 expert steps"),
+                             _pose_pre_step_states(torch, device, n, g)):
+            failures, summary, _ = checks.compare_step(engine.control_step_cuda, s)
+            repeats = all(torch.equal(a, b) for a, b in zip(engine.control_step_cuda(s),
+                                                            engine.control_step_cuda(s)))
+            print(f"K1 vs plain, pose task N={n}, {source}: max abs err "
+                  f"{fmt(summary['max_err'])}; envs beyond the tight tolerance "
+                  f"{summary['envs_over_atol']} (at most {summary['budget']}); two more launches "
+                  f"equal bit for bit: {repeats}")
+            if failures:
+                raise AssertionError(f"pose N={n} {source}: " + "; ".join(failures))
+            if not repeats:
+                raise AssertionError(f"pose N={n}: K1 launches on one input differ")
+            worst = max(worst, max(summary["max_err"].values()))
+    return worst
+
+
+def phase_pcb_path(torch, device, card):
+    """examples/fused_pcb_insert.py from states with PCB_ARGV (the BC term,
+    cosine learning rates, the demo reset bank): 20 expert demo streams
+    (auto-reset, 100 steps each; the successful episodes counted), the
+    8-stream state bank, then three run_fused calls of POSE_CHUNK-iteration
+    chunks with agent checkpoints: A uninterrupted for POSE_CHUNKS chunks;
+    B paused by its pause file after POSE_PAUSE_AT chunks; C resumed from
+    B's pause checkpoint to the same end. C's loop carry must equal A's bit
+    for bit, every leaf. A's final checkpoint restored onto a CPU agent must
+    equal A's params, and eval_from_checkpoint on a fresh card agent must
+    restore them too. Launches are counted over the whole path."""
+    import tempfile
+
+    from serl_tpu_torch.common.logger import Logger
+    from serl_tpu_torch.examples import fused_pcb_insert
+    from serl_tpu_torch.training.checkpointing import CheckpointManager, flatten
+    from serl_tpu_torch.training.runner import eval_from_checkpoint, run_fused
+
+    args = fused_pcb_insert.parser().parse_args(PCB_ARGV + ["--device", str(device)])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    env, agent, rb, config, init_fn, run_chunk, demo_state, info = fused_pcb_insert.build(args)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    print(f"PCB path: {'; '.join(info['lines'])}; {info['demo_successes']} of "
+          f"{info['demo_episodes']} expert episodes succeeded; demos and bank collected in "
+          f"{demo_s:.2f} s (host clock) [{card}]")
+    if info["demo_successes"] < POSE_DEMO_MIN_SUCCESS:
+        raise AssertionError(f"only {info['demo_successes']} PCB expert episodes succeeded")
+    per_chunk = POSE_CHUNK * config.num_envs
+    total = POSE_CHUNKS * per_chunk
+    kw = dict(total_env_steps=total, chunk_iters=POSE_CHUNK, eval_period_chunks=POSE_EVAL_PERIOD,
+              eval_episodes=args.eval_episodes, seed=args.seed, demo_state=demo_state,
+              checkpoint_period_chunks=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t1 = time.perf_counter()
+        carry_a, best_a = run_fused(env, agent, rb, config, init_fn, run_chunk,
+                                    logger=Logger(debug=True), checkpoint_dir=dir_a, **kw)
+
+        def pause(log, carry):
+            if log["env_steps"] == POSE_PAUSE_AT * per_chunk:
+                open(os.path.join(dir_b, "PAUSE"), "w").close()
+
+        carry_b, _ = run_fused(env, fused_pcb_insert.make_agent(args, device), rb, config,
+                               init_fn, run_chunk, logger=Logger(debug=True),
+                               checkpoint_dir=dir_b, log_fn=pause, **kw)
+        carry_c, _ = run_fused(env, fused_pcb_insert.make_agent(args, device), rb, config,
+                               init_fn, run_chunk, logger=Logger(debug=True),
+                               checkpoint_dir=dir_b, resume=True, **kw)
+        torch.cuda.synchronize()
+        runs_s = time.perf_counter() - t1
+        want, got = flatten(carry_a), flatten(carry_c)
+        unequal = sorted(set(want) ^ set(got)) + [
+            k for k in want if k in got and not (torch.equal(got[k], want[k])
+                                                 if isinstance(want[k], torch.Tensor)
+                                                 else got[k] == want[k])]
+        print(f"PCB resume: run A {POSE_CHUNKS} chunks of {POSE_CHUNK} uninterrupted; run B "
+              f"paused at {carry_b.env_steps} env steps; run C resumed to {carry_c.env_steps}: "
+              f"{len(want)} leaves of the loop carry (params, targets, Adam moments and counts, "
+              f"env states, both rings and their cursors, the generator, counters), "
+              f"{'every one bit for bit equal' if not unequal else f'{len(unequal)} differ: {unequal[:8]}'};"
+              f" three runs in {runs_s:.2f} s [{card}]")
+        if unequal or carry_b.env_steps != POSE_PAUSE_AT * per_chunk:
+            raise AssertionError(f"the resumed PCB run differs from the uninterrupted one in "
+                                 f"{unequal[:8]}")
+        step = CheckpointManager(dir_a).latest_step()
+        cpu_agent = fused_pcb_insert.make_agent(args, "cpu")
+        CheckpointManager(dir_a).restore(step, target={"agent_params": cpu_agent.state.params})
+        live = flatten(carry_a.agent.state.params)
+        on_cpu = flatten(cpu_agent.state.params)
+        cpu_equal = live.keys() == on_cpu.keys() and all(torch.equal(on_cpu[k], live[k])
+                                                         for k in live)
+        fresh = fused_pcb_insert.make_agent(args, device)
+        _, mean = eval_from_checkpoint(env, fresh, rb, dir_a, num_episodes=args.eval_episodes)
+        restored = flatten(fresh.state.params)
+        card_equal = all(torch.equal(restored[k], live[k]) for k in live)
+        steps_a = CheckpointManager(dir_a).steps()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stop = POSE_CHUNKS * POSE_CHUNK
+    pause_stop = POSE_PAUSE_AT * POSE_CHUNK
+    bc = args.bc_weight > 0
+    want_launches = _sum_launches(
+        {"control_step": 2 * (5 + 6 * 100)},  # the demos' and the bank's resets and steps
+        _pose_run_launches(config, 0, stop, POSE_CHUNKS // POSE_EVAL_PERIOD, bc),
+        _pose_run_launches(config, 0, pause_stop, pause_stop // POSE_CHUNK // POSE_EVAL_PERIOD, bc),
+        _pose_run_launches(config, pause_stop, stop, (POSE_CHUNKS - POSE_PAUSE_AT)
+                           // POSE_EVAL_PERIOD, bc),
+        {"control_step": 5 + 100, "dense_layer_norm_tanh_fwd": 200})  # eval_from_checkpoint
+    print(f"PCB checkpoints: run A's steps {steps_a}; its step {step} restored onto a CPU agent: "
+          f"{'params equal' if cpu_equal else 'params DIFFER'}; eval_from_checkpoint on a fresh "
+          f"card agent: {'params equal' if card_equal else 'params DIFFER'}, success {mean:.3f}; "
+          f"launches over the PCB path {json.dumps(launches)} [{card}]")
+    if not (cpu_equal and card_equal and math.isfinite(mean)):
+        raise AssertionError("a restored PCB checkpoint differs from the params it saved")
+    if launches != want_launches:
+        raise AssertionError(f"expected launches {want_launches} on the PCB path, got {launches}")
+    params = list(carry_a.agent.parameters())
+    checks = {"params finite": all(bool(torch.isfinite(p).all()) for p in params),
+              "best params kept": best_a["params"] is not None,
+              "the BC term on": carry_a.agent.config.bc_regularization == 0.1,
+              "cosine learning rate": carry_a.agent.state.txs["actor"].cosine_decay_steps
+              == args.total_steps // args.num_envs}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"PCB path checks failed: {bad}")
+    return launches, _pose_per_update(config, bc), dict(demo_successes=info["demo_successes"],
+                                      demo_episodes=info["demo_episodes"], demo_s=demo_s,
+                                      runs_s=runs_s)
+
+
+def phase_peg_pixel_path(torch, device, card):
+    """examples/fused_peg_insert.py --pixels at full width (16 envs, two 128 px
+    cameras, small encoders, batch 256 x UTD 4, one update_high_utd an
+    iteration, the 20,000-row uint8 ring): its 20 pixel expert demo streams
+    (auto-reset; a step renders the terminal and the next observation), a
+    warm-up past the training threshold, then 3 chunks of PEG_PIXEL_CHUNK
+    iterations timed on the host clock (best of 3, each ending in a read);
+    launches over all of it; then where an iteration's device time goes."""
+    from serl_tpu_torch.examples import fused_peg_insert
+
+    args = fused_peg_insert.parser().parse_args(PEG_PIXEL_ARGV + ["--device", str(device)])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    env, agent, rb, config, init_fn, run_chunk, demo_state, info = fused_peg_insert.build(args)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    # the pixel agent's constructor runs its encoder once on a one-row sample
+    # while its weights are still on the CPU (no launch): not a shape of the path
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+    k5.shape_log = {s for s in k5.shape_log if s[2] != 1}
+    carry = init_fn(agent, args.seed, demo_state=demo_state)
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = -(-threshold // config.num_envs)
+    carry, m = run_chunk(carry, warmup)
+    if float(m["critic_loss"][-1]) == 0.0:
+        raise AssertionError("the peg pixel learner did not start at the training threshold")
+    before = [p.detach().clone() for p in agent.parameters()]
+    best, chunks = float("inf"), []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        carry, m = run_chunk(carry, PEG_PIXEL_CHUNK)
+        float(m["reward_mean"][-1])  # waits for the chunk
+        best = min(best, time.perf_counter() - t1)
+        chunks.append(m)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    iters = warmup + 3 * PEG_PIXEL_CHUNK
+    random_iters = -(-config.random_steps // config.num_envs)
+    updating = iters - (warmup - 1)
+    per = {**pixel_launches_per_iter(config.utd_ratio, config.updates_per_iter),
+           "control_step": 6, "replay_gather": config.updates_per_iter * _pose_k4(config)}
+    want = {"control_step": 5 + 6 * 100 + 5 + 6 * iters,
+            "render": 2 * (1 + 2 * 100) + 2 + 2 * iters,
+            "random_crop": updating * per["random_crop"],
+            "replay_gather": updating * per["replay_gather"],
+            "dense_layer_norm_tanh_fwd": 5 * (iters - random_iters)
+            + updating * (per["dense_layer_norm_tanh_fwd"] - 5),
+            "dense_layer_norm_tanh_bwd": updating * per["dense_layer_norm_tanh_bwd"]}
+    env_steps_s = PEG_PIXEL_CHUNK * config.num_envs / best
+    updates_s = PEG_PIXEL_CHUNK * config.utd_ratio * config.updates_per_iter / best
+    print(f"peg pixel path ({'; '.join(info['lines'])}; {info['demo_successes']} of "
+          f"{info['demo_episodes']} expert episodes succeeded; demos in {demo_s:.2f} s; ring "
+          f"{carry.rb_state.ep_id.shape[0]} slots x {carry.rb_state.ep_id.shape[1]} streams; "
+          f"{warmup} warm-up iterations, then 3 chunks of {PEG_PIXEL_CHUNK}): best chunk "
+          f"{best:.4f} s (host clock ending in a read): {env_steps_s:.1f} env-steps/s, "
+          f"{updates_s:.1f} critic updates/s; launches {json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the peg pixel path, got {launches}")
+    learner = {k: torch.cat([c[k] for c in chunks])
+               for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+    params = list(agent.parameters())
+    checks = {"losses finite and non-zero": all(bool((torch.isfinite(v) & (v != 0)).all())
+                                                for v in learner.values()),
+              "params moved, the encoders' included": all(not torch.equal(p, q)
+                                                          for p, q in zip(params, before)),
+              "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+              "frames rendered": float(carry.obs["front"].float().std()) > 1}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"peg pixel path checks failed: {bad}")
+    box = [carry]
+
+    def run(n):
+        box[0], _ = run_chunk(box[0], n)
+
+    print_busy_share(torch, "peg pixel loop", run, card, ("K1", "K2", "K3", "K4", "K5"))
+    return launches, per, dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best,
+                               demo_s=demo_s, demo_successes=info["demo_successes"],
+                               demo_episodes=info["demo_episodes"])
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -2216,7 +2559,8 @@ def main(kernels_only: bool = False) -> int:
           f"K1's and K2's op-counting host builds (g++) meanwhile, done after {host_s:.2f} s")
 
     # phase 2: every kernel against its plain version
-    errs = {"K1": phase_kernel_vs_plain(torch, engine, checks, device),
+    errs = {"K1": max(phase_kernel_vs_plain(torch, engine, checks, device),
+                      phase_k1_pose_vs_plain(torch, engine, checks, device)),
             "K2": phase_k2_vs_plain(torch, checks, k2, k2_libs, device),
             "K3": phase_k3_vs_plain(torch, device),
             "K4": phase_k4_vs_plain(torch, device),
@@ -2249,6 +2593,12 @@ def main(kernels_only: bool = False) -> int:
     t_new = time.perf_counter()
     trained_launches = phase_resnet_trained(torch, device, card, *resnet_info.pop("ring"))
     new_s["resnet_trained"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    pcb_launches, pcb_per_update, pcb_info = phase_pcb_path(torch, device, card)
+    new_s["pcb"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    peg_launches, peg_per_update, peg_info = phase_peg_pixel_path(torch, device, card)
+    new_s["peg_pixels"] = time.perf_counter() - t_new
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -2271,12 +2621,14 @@ def main(kernels_only: bool = False) -> int:
                 "resnet": pixel_launches_per_iter(BENCH_RESNET["utd_ratio"],
                                                   BENCH_RESNET["updates_per_iter"]),
                 "resnet_trained": {k: v // RESNET_TRAINED_UPDATES
-                                   for k, v in trained_launches.items()}}  # per update_high_utd
+                                   for k, v in trained_launches.items()},  # per update_high_utd
+                "pcb": pcb_per_update, "peg_pixels": peg_per_update}  # per updating iteration
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
                             "pixel_rlpd": pixel_rlpd_launches_path, "resnet": resnet_launches,
-                            "resnet_trained": trained_launches},
+                            "resnet_trained": trained_launches, "pcb": pcb_launches,
+                            "peg_pixels": peg_launches},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
@@ -2299,7 +2651,12 @@ def main(kernels_only: bool = False) -> int:
           f"iteration {pixel_rlpd_info['iteration_ms']:.3f} ms [{card}]")
     print(f"ResNet rates: {resnet_info['env_steps_s']:.1f} env-steps/s, "
           f"{resnet_info['updates_s']:.1f} critic updates/s [{card}]")
-    print("the pixel RLPD, ResNet, trained ResNet and K5 timing phases' seconds (host clock): "
+    print(f"PCB (state): {pcb_info['demo_successes']} of {pcb_info['demo_episodes']} expert "
+          f"episodes succeeded; demos and bank {pcb_info['demo_s']:.2f} s; three runs with pause "
+          f"and resume {pcb_info['runs_s']:.2f} s. Peg (pixels): {peg_info['demo_successes']} of "
+          f"{peg_info['demo_episodes']} expert episodes succeeded; {peg_info['env_steps_s']:.1f} "
+          f"env-steps/s, {peg_info['updates_s']:.1f} critic updates/s [{card}]")
+    print("the pixel RLPD, ResNet, trained ResNet, pose and K5 timing phases' seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
            or m == "serl_tpu"]

@@ -62,7 +62,7 @@ NETWORKS = frozenset({"actor", "critic", "temperature"})
 
 class SACConfig(NamedTuple):
     """Static agent configuration: the JAX package's SACConfig (its VICE
-    and BC-regularisation fields come with their agents)."""
+    field comes with that agent)."""
 
     discount: float = 0.95
     soft_target_update_rate: float = 0.005
@@ -73,6 +73,8 @@ class SACConfig(NamedTuple):
     image_keys: Tuple[str, ...] = ()
     has_encoder: bool = False
     augment: bool = True  # DrQ random crop of update batches
+    # weight of the Q-filtered BC term on the actor (0 = off): see policy_loss_fn
+    bc_regularization: float = 0.0
 
 
 def _map(fn, tree):
@@ -214,15 +216,28 @@ class SACAgent(nn.Module):
                                    dropout=draws.get("actor_dropout"))
         actions, log_probs = dist.sample_and_log_prob(eps=draws["actor_eps"])
         critic_params = [p.detach() for p in self.state.params["critic"]]
-        predicted_q = self.forward_critic(batch["observations"], actions, params=critic_params,
-                                          train=True,
-                                          dropout=draws.get("actor_critic_dropout")).mean(0)
+        critic = partial(self.forward_critic, batch["observations"], params=critic_params,
+                         train=True, dropout=draws.get("actor_critic_dropout"))
+        predicted_q = critic(actions).mean(0)
         actor_loss = -(predicted_q - temperature * log_probs).mean()
-        return actor_loss, {
+        info = {
             "actor_loss": actor_loss.detach(),
             "temperature": temperature,
             "entropy": -log_probs.detach().mean(),
         }
+        if self.config.bc_regularization > 0.0:
+            # Q-filtered behaviour cloning (Nair et al.): pull the policy toward
+            # the batch's actions only where the critic rates them above the
+            # policy's own sample (JAX passes the same critic rng, so the
+            # same dropout masks, to both critic passes)
+            batch_a = torch.clamp(batch["actions"], -0.999, 0.999)
+            with torch.no_grad():
+                better = (critic(batch_a).mean(0) > predicted_q).to(torch.float32)
+            bc_loss = (better * -dist.log_prob(batch_a)).sum() / torch.clamp(better.sum(), min=1.0)
+            actor_loss = actor_loss + self.config.bc_regularization * bc_loss
+            info.update(actor_loss=actor_loss.detach(), bc_loss=bc_loss.detach(),
+                        bc_active_frac=better.mean())
+        return actor_loss, info
 
     def temperature_loss_fn(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]):
         with torch.no_grad():
@@ -359,6 +374,7 @@ class SACAgent(nn.Module):
         soft_target_update_rate: float = 0.005,
         target_entropy: Optional[float] = None,
         backup_entropy: bool = False,
+        bc_regularization: float = 0.0,
         device=None,
     ) -> "SACAgent":
         """An agent whose networks read `features_dim` features (the
@@ -409,6 +425,7 @@ class SACAgent(nn.Module):
             critic_subsample_size=critic_subsample_size,
             image_keys=tuple(image_keys),
             has_encoder=encoder is not None,
+            bc_regularization=float(bc_regularization),
         )
         agent = cls(actor, critic, temperature_init, config, encoder).to(resolve_device(device))
         return agent.init_train_state(actor_optimizer_kwargs, critic_optimizer_kwargs,

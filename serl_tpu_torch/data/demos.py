@@ -8,7 +8,9 @@ demo file written by the JAX package loads here, and the reverse.
 Observations are the flat state vector, or with `pixel_obs=True` the SERL
 pixel dict {"state": (7,), "<camera>": (H, W, 3) uint8} (`serl_obs`), each
 frame rendered by the env (K2) and kept on its device: nothing here copies
-a frame to the host. `collect_state_bank` is not ported yet.
+a frame to the host. The env is the pick env or a pose task
+(`envs/tasks.py`), with its action width. `collect_state_bank` records the
+states a policy visits, the pose tasks' demo reset bank.
 """
 
 import pickle
@@ -17,7 +19,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from serl_tpu_torch.envs.panda_pick import PandaPickCubeEnv, flatten_obs
+from serl_tpu_torch.envs.panda_pick import EnvState, PandaPickCubeEnv, flatten_obs
+from serl_tpu_torch.envs.physics import engine
 from serl_tpu_torch.envs.wrappers import serl_obs
 
 
@@ -34,7 +37,8 @@ def collect_episodes(env: PandaPickCubeEnv, policy_fn: Callable, generator: torc
     """Roll out `num_episodes` lockstep envs for `episode_len` steps;
     returns a transitions dict of (num_episodes * episode_len, ...) tensors
     on the env's device, stream-major (each env's steps contiguous), with
-    `success` and `ep_ids`. `policy_fn(states, generator) -> (N, 4)` actions.
+    `success` and `ep_ids`. `policy_fn(states, generator) -> (N, action_dim)`
+    actions.
 
     `auto_reset=False`: one fixed-length episode per stream, ep_ids the
     stream index. `auto_reset=True`: ended episodes are replaced by fresh
@@ -72,6 +76,24 @@ def collect_episodes(env: PandaPickCubeEnv, policy_fn: Callable, generator: torc
     if not auto_reset:
         out["ep_ids"] = streams.repeat_interleave(episode_len)
     return out
+
+
+@torch.no_grad()
+def collect_state_bank(env, policy_fn: Callable, generator: torch.Generator,
+                       num_streams: int = 8, steps: int = 100) -> EnvState:
+    """Roll `policy_fn(states, generator)` out over `num_streams` lockstep
+    envs with auto-reset for `steps` steps and return every PRE-step state,
+    stacked time-major along a leading bank axis of num_streams * steps
+    (the input of `PandaPoseTaskEnv.set_demo_reset_bank`)."""
+    states, _ = env.reset(num_streams, generator)
+    bank = []
+    for _ in range(steps):
+        actions = policy_fn(states, generator)
+        bank.append(states)
+        states = env.step_auto_reset(states, actions, generator=generator, final_obs=False)[0]
+    cat = lambda xs: torch.cat(xs, 0)
+    return EnvState(engine.PhysicsState(*map(cat, zip(*(s.physics for s in bank)))),
+                    *(cat([getattr(s, f) for s in bank]) for f in ("t", "z_init", "ep_id")))
 
 
 def _map_steps(fn, steps):

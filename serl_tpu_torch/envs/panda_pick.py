@@ -53,6 +53,16 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), b, a)
 
 
+def where_state(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+    """Every field of env state b where the (N,) mask is set, else a's."""
+    return EnvState(
+        physics=engine.PhysicsState(*(_where(mask, x, y) for x, y in zip(a.physics, b.physics))),
+        t=_where(mask, a.t, b.t),
+        z_init=_where(mask, a.z_init, b.z_init),
+        ep_id=_where(mask, a.ep_id, b.ep_id),
+    )
+
+
 class PandaPickCubeEnv:
     """Batched env: every method steps all envs of the state at once."""
 
@@ -142,15 +152,7 @@ class PandaPickCubeEnv:
         if reset_xy is None:
             reset_xy = self.sample_reset_xy(n, generator)
         fresh = self._fresh(reset_xy.to(self.device, torch.float32), state.ep_id + 1)
-        is_done = done > 0.5
-        new_state = EnvState(
-            physics=engine.PhysicsState(
-                *(_where(is_done, a, b) for a, b in zip(stepped.physics, fresh.physics))
-            ),
-            t=_where(is_done, stepped.t, fresh.t),
-            z_init=_where(is_done, stepped.z_init, fresh.z_init),
-            ep_id=_where(is_done, stepped.ep_id, fresh.ep_id),
-        )
+        new_state = where_state(done > 0.5, stepped, fresh)
         out_obs = self._obs(new_state)
         info = dict(info)
         if final_obs:

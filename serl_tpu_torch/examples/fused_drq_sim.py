@@ -16,7 +16,12 @@ a missing file raises).
         --total_env_steps 96000 --success_stop 0.9
 
 Runs on the CUDA card unless `--device cpu`. Each chunk's log goes to
-`--log_dir` (or the temp dir's serl_tpu_logs/) as one JSON line.
+`--log_dir` (or the temp dir's serl_tpu_logs/) as one JSON line. With
+`--checkpoint_dir D` the agent's params are saved under D (best evaluation,
+every --checkpoint_period_chunks chunks, the end), touching D/PAUSE saves
+the whole run and stops it, and `--resume true` goes on from there;
+`--eval_checkpoint_step S --checkpoint_dir D` evaluates D's step S (-1: the
+latest) instead of training.
 """
 
 import argparse
@@ -29,18 +34,18 @@ from serl_tpu_torch.data.demos import collect_episodes, demos_to_buffer, select_
 from serl_tpu_torch.examples.fused_sac_state_sim import expert_demo_policy
 from serl_tpu_torch.training.config import WorkloadConfig
 from serl_tpu_torch.training.launcher import make_drq_sim_experiment
-from serl_tpu_torch.training.runner import run_fused
+from serl_tpu_torch.training.runner import eval_from_checkpoint, run_fused
 
 PRESETS = ("drq_sim", "drq_rlpd")
 
 # WorkloadConfig fields that this entry point does not read: the launcher
 # builds the pick-cube DrQ agent with the reference hyperparameters (its
 # discount is make_drq_agent's 0.96, as in the JAX example), and the
-# transport and checkpoints are not ported. A value other than the
-# preset's would be silently ignored, so it raises.
+# transport is not ported. A value other than the preset's would be
+# silently ignored, so it raises.
 UNREAD_FIELDS = ("algo", "task", "image_obs", "discount", "critic_ensemble_size",
                  "critic_subsample_size", "temperature_init", "ip", "port", "steps_per_update",
-                 "publish_period", "checkpoint_period_chunks")
+                 "publish_period")
 
 
 def check_supported(cfg: WorkloadConfig) -> None:
@@ -72,20 +77,27 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     WorkloadConfig.add_args(p, preset="drq_sim")
     p.add_argument("--rlpd", action="store_true", help="RLPD 50/50 demo mixing")
+    # checkpoint-eval mode: restore --checkpoint_dir's step (-1: the latest)
+    # and evaluate it instead of training
     p.add_argument("--eval_checkpoint_step", type=int, default=None)
+    p.add_argument("--eval_n_trajs", type=int, default=32)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--log_dir", type=str, default=None)
     args = p.parse_args(argv)
     cfg = WorkloadConfig.from_args(args)
     if args.rlpd:
         cfg = dataclasses.replace(cfg, demo_fraction=0.5)
-    if args.eval_checkpoint_step is not None:
-        raise NotImplementedError("checkpoints and --eval_checkpoint_step are not ported yet")
     check_supported(cfg)
+    if args.eval_checkpoint_step is not None and not cfg.checkpoint_dir:
+        raise ValueError("--eval_checkpoint_step needs --checkpoint_dir")
 
     env, agent, rb, config, init_fn, run_chunk = make_drq_sim_experiment(
         seed=cfg.seed, encoder_type=cfg.encoder_type, image_size=cfg.image_size,
         device=args.device, **cfg.loop_overrides())
+    if args.eval_checkpoint_step is not None:
+        step = None if args.eval_checkpoint_step < 0 else args.eval_checkpoint_step
+        return eval_from_checkpoint(env, agent, rb, cfg.checkpoint_dir, step=step,
+                                    num_episodes=args.eval_n_trajs, seed=cfg.seed)
     demo_state = None
     if cfg.demo_fraction > 0.0:
         trs, succeeded = scripted_pixel_demos(env, cfg.seed, cfg.num_demos)

@@ -11,7 +11,12 @@ the successful ones kept), or those of `--demo_path`.
         --total_env_steps 200000 --success_stop 0.97
 
 Runs on the CUDA card unless `--device cpu`. Each chunk's log goes to
-`--log_dir` (or the temp dir's serl_tpu_logs/) as one JSON line.
+`--log_dir` (or the temp dir's serl_tpu_logs/) as one JSON line. With
+`--checkpoint_dir D` the agent's params are saved under D (best evaluation,
+every --checkpoint_period_chunks chunks, the end), touching D/PAUSE saves
+the whole run and stops it, and `--resume true` goes on from there;
+`--eval_checkpoint_step S --checkpoint_dir D` evaluates D's step S (-1: the
+latest) instead of training.
 """
 
 import argparse
@@ -30,7 +35,7 @@ from serl_tpu_torch.data.demos import (
 from serl_tpu_torch.envs.scripted_expert import expert_action
 from serl_tpu_torch.training.config import WorkloadConfig
 from serl_tpu_torch.training.launcher import make_state_sim_experiment
-from serl_tpu_torch.training.runner import run_fused
+from serl_tpu_torch.training.runner import eval_from_checkpoint, run_fused
 
 DEMO_NOISE = 0.02
 
@@ -57,12 +62,12 @@ def scripted_demos(env, seed: int, num_demos: int, episode_len: int = 100):
 
 # WorkloadConfig fields that this entry point does not read: the launcher
 # builds the state pick-cube SAC agent with the reference hyperparameters,
-# and the transport and checkpoints are not ported. A value other than the
-# state_sim preset's would be silently ignored, so it raises (`name` is
-# the preset's: --preset picks it).
+# and the transport is not ported. A value other than the state_sim
+# preset's would be silently ignored, so it raises (`name` is the preset's:
+# --preset picks it).
 UNREAD_FIELDS = ("name", "algo", "task", "image_obs", "image_size", "encoder_type", "discount",
                  "critic_ensemble_size", "critic_subsample_size", "temperature_init", "ip",
-                 "port", "steps_per_update", "publish_period", "checkpoint_period_chunks")
+                 "port", "steps_per_update", "publish_period")
 
 
 def check_supported(cfg: WorkloadConfig) -> None:
@@ -78,19 +83,26 @@ def main(argv=None):
     WorkloadConfig.add_args(p, preset="state_sim")
     p.add_argument("--rlpd", action="store_true", help="RLPD 50/50 demo mixing")
     p.add_argument("--demo_path", type=str, default=None)
+    # checkpoint-eval mode: restore --checkpoint_dir's step (-1: the latest)
+    # and evaluate it instead of training
     p.add_argument("--eval_checkpoint_step", type=int, default=None)
+    p.add_argument("--eval_n_trajs", type=int, default=32)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--log_dir", type=str, default=None)
     args = p.parse_args(argv)
     cfg = WorkloadConfig.from_args(args)
     if args.rlpd or args.demo_path:
         cfg = dataclasses.replace(cfg, demo_fraction=0.5)
-    if args.eval_checkpoint_step is not None:
-        raise NotImplementedError("checkpoints and --eval_checkpoint_step are not ported yet")
     check_supported(cfg)
+    if args.eval_checkpoint_step is not None and not cfg.checkpoint_dir:
+        raise ValueError("--eval_checkpoint_step needs --checkpoint_dir")
 
     env, agent, rb, config, init_fn, run_chunk = make_state_sim_experiment(
         seed=cfg.seed, device=args.device, **cfg.loop_overrides())
+    if args.eval_checkpoint_step is not None:
+        step = None if args.eval_checkpoint_step < 0 else args.eval_checkpoint_step
+        return eval_from_checkpoint(env, agent, rb, cfg.checkpoint_dir, step=step,
+                                    num_episodes=args.eval_n_trajs, seed=cfg.seed)
     demo_state = None
     if cfg.demo_fraction > 0.0:
         if args.demo_path:

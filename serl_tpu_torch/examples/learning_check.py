@@ -1,9 +1,10 @@
 """The learning check: an RLPD workload, several seeds at once.
 
 Starts the example `--example` (`fused_sac_state_sim`, RLPD on the state
-workload, by default; or `fused_drq_sim`, RLPD from pixels) with `--rlpd`
-and the preset `--preset` (the example's own by default: `state_sim`, or
-`drq_rlpd` for the pixel example) once per seed,
+workload, by default; `fused_drq_sim`, RLPD from pixels, both with `--rlpd`
+and the preset `--preset`, the example's own by default: `state_sim`, or
+`drq_rlpd` for the pixel example; or `fused_peg_insert`, peg insertion from
+states or with `--pixels` from pixels, its recipe as it is) once per seed,
 all concurrently on one card (the loop is host-bound, so they overlap), and
 when all have ended writes `<out>/summary.json`: per seed, the evaluations
 (env steps, eval success and return), the env step at which the seed was
@@ -14,6 +15,8 @@ the last logged env-steps/s; with the card's name and power limit.
         --seeds 0 1 2 --total_env_steps 200000 --success_stop 0.97
     python -m serl_tpu_torch.examples.learning_check --out runs/pixels \\
         --example fused_drq_sim --total_env_steps 96000 --success_stop 0.9
+    python -m serl_tpu_torch.examples.learning_check --out runs/peg_pixels \
+        --example fused_peg_insert --pixels --total_env_steps 96000 --success_stop 0.9
 
 Each seed's output goes to <out>/seed<S>.log and its chunk logs to
 <out>/seed<S>/*.jsonl. Exits non-zero if a seed's process fails.
@@ -31,8 +34,10 @@ import time
 # CPU threads of each seed's process: the seeds run at once, share the
 # host's cores, and each seed's loop is host-bound
 THREADS_PER_SEED = 2
-# each example's preset unless --preset names another
-EXAMPLES = {"fused_sac_state_sim": "state_sim", "fused_drq_sim": "drq_rlpd"}
+# each RLPD example's preset unless --preset names another; the peg example
+# takes no preset
+EXAMPLES = {"fused_sac_state_sim": "state_sim", "fused_drq_sim": "drq_rlpd",
+            "fused_peg_insert": None}
 
 
 def card_line() -> str:
@@ -70,8 +75,17 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     p.add_argument("--total_env_steps", type=int, default=200_000)
     p.add_argument("--success_stop", type=float, default=0.97)
+    p.add_argument("--pixels", action="store_true", help="fused_peg_insert from pixels")
     args = p.parse_args(argv)
     preset = args.preset or EXAMPLES[args.example]
+
+    def recipe(seed):
+        if args.example == "fused_peg_insert":
+            return (["--seed", str(seed), "--total_steps", str(args.total_env_steps)]
+                    + (["--pixels"] if args.pixels else []))
+        return ["--rlpd", "--preset", preset, "--seed", str(seed),
+                "--total_env_steps", str(args.total_env_steps)]
+
     os.makedirs(args.out, exist_ok=True)
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -83,9 +97,7 @@ def main(argv=None) -> int:
             log = open(os.path.join(args.out, f"seed{seed}.log"), "w")
             logs.append(log)
             procs[seed] = subprocess.Popen(
-                [sys.executable, "-m", f"serl_tpu_torch.examples.{args.example}", "--rlpd",
-                 "--preset", preset, "--seed", str(seed),
-                 "--total_env_steps", str(args.total_env_steps),
+                [sys.executable, "-m", f"serl_tpu_torch.examples.{args.example}", *recipe(seed),
                  "--success_stop", str(args.success_stop),
                  "--log_dir", os.path.join(args.out, f"seed{seed}")],
                 stdout=log, stderr=subprocess.STDOUT, env=env)
@@ -97,7 +109,7 @@ def main(argv=None) -> int:
                 proc.wait()
         for log in logs:
             log.close()
-    summary = {"card": card, "example": args.example, "preset": preset,
+    summary = {"card": card, "example": args.example, "preset": preset, "pixels": args.pixels,
                "wall_s": time.time() - t0, "exit_codes": codes,
                "seeds": [summarise(args.out, seed) for seed in args.seeds]}
     with open(os.path.join(args.out, "summary.json"), "w") as f:

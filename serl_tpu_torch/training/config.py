@@ -4,8 +4,9 @@ canonical presets.
 
 The port's copy of `serl_tpu/training/config.py`: the same fields, presets
 and command-line surface. `loop_overrides()` feeds `training/loop.py`'s
-LoopConfig and `runner_kwargs()` `training/runner.py::run_fused`. Presets of
-task envs that are not ported yet exist as data; what they need raises
+LoopConfig and `runner_kwargs()` `training/runner.py::run_fused`, the
+checkpoint fields (directory, period, pause file, resume) included. Presets
+of task envs that are not ported yet exist as data; what they need raises
 where it is reached. The transport fields wait for the two-process mode
 (`trainer_config()` raises).
 """

@@ -206,7 +206,7 @@ def test_torch_pixel_example_selects_the_demos_jax_selects(monkeypatch):
 @pytest.mark.parametrize("argv", [["--preset", "state_sim"], ["--algo", "sac"],
                                   ["--discount", "0.99"], ["--critic_ensemble_size", "4"],
                                   ["--temperature_init", "0.1"], ["--port", "6000"],
-                                  ["--checkpoint_period_chunks", "5"]])
+                                  ["--publish_period", "3"]])
 def test_torch_pixel_example_raises_on_a_setting_it_does_not_read(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         fused_drq_sim.main(["--rlpd", "--device", "cpu"] + argv)

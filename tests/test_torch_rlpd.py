@@ -12,7 +12,7 @@
 - `run_fused` against JAX's on the same chunk metrics and evaluations: the
   log keys and values, the stop after two evaluations at or above the bar,
   the evaluation seeds; the best evaluation's params do not move with the
-  training after it; checkpoints raise.
+  training after it (checkpoints: tests/test_torch_checkpoint.py).
 - `WorkloadConfig`: presets equal to JAX's field by field, and its loop
   and runner kwargs accepted by the port; the state example raises on a
   setting it does not read.
@@ -378,16 +378,6 @@ def test_torch_run_fused_keeps_the_best_params(monkeypatch):
     assert any(moved)  # the live params trained on after the best evaluation
 
 
-def test_torch_run_fused_checkpoints_raise(tmp_path):
-    env, agent, rb, config, init_fn, run_chunk = _small_experiment()
-    for kw in ({"checkpoint_dir": str(tmp_path)}, {"pause_file": str(tmp_path / "PAUSE")},
-               {"resume": True}):
-        with pytest.raises(NotImplementedError):
-            trunner.run_fused(env, agent, rb, config, init_fn, run_chunk, **kw)
-    with pytest.raises(NotImplementedError):
-        trunner.eval_from_checkpoint(env, agent, rb, str(tmp_path))
-
-
 def test_torch_evaluate_uses_a_custom_obs_fn():
     class ShortEnv(PandaPickCubeEnv):
         time_limit_steps = 3
@@ -430,7 +420,7 @@ def test_torch_workload_presets_equal_jax():
 @pytest.mark.parametrize("argv", [["--preset", "peg_insert"], ["--algo", "drq"],
                                   ["--image_obs", "true"], ["--discount", "0.96"],
                                   ["--critic_ensemble_size", "4"], ["--temperature_init", "0.1"],
-                                  ["--port", "6000"], ["--checkpoint_period_chunks", "5"]])
+                                  ["--port", "6000"], ["--steps_per_update", "10"]])
 def test_torch_state_example_raises_on_a_setting_it_does_not_read(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         fused_sac_state_sim.main(["--rlpd", "--device", "cpu"] + argv)
