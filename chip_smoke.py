@@ -25,7 +25,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      and 32 (the RLPD path's widths), equal bit for bit; K1 also at pose-task
      inputs (the peg env's settled resets with their per-env yaw, and after
      10 noisy pose-expert steps through the Euler box) at N = 16 and 2048,
-     under the same rule; K2 (both -fmad builds)
+     under the same rule, and at the cable-route env's inputs at 8, 16, 20 and
+     2048 envs, where K2 is held too; K2 (both -fmad builds)
      at N = 16 and 128, 128 px, on rollout and grasp states (cube in the
      wrist camera's view) under the pixel rule of tests/torch_k2.py (failing
      the phase for the shipped build only), its scene rows (the kernel's
@@ -33,7 +34,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      and one render under torch.cuda.set_sync_debug_mode("error"); K3 at
      (1024, 1, 128, 128, 3) and (1024, 3, 128, 128, 3), four image batches
      per launch, and at K3_PATHS, which reach its word and byte paths
-     (frames 4 bytes off, 252- and 33-byte rows) and float frames: exactly
+     (frames 4 bytes off, 252- and 33-byte rows) and float frames, and the
+     classifier's and VICE's (128, 1, 128, 128, 3) crops: exactly
      equal; K4 at the state path's shapes (782 slots x 128 streams, 2048
      rows, next_observations stored and not), the RLPD path's online half
      (6,250 x 32, 1,024 rows) and at the pixel path's (625 x
@@ -42,7 +44,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      each of its copy paths (16-byte, word and byte units, wide and narrow
      rows, a base address 4 bytes off), and at the pixel RLPD path's
      online half (3,125 x 16, 512 rows of 128 px frames) and that half on
-     the pixel path's ring: exactly equal; K5 forward
+     the pixel path's ring, and at the pose tasks' pixel ring (1,250 x 16,
+     10-dim state, 7-dim actions; 512 rows and VICE's 80): exactly equal; K5 forward
      and backward at every (form, E, M, K, D) of K5_SHAPES (the ResNet heads'
      bottleneck at K = 4,096 among them, and the shapes where the forward
      splits K over blocks) under the rule of tests/torch_k5.py, its
@@ -108,7 +111,25 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      ring): 20 pixel expert demo streams, a warm-up past the threshold, 3
      timed chunks of 10 (env-steps/s and updates/s, best of 3), the busy
      share and device ms by kernel; a pose env step launches K1 six times
-     (the step and every env's 5-step settled reset). Around each path
+     (the step and every env's 5-step settled reset); the learned-reward
+     paths: examples/fused_cable_route.py at full width (the classifier's
+     frames from 8 + 8 + 8 streams of the cable env, 20 classifier steps
+     with the loss falling, the wrapper at threshold 0.75 over 20 expert
+     demo streams, the loop warmed up past its threshold and 3 timed chunks
+     of 10: env-steps/s, updates/s, the busy share and device ms by kernel;
+     a wrapped step renders twice and runs the classifier; the wrapper's
+     reward equal to classifier_fn's verdict on the stepped frames, env by
+     env; the classifier saved on the card and loaded on the CPU by
+     load_classifier_func: params bit for bit, logits within 4 x what bf16
+     convolutions change on the CPU), examples/vice_online.py at full width
+     (create_vice, the loop past its threshold and a chunk of 10 with VICE
+     rewards, 4 update_vice calls, the last under
+     torch.cuda.set_sync_debug_mode("error"), the double backward on the
+     card; the vice head moves, its encoders do not; bce_loss and grad_norm
+     finite; a 16-episode evaluation) and record_demo.py -> bc_policy.py
+     (20 expert demos of the pick env, 500 BC steps with the NLL falling,
+     evaluate_batched over 32 episodes; no K5 launch: the BC MLP has no
+     LayerNorm). Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -173,6 +194,11 @@ K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows,
 # 1,024-row batch), and that half on bench_pixels' ring
 K4_PIXEL_SHAPES = (K4_PIXEL_SHAPE, dict(slots=3125, streams=16, rows_per_stream=32),
                    dict(slots=625, streams=16, rows_per_stream=32))
+# the pose tasks' pixel rings (10-dim state, 7-dim actions): 20,000 rows over
+# 16 streams, sampled 512 rows (sample_mixed's online half on the peg and
+# cable-route paths) and 80 (VICE's classifier batches)
+K4_POSE_PIXEL_SHAPES = (dict(slots=1250, streams=16, rows_per_stream=32),
+                        dict(slots=1250, streams=16, rows_per_stream=5))
 # bench.py::bench_pixels' configuration, passed to make_drq_sim_experiment
 BENCH_PIXELS = dict(seed=0, encoder_type="small", num_envs=16, batch_size=256, utd_ratio=4,
                     updates_per_iter=2, training_starts=0, random_steps=0,
@@ -218,6 +244,20 @@ POSE_DEMO_STREAMS, POSE_DEMO_MIN_SUCCESS = 20, 20
 POSE_K1_N = (16, 2048)
 PEG_PIXEL_ARGV = ["--pixels"]
 PEG_PIXEL_CHUNK = 10
+# The learned-reward paths. Cable route (examples/fused_cable_route.py at its
+# defaults): LEARNED_REWARD_EPOCHS classifier steps (the recipe's 300 cut to
+# keep the run short), timed chunks of LEARNED_REWARD_CHUNK; VICE
+# (examples/vice_online.py): a chunk of LEARNED_REWARD_CHUNK, then
+# VICE_UPDATES update_vice calls; BC: BC_STEPS steps. K1 and K2 are held at
+# the cable env's inputs at LEARNED_REWARD_N envs: the classifier frames' 8
+# streams, the loop's 16 envs, the 20 demo streams. The classifier saved on
+# the card and loaded on the CPU may differ from the card's logits by
+# CLASSIFIER_FILE_FACTOR x what bf16 convolutions change there (fp32 vs bf16
+# on the CPU), as tests/torch_resnet.py's rule holds TF32.
+LEARNED_REWARD_EPOCHS, LEARNED_REWARD_CHUNK, VICE_UPDATES, BC_STEPS = 20, 10, 4, 500
+LEARNED_REWARD_N = (8, 16, 20)
+CABLE_ARGV, VICE_ARGV = [], []  # the examples' defaults: full width
+CLASSIFIER_FILE_FACTOR = 4.0
 # K2's two builds, the shipped one (nvcc's default flags) first: (label,
 # extra nvcc flags)
 K2_BUILDS = (("-fmad=true", None), ("-fmad=false", ("-fmad=false",)))
@@ -229,6 +269,10 @@ K3_PATHS = (
     ((1024, 1, 84, 84, 3), "uint8", 0, 2, 4),                  # 252-byte rows: words
     ((256, 1, 33, 33, 1), "uint8", 0, 2, 1),                   # 33-byte rows: bytes
     ((256, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "float32", 0, 2, 16),  # float frames
+    # the classifier's 64 + 64 frames (one image a launch) and VICE's crop of
+    # both cameras' 128 next observations
+    ((128, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "uint8", 0, 1, 16),
+    ((128, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "uint8", 0, 2, 16),
 )
 # K5's calls on the main paths, (form, E, M, K, D) -> (whether that call's
 # backward computes the weight grads, dgamma, dbeta, dbias and dW: not in
@@ -293,6 +337,9 @@ K5_SHAPES = {
     ("linear", 1, 256, 10, 64): (True, False),
     ("linear", 1, 1024, 10, 64): (True, False),
     ("linear", 1, 16, 10, 64): (True, False),
+    # the reward classifier's bottleneck on the 20 demo streams' stepped frames
+    # (its train step's 128 rows and the loop's 16 envs are held above)
+    ("linear", 1, 20, 256, 256): (True, True),
 }
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
@@ -1176,16 +1223,18 @@ def phase_k3_vs_plain(torch, device):
 
 
 def _pixel_ring(torch, device, g, slots=K4_PIXEL_SHAPE["slots"],
-                streams=K4_PIXEL_SHAPE["streams"]):
+                streams=K4_PIXEL_SHAPE["streams"], state_dim=7, action_dim=4):
     """A full, wrapped ring of slots x streams with 100-slot episodes that end
     at another slot in every stream: (data, ep_id, insert_slot)."""
     frame = (PIXEL_SIZE, PIXEL_SIZE, 3)
-    data = {"observations": {"state": torch.randn((slots, streams, 7), generator=g, device=device),
+    data = {"observations": {"state": torch.randn((slots, streams, state_dim), generator=g,
+                                                  device=device),
                              **{k: torch.randint(0, 256, (slots, streams) + frame, generator=g,
                                                  device=device, dtype=torch.uint8)
                                 for k in IMAGE_KEYS}},
             **{k: torch.randn((slots, streams) + shape, generator=g, device=device)
-               for k, shape in (("actions", (4,)), ("rewards", ()), ("masks", ()), ("dones", ()))}}
+               for k, shape in (("actions", (action_dim,)), ("rewards", ()), ("masks", ()),
+                                ("dones", ()))}}
     insert_slot = 300  # slot 299 is the newest, 300 the oldest
     age = (torch.arange(slots, device=device) - insert_slot) % slots
     stream = torch.arange(streams, device=device)
@@ -1200,14 +1249,18 @@ def phase_k4_pixel_vs_plain(torch, device):
     stacks), at episode ends (successor fallback) and at the ring's seam:
     exactly equal."""
     g = torch.Generator(device=device).manual_seed(44)
-    return max(_k4_pixel_vs_plain(torch, device, g, **shape) for shape in K4_PIXEL_SHAPES)
+    return max([_k4_pixel_vs_plain(torch, device, g, **shape) for shape in K4_PIXEL_SHAPES]
+               + [_k4_pixel_vs_plain(torch, device, g, **shape, state_dim=10, action_dim=7)
+                  for shape in K4_POSE_PIXEL_SHAPES])
 
 
-def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream):
+def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream, state_dim=7,
+                       action_dim=4):
     from serl_tpu_torch.data import replay_buffer as rbm
 
     r = rows_per_stream
-    data, ep_id, insert_slot = _pixel_ring(torch, device, g, slots, streams)
+    data, ep_id, insert_slot = _pixel_ring(torch, device, g, slots, streams, state_dim,
+                                           action_dim)
     stream = torch.arange(streams, device=device)
     starts = ((ep_id != ep_id.roll(1, 0)).to(torch.int32).argmax(0))  # an episode's first slot
     u = torch.randint(0, slots - 1, (r, streams), generator=g, device=device)
@@ -1228,7 +1281,8 @@ def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream):
     boundary = int((ep_id[(s2 + 1) % slots, stream] != ep_id[s2, stream]).sum())
     if clamped == 0 or boundary == 0:
         raise AssertionError("K4 pixel check sampled no clamped stack or no episode end")
-    print(f"K4 pixel vs plain at {slots} slots x {streams} streams, {r * streams} rows of "
+    print(f"K4 pixel vs plain at {slots} slots x {streams} streams ({state_dim}-dim state, "
+          f"{action_dim}-dim actions), {r * streams} rows of "
           f"{PIXEL_SIZE} px frames, T = 1 and 3 ({clamped} clamped stack frames at T = 3, "
           f"{boundary} rows at an episode end): exactly equal")
     return 0.0
@@ -2135,16 +2189,18 @@ def _sum_launches(*counts) -> dict:
     return {k: sum(c.get(k, 0) for c in counts) for k in launch_counters()}
 
 
-def _pose_pre_step_states(torch, device, n: int, g, steps: int = 10):
-    """Peg-task K1 inputs: the mocap target after `steps` noisy pose-expert
-    actions (rotations through the Euler box) from settled resets, as the
-    env hands them to the control step."""
+def _pose_pre_step_states(torch, device, n: int, g, steps: int = 10, config=None):
+    """Pose-task K1 inputs (the peg task unless `config` names another): the
+    mocap target after `steps` noisy pose-expert actions (rotations through
+    the Euler box) from settled resets, as the env hands them to the control
+    step."""
     from serl_tpu_torch.envs.physics import engine
     from serl_tpu_torch.envs.tasks import PEG_INSERT_CONFIG, PandaPoseTaskEnv
     from serl_tpu_torch.examples.fused_peg_insert import pose_expert
 
-    env = PandaPoseTaskEnv(PEG_INSERT_CONFIG, device=device)
-    expert = pose_expert(PEG_INSERT_CONFIG)
+    config = config or PEG_INSERT_CONFIG
+    env = PandaPoseTaskEnv(config, device=device)
+    expert = pose_expert(config)
     state = env._reset_state(env.sample_reset_draws(n, g))
     captured, control_step = [], engine.control_step
 
@@ -2382,6 +2438,398 @@ def phase_peg_pixel_path(torch, device, card):
                                demo_episodes=info["demo_episodes"])
 
 
+
+# ---------------------------------------------------------------- learned reward
+
+
+def _cable_pre_step_states(torch, device, n: int, g):
+    """Cable-route K1 inputs and frames: (the first control step after the
+    settled reset, the one after 10 noisy pose-expert steps), as the cable
+    env hands them to the control step."""
+    from serl_tpu_torch.envs.tasks import CABLE_ROUTE_CONFIG
+
+    return _pose_pre_step_states(torch, device, n, g, config=CABLE_ROUTE_CONFIG)
+
+
+def phase_learned_reward_kernels_vs_plain(torch, engine, checks, k2, device) -> float:
+    """K1 and K2 at the cable-route env's own inputs (CABLE_ROUTE_CONFIG's
+    reset and targets) at the learned-reward paths' widths (LEARNED_REWARD_N:
+    the classifier frames' 8 streams, the loop's 16 envs, the 20 demo
+    streams) and at 2,048: K1 under tests/torch_k1.py's rule, repeated
+    launches bit for bit; K2 (the shipped build) under tests/torch_k2.py's
+    pixel rule."""
+    from serl_tpu_torch.envs import rendering
+
+    g = torch.Generator(device=device).manual_seed(31)
+    worst = 0.0
+    for n in LEARNED_REWARD_N + (2048,):
+        for source, s in zip(("first step after the settled reset", "after 10 expert steps"),
+                             _cable_pre_step_states(torch, device, n, g)):
+            failures, summary, _ = checks.compare_step(engine.control_step_cuda, s)
+            repeats = all(torch.equal(a, b) for a, b in zip(engine.control_step_cuda(s),
+                                                            engine.control_step_cuda(s)))
+            print(f"K1 vs plain, cable route N={n}, {source}: max abs err "
+                  f"{fmt(summary['max_err'])}; envs beyond the tight tolerance "
+                  f"{summary['envs_over_atol']} (at most {summary['budget']}); two more launches "
+                  f"equal bit for bit: {repeats}")
+            if failures or not repeats:
+                raise AssertionError(f"K1 cable N={n} {source}: {failures or 'launches differ'}")
+            worst = max(worst, max(summary["max_err"].values()))
+            if n == 2048:
+                continue
+            got = rendering.render_cameras_cuda(s, PIXEL_SIZE)
+            want = rendering.render_cameras_plain(s, PIXEL_SIZE)
+            torch.cuda.synchronize()
+            for cam, a, b in zip(IMAGE_KEYS, got, want):
+                failures, summary = k2.pixel_rule(a, b)
+                print(f"K2 vs plain, cable route N={n}, {source}, {cam}: {json.dumps(summary)}")
+                if failures:
+                    raise AssertionError(f"K2 cable N={n} {source} {cam}: " + "; ".join(failures))
+    return worst
+
+
+class _Lines:
+    """A file-like sink that keeps the lines an example prints."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, s):
+        self.lines.append(s)
+
+    def flush(self):
+        pass
+
+
+def _cable_launches(config, epochs: int, iters: int, warmup: int) -> dict:
+    """Launches over the cable-route path: the classifier's frames (the
+    noisy expert's 8 streams by env.step: a reset's 5 settle steps and a
+    render, then K1 and a render a step; the near-miss and random streams by
+    step_auto_reset: K1 six times and two renders a step), `epochs`
+    classifier steps (a K3 crop, the bottleneck's K5 forward and backward),
+    the wrapped demos (K1 six times, two renders, one classifier forward a
+    step), then the loop: its reset, and per iteration K1 six times, two
+    renders (the stepped frame for the classifier, then the post-reset
+    observation), the classifier's forward, the policy past random_steps (5
+    K5 forwards) and per updating iteration two update_high_utd calls on
+    sample_mixed batches (the pixel learner's K5 calls, a K3 crop, K4 for
+    the online half: 512 rows over 16 streams; the 20-stream demo half is
+    plain). A render call launches two kernels. The counts do not depend on
+    the number of streams."""
+    from serl_tpu_torch.envs.tasks import SETTLE_STEPS
+
+    steps = 100
+    per = pixel_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    random_iters = -(-config.random_steps // config.num_envs)
+    updating = iters - (warmup - 1)
+    policy = iters - random_iters
+    k1_auto = SETTLE_STEPS + (1 + SETTLE_STEPS) * steps
+    return {
+        "control_step": (SETTLE_STEPS + steps) + 2 * k1_auto  # classifier frames
+        + k1_auto  # wrapped demos
+        + SETTLE_STEPS + (1 + SETTLE_STEPS) * iters,
+        "render": (2 + 2 * steps) + 2 * (2 + 4 * steps) + (2 + 4 * steps) + 2 + 4 * iters,
+        "random_crop": epochs + updating * config.updates_per_iter,
+        "replay_gather": updating * config.updates_per_iter * _pose_k4(config),
+        "dense_layer_norm_tanh_fwd": epochs + steps + iters + 5 * policy
+        + updating * (per["dense_layer_norm_tanh_fwd"] - 5),
+        "dense_layer_norm_tanh_bwd": epochs + updating * per["dense_layer_norm_tanh_bwd"]}
+
+
+def _vice_launches(config, iters: int, warmup: int, vice_updates: int) -> dict:
+    """Launches over the VICE path: the goal frames (8 parked streams by
+    env.step), the loop's reset, per iteration K1 six times and one render
+    (the pixel buffer stores no next observation), the policy past
+    random_steps (its encoder's 3 K5 forwards: the MLPs have no LayerNorm),
+    per updating iteration two update_high_utd calls (the classifier's
+    bottleneck on the cropped next observations, then per critic update 9
+    K5 forwards and 3 backwards through the encoder, per actor update 9
+    forwards; a K3 crop and a K4 sample each), `vice_updates` update_vice
+    calls (a K4 sample of 80 rows, a K3 crop, the classifier's bottleneck on
+    2 x 128 frames) and one evaluation (a reset, then K1, a render, the
+    policy's 3 and the classifier's 1 K5 forwards a step)."""
+    from serl_tpu_torch.envs.tasks import SETTLE_STEPS
+
+    steps = 100
+    random_iters = -(-config.random_steps // config.num_envs)
+    updating = iters - (warmup - 1)
+    policy = iters - random_iters
+    u, utd = config.updates_per_iter, config.utd_ratio
+    return {
+        "control_step": (SETTLE_STEPS + steps) + SETTLE_STEPS + (1 + SETTLE_STEPS) * iters
+        + SETTLE_STEPS + steps,
+        "render": (2 + 2 * steps) + 2 + 2 * iters + 2 + 2 * steps,
+        "random_crop": updating * u + vice_updates,
+        "replay_gather": updating * u + vice_updates,
+        "dense_layer_norm_tanh_fwd": 3 * policy + updating * u * (1 + 9 * utd + 9) + vice_updates
+        + 4 * steps,
+        "dense_layer_norm_tanh_bwd": updating * u * 3 * utd}
+
+
+def _bc_launches(eval_steps: int = 100) -> dict:
+    """BC's path: the pick env's demos (a K1 launch a step) and the
+    evaluation (a K1 launch a step); its MLP has no LayerNorm, so no K5."""
+    return {"control_step": 100 + eval_steps, "render": 0, "random_crop": 0, "replay_gather": 0,
+            "dense_layer_norm_tanh_fwd": 0, "dense_layer_norm_tanh_bwd": 0}
+
+
+def _drop_cpu_shapes(k5):
+    """An agent's constructor runs its encoder once on a one-row sample while
+    its weights are still on the CPU (no launch): not a shape of the path."""
+    k5.shape_log = {s for s in k5.shape_log if s[2] != 1}
+
+
+def phase_cable_route_path(torch, device, card):
+    """examples/fused_cable_route.py at full width: the classifier's frames
+    (8 + 8 + 8 streams), LEARNED_REWARD_EPOCHS classifier steps with the loss
+    falling, the wrapper at threshold 0.75 over 20 expert demo streams, the
+    loop warmed up past its threshold, then 3 timed chunks of
+    LEARNED_REWARD_CHUNK; launches over all of it; the wrapper's reward
+    against classifier_fn on the stepped frames, env by env; the saved
+    classifier loaded on the CPU; where an iteration's device time goes."""
+    from serl_tpu_torch.envs.wrappers import add_stack_axis, serl_obs
+    from serl_tpu_torch.examples import fused_cable_route as fcr
+    from serl_tpu_torch.networks import classifier as cls
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+
+    args = fcr.parser().parse_args(CABLE_ARGV + ["--device", str(device)])
+    out = _Lines()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    env = fcr.PandaPoseTaskEnv(config=fcr.CABLE_ROUTE_CONFIG, image_obs=True,
+                               render_size=args.image_size, device=args.device)
+    expert = fcr.pose_expert(fcr.CABLE_ROUTE_CONFIG)
+    frames = fcr.classifier_frames(env, expert, args.seed)
+    state, cinfo = fcr.train_classifier(env, expert, args, out, frames=frames,
+                                        epochs=LEARNED_REWARD_EPOCHS)
+    torch.cuda.synchronize()
+    classifier_s = time.perf_counter() - t0
+    env, wrapped, agent, rb, config, init_fn, run_chunk, demo_state, info = fcr.build(
+        args, out, classifier=state)
+    _drop_cpu_shapes(k5)
+    carry = init_fn(agent, args.seed, demo_state=demo_state)
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = -(-threshold // config.num_envs)
+    carry, m = run_chunk(carry, warmup)
+    if float(m["critic_loss"][-1]) == 0.0:
+        raise AssertionError("the cable-route learner did not start at the training threshold")
+    before = [p.detach().clone() for p in agent.parameters()]
+    best, chunks = float("inf"), []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        carry, m = run_chunk(carry, LEARNED_REWARD_CHUNK)
+        float(m["reward_mean"][-1])  # waits for the chunk
+        best = min(best, time.perf_counter() - t1)
+        chunks.append(m)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    iters = warmup + 3 * LEARNED_REWARD_CHUNK
+    want = _cable_launches(config, LEARNED_REWARD_EPOCHS, iters, warmup)
+    env_steps_s = LEARNED_REWARD_CHUNK * config.num_envs / best
+    updates_s = LEARNED_REWARD_CHUNK * config.utd_ratio * config.updates_per_iter / best
+    demo_frac = info["demo_successes"] / (args.num_demos * env.time_limit_steps)
+    print(f"cable route path: classifier data {cinfo['positives']} positives, "
+          f"{cinfo['negatives']} negatives; {LEARNED_REWARD_EPOCHS} classifier steps, loss "
+          f"{cinfo['first_loss']:.4f} -> {cinfo['loss']:.4f}, accuracy {cinfo['accuracy']:.3f} "
+          f"({classifier_s:.2f} s with the frames); {args.num_demos} demo streams through the "
+          f"wrapper: {info['demo_episodes']} episodes, classifier-success-step frac "
+          f"{demo_frac:.3f}; {warmup} warm-up iterations, then 3 chunks of "
+          f"{LEARNED_REWARD_CHUNK}): best chunk {best:.4f} s (host clock ending in a read): "
+          f"{env_steps_s:.1f} env-steps/s, {updates_s:.1f} critic updates/s; launches "
+          f"{json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the cable-route path, got {launches}")
+    if not cinfo["loss"] < cinfo["first_loss"]:
+        raise AssertionError(f"the classifier's loss did not fall: {cinfo}")
+    learner = {k: torch.cat([c[k] for c in chunks])
+               for k in ("critic_loss", "actor_loss", "temperature", "entropy")}
+    params = list(agent.parameters())
+    checks = {"losses finite and non-zero": all(bool((torch.isfinite(v) & (v != 0)).all())
+                                                for v in learner.values()),
+              "params moved": all(not torch.equal(p, q) for p, q in zip(params, before)),
+              "params finite": all(bool(torch.isfinite(p).all()) for p in params)}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"cable route path checks failed: {bad}")
+
+    # the wrapper's reward is classifier_fn's verdict on the stepped frames, env by env
+    fn = cls.classifier_fn(state)
+    with torch.no_grad():
+        actions = carry.agent.sample_actions(add_stack_axis(carry.obs, fcr.IMAGE_KEYS),
+                                             generator=carry.rng)
+    _, _, reward, done, winfo = wrapped.step_auto_reset(carry.env_states, actions,
+                                                        generator=carry.rng)
+    frames16 = winfo["final_obs"]["images"][fcr.CLS_KEY]
+    logits = fn({fcr.CLS_KEY: frames16.unsqueeze(1)})
+    prob = torch.sigmoid(logits)
+    clear = (prob - fcr.THRESHOLD).abs() > 1e-6
+    verdict = (prob >= fcr.THRESHOLD).float()
+    if not torch.equal(reward[clear], verdict[clear]) or not torch.equal(reward, winfo["success"]):
+        raise AssertionError(f"the wrapper's reward {reward.tolist()} is not classifier_fn's "
+                             f"verdict {verdict.tolist()} on the stepped frames")
+
+    # the classifier's file, loaded on the CPU
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "classifier.pkl")
+        cls.save_classifier(state, path)
+        sample = {fcr.CLS_KEY: frames16[:1].unsqueeze(1).cpu()}
+        cpu_state = cls.create_classifier(sample, (fcr.CLS_KEY,), encoder_type="small",
+                                          device="cpu")
+        cls.load_classifier_params(cpu_state, cls.classifier_tree(state))
+        cpu_fn = cls.load_classifier_func(sample, (fcr.CLS_KEY,), path, encoder_type="small",
+                                          device="cpu")
+    cpu_frames = {fcr.CLS_KEY: frames16.unsqueeze(1).cpu()}
+    cpu_logits = cpu_fn(cpu_frames)
+    exact = all(torch.equal(a.cpu(), b) for a, b in zip(state.params, cpu_state.params))
+    # the allowance: what bf16 convolutions alone change, on the CPU (fp32 vs bf16)
+    enc = cpu_state.classifier.encoder_def.encoders[fcr.CLS_KEY]
+    enc.compute_dtype = torch.float32
+    fp32_logits = cls.classifier_fn(cpu_state)(cpu_frames)
+    allowed = (cpu_logits - fp32_logits).abs()
+    err = (logits.cpu() - cpu_logits).abs()
+    file_summary = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                    "bf16_max": float(allowed.max()), "bf16_mean": float(allowed.mean()),
+                    "factor": CLASSIFIER_FILE_FACTOR, "max_abs_logit": float(logits.abs().max())}
+    print(f"cable route: the wrapper's reward equals classifier_fn's verdict on the stepped "
+          f"frames in all {int(clear.sum())} of {reward.numel()} envs outside 1e-6 of the "
+          f"threshold ({int(reward.sum())} successes); the saved classifier loaded on the CPU by "
+          f"load_classifier_func: params {'bit for bit' if exact else 'DIFFER'}, logits of "
+          f"{reward.numel()} frames against the card's {json.dumps(file_summary)} (the card may "
+          f"differ by {CLASSIFIER_FILE_FACTOR} x what bf16 convolutions change on the CPU)")
+    if not exact or not (err.max() <= CLASSIFIER_FILE_FACTOR * allowed.max() + 1e-6
+                         and err.mean() <= CLASSIFIER_FILE_FACTOR * allowed.mean() + 1e-6):
+        raise AssertionError(f"the classifier's file on the CPU disagrees: {file_summary}")
+    # what the wrapper adds to an env step: the classifier's pass and a
+    # second render (per call between CUDA events, host launch time included;
+    # device time from torch.profiler)
+    from serl_tpu_torch.envs import rendering
+
+    states, g = carry.env_states, torch.Generator(device=device).manual_seed(7)
+    cls_in = {fcr.CLS_KEY: frames16.unsqueeze(1)}
+    split = {
+        "classifier_ms": per_call_ms(lambda: fn(cls_in), 50),
+        "classifier_device_ms": profiled_kernel_ms(lambda: fn(cls_in), 20, ""),
+        "render_ms": per_call_ms(lambda: rendering.render_cameras(states.physics, PIXEL_SIZE), 50),
+        "wrapped_step_ms": per_call_ms(lambda: wrapped.step_auto_reset(
+            states, actions, generator=g, final_obs=False), 10),
+        "env_step_ms": per_call_ms(lambda: env.step_auto_reset(
+            states, actions, generator=g, final_obs=False), 10)}
+    print(f"cable route: a wrapped env step against the inner env's, {config.num_envs} envs: "
+          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} [{card}]")
+    box = [carry]
+
+    def run(n):
+        box[0], _ = run_chunk(box[0], n)
+
+    print_busy_share(torch, "cable route loop", run, card, ("K1", "K2", "K3", "K4", "K5"))
+    return launches, want, dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best,
+                                step_split=split,
+                                classifier=cinfo, demo_frac=demo_frac,
+                                demo_episodes=info["demo_episodes"], file=file_summary)
+
+
+def phase_vice_path(torch, device, card):
+    """examples/vice_online.py at full width: the goal frames, create_vice,
+    the loop warmed up past its threshold and one chunk of
+    LEARNED_REWARD_CHUNK (VICE rewards in update_high_utd), then
+    VICE_UPDATES update_vice calls, the last under
+    torch.cuda.set_sync_debug_mode("error"), and one 16-episode evaluation;
+    exact launches; the vice head moved, its encoders did not (no gradient
+    reaches them, and Adam's zero-gradient steps on zero moments move
+    nothing); bce_loss and grad_norm finite."""
+    from serl_tpu_torch.examples import vice_online as vo
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+
+    args = vo.parser().parse_args(VICE_ARGV + ["--device", str(device)])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    env, agent, rb, config, init_fn, run_chunk, goals, n_goals = vo.build(args, _Lines())
+    _drop_cpu_shapes(k5)
+    carry = init_fn(agent, args.seed)
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    warmup = -(-threshold // config.num_envs)
+    carry, _ = run_chunk(carry, warmup + LEARNED_REWARD_CHUNK)
+    vice_params = dict(agent.vice.named_parameters())
+    before = {k: p.detach().clone() for k, p in vice_params.items()}
+    g = torch.Generator(device=device).manual_seed(5)
+    infos = []
+    for i in range(VICE_UPDATES):
+        if i == VICE_UPDATES - 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            batch = vo.vice_batch(rb, carry.rb_state, goals, n_goals, args.num_envs,
+                                  args.vice_batch, g)
+            _, vinfo = agent.update_vice(batch, generator=g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        infos.append(vinfo["vice"])
+    p_succ, v_rate = vo.eval_rollout(env, agent, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = _vice_launches(config, warmup + LEARNED_REWARD_CHUNK, warmup, VICE_UPDATES)
+    head = {k for k in vice_params if k.startswith("head.")}
+    moved = {k for k, p in vice_params.items() if not torch.equal(p, before[k])}
+    bce = [float(i["bce_loss"]) for i in infos]
+    gn = [float(i["grad_norm"]) for i in infos]
+    print(f"VICE path ({n_goals} goal frames; {warmup} warm-up iterations and a chunk of "
+          f"{LEARNED_REWARD_CHUNK}; {VICE_UPDATES} update_vice calls, the last under "
+          f"set_sync_debug_mode('error')): bce_loss {bce}, grad_norm {gn}; the vice head's "
+          f"{len(head)} tensors moved: {moved == head}; evaluation: pose success {p_succ:.3f}, "
+          f"VICE-rated share {v_rate:.3f}; {seconds:.2f} s; launches {json.dumps(launches)} "
+          f"[{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the VICE path, got {launches}")
+    if moved != head or not all(math.isfinite(x) for x in bce + gn):
+        raise AssertionError(f"VICE path checks failed: moved {sorted(moved)}, bce {bce}, "
+                             f"grad_norm {gn}")
+    return launches, want, dict(bce=bce, grad_norm=gn, seconds=seconds, goals=n_goals)
+
+
+def phase_bc_path(torch, device, card):
+    """record_demo.py -> bc_policy.py on the pick env: 20 expert demos (30
+    episodes recorded), BC_STEPS BC steps (batch 256) with the NLL falling,
+    then evaluate_batched over 32 episodes; exact launches, no K5."""
+    from serl_tpu_torch.common.evaluation import evaluate_batched
+    from serl_tpu_torch.data.dataset import Dataset
+    from serl_tpu_torch.envs.panda_pick import PandaPickCubeEnv
+    from serl_tpu_torch.examples import bc_policy, record_demo
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rargs = record_demo.parser().parse_args(["--device", str(device)])
+    trs, keep = record_demo.record(rargs)
+    trs = {k: v for k, v in trs.items() if k not in ("ep_ids", "success")}
+    ds = Dataset(trs, device=device)
+    agent = bc_policy.make_agent(ds, 0)
+    nll = bc_policy.train(agent, ds, BC_STEPS, 256, 0, log=lambda s: None)
+    env = PandaPickCubeEnv(device=device)
+    stats = evaluate_batched(env, agent, torch.Generator(device=device).manual_seed(99),
+                             num_episodes=32)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = _bc_launches()
+    first, last = float(nll[:50].mean()), float(nll[-50:].mean())
+    print(f"BC path: {keep} demo transitions ({keep // 100} successful demos of 30), {BC_STEPS} "
+          f"steps: NLL {first:.3f} (first 50) -> {last:.3f} (last 50); evaluate_batched over 32 "
+          f"episodes {json.dumps(stats)}; {seconds:.2f} s; launches {json.dumps(launches)} "
+          f"[{card}]")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the BC path, got {launches}")
+    if not (last < first and math.isfinite(stats["return_mean"])):
+        raise AssertionError("BC's NLL did not fall or its evaluation is not finite")
+    return launches, want, dict(nll_first=first, nll_last=last, eval=stats, seconds=seconds,
+                                demos=keep // 100)
+
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -2560,7 +3008,8 @@ def main(kernels_only: bool = False) -> int:
 
     # phase 2: every kernel against its plain version
     errs = {"K1": max(phase_kernel_vs_plain(torch, engine, checks, device),
-                      phase_k1_pose_vs_plain(torch, engine, checks, device)),
+                      phase_k1_pose_vs_plain(torch, engine, checks, device),
+                      phase_learned_reward_kernels_vs_plain(torch, engine, checks, k2, device)),
             "K2": phase_k2_vs_plain(torch, checks, k2, k2_libs, device),
             "K3": phase_k3_vs_plain(torch, device),
             "K4": phase_k4_vs_plain(torch, device),
@@ -2599,6 +3048,15 @@ def main(kernels_only: bool = False) -> int:
     t_new = time.perf_counter()
     peg_launches, peg_per_update, peg_info = phase_peg_pixel_path(torch, device, card)
     new_s["peg_pixels"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    cable_launches, cable_want, cable_info = phase_cable_route_path(torch, device, card)
+    new_s["cable_route"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    vice_launches, vice_want, vice_info = phase_vice_path(torch, device, card)
+    new_s["vice"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    bc_launches, bc_want, bc_info = phase_bc_path(torch, device, card)
+    new_s["bc"] = time.perf_counter() - t_new
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -2622,13 +3080,16 @@ def main(kernels_only: bool = False) -> int:
                                                   BENCH_RESNET["updates_per_iter"]),
                 "resnet_trained": {k: v // RESNET_TRAINED_UPDATES
                                    for k, v in trained_launches.items()},  # per update_high_utd
-                "pcb": pcb_per_update, "peg_pixels": peg_per_update}  # per updating iteration
+                "pcb": pcb_per_update, "peg_pixels": peg_per_update,  # per updating iteration
+                # the learned-reward paths: whole paths, as the actor's
+                "cable_route": cable_want, "vice": vice_want, "bc": bc_want}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
                             "pixel_rlpd": pixel_rlpd_launches_path, "resnet": resnet_launches,
                             "resnet_trained": trained_launches, "pcb": pcb_launches,
-                            "peg_pixels": peg_launches},
+                            "peg_pixels": peg_launches, "cable_route": cable_launches,
+                            "vice": vice_launches, "bc": bc_launches},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
@@ -2656,7 +3117,14 @@ def main(kernels_only: bool = False) -> int:
           f"and resume {pcb_info['runs_s']:.2f} s. Peg (pixels): {peg_info['demo_successes']} of "
           f"{peg_info['demo_episodes']} expert episodes succeeded; {peg_info['env_steps_s']:.1f} "
           f"env-steps/s, {peg_info['updates_s']:.1f} critic updates/s [{card}]")
-    print("the pixel RLPD, ResNet, trained ResNet, pose and K5 timing phases' seconds (host clock): "
+    print(f"cable route: {cable_info['env_steps_s']:.1f} env-steps/s, "
+          f"{cable_info['updates_s']:.1f} critic updates/s; classifier "
+          f"{json.dumps(cable_info['classifier'])}; demo classifier-success-step frac "
+          f"{cable_info['demo_frac']:.3f}. VICE: bce_loss {vice_info['bce']}, grad_norm "
+          f"{vice_info['grad_norm']}. BC: NLL {bc_info['nll_first']:.3f} -> "
+          f"{bc_info['nll_last']:.3f}, eval {json.dumps(bc_info['eval'])} [{card}]")
+    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward and K5 timing phases' "
+          "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
            or m == "serl_tpu"]

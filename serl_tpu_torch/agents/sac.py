@@ -61,8 +61,7 @@ NETWORKS = frozenset({"actor", "critic", "temperature"})
 
 
 class SACConfig(NamedTuple):
-    """Static agent configuration: the JAX package's SACConfig (its VICE
-    field comes with that agent)."""
+    """Static agent configuration: the JAX package's SACConfig."""
 
     discount: float = 0.95
     soft_target_update_rate: float = 0.005
@@ -75,6 +74,7 @@ class SACConfig(NamedTuple):
     augment: bool = True  # DrQ random crop of update batches
     # weight of the Q-filtered BC term on the actor (0 = off): see policy_loss_fn
     bc_regularization: float = 0.0
+    vice_image_keys: Tuple[str, ...] = ()  # the VICE classifier's cameras (agents/vice.py)
 
 
 def _map(fn, tree):
@@ -253,6 +253,15 @@ class SACAgent(nn.Module):
     # Updates
     # ------------------------------------------------------------------ #
 
+    def loss_fns(self, batch: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor]) -> Dict:
+        """Every train-state group's loss on `batch` (a subclass adds its own
+        groups; `update` zeroes the groups it does not update)."""
+        return {
+            "critic": partial(self.critic_loss_fn, batch, draws),
+            "actor": partial(self.policy_loss_fn, batch, draws),
+            "temperature": partial(self.temperature_loss_fn, batch, draws),
+        }
+
     def update_draws(self, batch_size: int, networks_to_update: FrozenSet[str] = NETWORKS,
                      generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """The random numbers one `update` of these networks reads."""
@@ -309,12 +318,8 @@ class SACAgent(nn.Module):
             raise ValueError(f"unknown networks {sorted(networks_to_update - NETWORKS)}")
         if draws is None:
             draws = self.update_draws(batch_size, networks_to_update, generator)
-        loss_fns = {
-            "critic": partial(self.critic_loss_fn, batch, draws),
-            "actor": partial(self.policy_loss_fn, batch, draws),
-            "temperature": partial(self.temperature_loss_fn, batch, draws),
-        }
-        for key in NETWORKS - networks_to_update:
+        loss_fns = self.loss_fns(batch, draws)
+        for key in set(loss_fns) - networks_to_update:
             loss_fns[key] = None
         info = self.state.apply_loss_fns(loss_fns)
         if "critic" in networks_to_update:

@@ -27,7 +27,9 @@ cameras' frames (K2) and no "block_pos" (10-dim proprio). The roll of
 it is the JAX package's observation, kept as it is.
 
 Not ported: `BinRelocationEnv` (it needs K1's obstacle contacts) raises,
-and with it the dense-shaping and object-placement hooks only it uses.
+and with it the dense-shaping reward and object-placement hooks only it
+uses; `dense_shaping = True` on a pose task only turns off the early
+termination on success, as in the JAX package.
 """
 
 import math
@@ -147,6 +149,9 @@ class PandaPoseTaskEnv:
         # `_demo_reset_prob` an episode starts from a random bank state
         self._demo_bank: Optional[EnvState] = None
         self._demo_reset_prob = 0.0
+        # True: success no longer ends an episode (the reward stays the
+        # sparse one here; vice_online sets it to run whole episodes)
+        self.dense_shaping = False
 
     def set_demo_reset_bank(self, bank: EnvState, prob: float) -> None:
         """`bank`: an EnvState whose leading axis is the bank's (M, ...)
@@ -245,7 +250,8 @@ class PandaPoseTaskEnv:
         success = self._success(new_state)
         reward = self._reward(success, gripper_moved)
         done = (new_state.t >= self.config.time_limit_steps).to(torch.float32)
-        done = torch.maximum(done, success)  # success ends the episode
+        if not self.dense_shaping:
+            done = torch.maximum(done, success)  # success ends the episode
         return new_state, reward, done, {"success": success}
 
     def _reward(self, success: torch.Tensor, gripper_moved: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,12 @@ names flax's `ObsEncoder.init` gives (`make_image_encoders` names each
 camera's encoder after its key; one encoder shared by several keys sits
 under the first key's name).
 
+A VICE agent's "vice" group is the VICEClassifier's tree ({"encoders_<key>",
+"Dense_0", "LayerNorm_0", "Dense_1"}); a BinaryClassifier's is
+{"encoder_def": <ObsEncoder tree>, "Dense_0", "LayerNorm_0", "Dense_1"}
+(`classifier_pairs`), and a BC agent's actor the SAC actor's
+(`actor_pairs`).
+
 `load_train_state` / `train_state_to_jax_layout` carry the whole learner
 state: params, the target critic and each group's optimizer state, as
     {"params": <tree above>, "target_params": {"critic": <critic tree>},
@@ -133,20 +139,59 @@ def _encoder_pairs(encoder, root=("critic", "encoder")):
     return out
 
 
+def actor_pairs(actor, root=("actor",)):
+    """(flax path, tensor, layout) of a PolicyNet's parameters."""
+    out = []
+    for i, layer in enumerate(actor.trunk.dense):
+        out += _dense(root + ("MLP_0", f"Dense_{i}"), layer)
+    for i, norm in enumerate(actor.trunk.norms or []):
+        out += _norm(root + ("MLP_0", f"LayerNorm_{i}"), norm)
+    out += _dense(root + ("Dense_0",), actor.mean)
+    if actor.std_head is not None:
+        out += _dense(root + ("Dense_1",), actor.std_head)
+    if actor.log_stds is not None:
+        out += [(root + ("log_stds",), actor.log_stds, None)]
+    return out
+
+
+def _classifier_head_pairs(head, root=()):
+    """The classifier head's Dense_0, LayerNorm_0 and Dense_1 (networks/classifier.py)."""
+    return (_dense(root + ("Dense_0",), head.dense) + _norm(root + ("LayerNorm_0",), head.norm)
+            + _dense(root + ("Dense_1",), head.out))
+
+
+def classifier_pairs(classifier):
+    """(flax path, tensor, layout) of a BinaryClassifier: its ObsEncoder under
+    "encoder_def" (cameras as "encoders_<key>"), then the head."""
+    return (_encoder_pairs(classifier.encoder_def, root=("encoder_def",))
+            + _classifier_head_pairs(classifier.head))
+
+
+def vice_pairs(vice, root=()):
+    """(flax path, tensor, layout) of a VICEClassifier (agents/vice.py): each
+    camera's encoder as "encoders_<key>", then the head."""
+    out = []
+    for key in vice.image_keys:
+        out += _camera_pairs(root + (f"encoders_{key}",), vice.encoders[key])
+    return out + _classifier_head_pairs(vice.head, root)
+
+
+def pairs_to_tree(pairs) -> Dict:
+    """The flax tree (numpy leaves) of `pairs`' tensors."""
+    tree = {}
+    for path, tensor, layout in pairs:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_jax(tensor.detach().cpu(), layout).numpy().copy()
+    return tree
+
+
 def _pairs(agent: SACAgent):
     """(jax path, torch tensor, layout) for every parameter; layout None
-    (as it is), "T" (transposed) or "HWIO" (conv kernel)."""
-    out = []
-    actor = agent.actor
-    for i, layer in enumerate(actor.trunk.dense):
-        out += _dense(("actor", "MLP_0", f"Dense_{i}"), layer)
-    for i, norm in enumerate(actor.trunk.norms or []):
-        out += _norm(("actor", "MLP_0", f"LayerNorm_{i}"), norm)
-    out += _dense(("actor", "Dense_0"), actor.mean)
-    if actor.std_head is not None:
-        out += _dense(("actor", "Dense_1"), actor.std_head)
-    if actor.log_stds is not None:
-        out += [(("actor", "log_stds"), actor.log_stds, None)]
+    (as it is), "T" (transposed) or "HWIO" (conv kernel). A VICE agent's
+    "vice" group comes last."""
+    out = actor_pairs(agent.actor)
     if agent.encoder is not None:
         out += _encoder_pairs(agent.encoder)
     head = ("critic", "head")
@@ -159,6 +204,8 @@ def _pairs(agent: SACAgent):
     out += [(head + ("EnsembleDense_0", "kernel"), critic.head.kernel, None),
             (head + ("EnsembleDense_0", "bias"), critic.head.bias, None)]
     out += [(("temperature", "raw"), agent.temperature_raw, None)]
+    if getattr(agent, "vice", None) is not None:
+        out += vice_pairs(agent.vice, ("vice",))
     return out
 
 
@@ -195,12 +242,8 @@ def load_sac_params(agent: SACAgent, params_np: Dict) -> SACAgent:
 def to_jax_layout(agent: SACAgent) -> Dict:
     """The inverse of `load_sac_params`: the agent's params as the JAX
     package's nested dict of numpy arrays."""
-    tree = {"critic": {"encoder": {}}}
-    for path, tensor, layout in _pairs(agent):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = _to_jax(tensor.detach().cpu(), layout).numpy().copy()
+    tree = pairs_to_tree(_pairs(agent))
+    tree["critic"].setdefault("encoder", {})
     return tree
 
 

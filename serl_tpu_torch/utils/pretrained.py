@@ -63,9 +63,10 @@ def _leaves(tree, prefix=()):
     return {prefix: tree}
 
 
-def load_resnet10_params(agent, image_keys: Tuple[str, ...] = ("image",)):
-    """Copy the pickle's ResNet-10 into each camera's `pretrained_encoder`
-    (and into the target critic), in place; returns the agent."""
+def graft_resnet10(encoder, image_keys: Tuple[str, ...] = ("image",)):
+    """Copy the pickle's ResNet-10 into the `pretrained_encoder` of each
+    camera of the ObsEncoder `encoder`, in place; returns the tensors that
+    took the pickle's values."""
     path = find_params_file()
     if path is None:
         raise FileNotFoundError("resnet10_params.pkl not found (set SERL_RESNET10_PARAMS or "
@@ -76,7 +77,7 @@ def load_resnet10_params(agent, image_keys: Tuple[str, ...] = ("image",)):
     grafted = []  # the backbone tensors that took the pickle's values
     count = 0
     for key in image_keys:
-        enc = agent.encoder.encoders[key]
+        enc = encoder.encoders[key]
         if not isinstance(enc, PreTrainedResNetEncoder):
             raise KeyError(f"encoder_{key} has no pretrained_encoder to graft into")
         modules: Dict[str, list] = {}
@@ -105,6 +106,13 @@ def load_resnet10_params(agent, image_keys: Tuple[str, ...] = ("image",)):
             count += 1
     if count == 0:
         raise KeyError(f"no modules grafted from {path}")
+    return grafted
+
+
+def load_resnet10_params(agent, image_keys: Tuple[str, ...] = ("image",)):
+    """Copy the pickle's ResNet-10 into each camera's `pretrained_encoder`
+    (and into the target critic), in place; returns the agent."""
+    grafted = graft_resnet10(agent.encoder, image_keys)
     # the target critic starts from the same backbone
     group, targets = agent.state.params["critic"], agent.state.target_params["critic"]
     with torch.no_grad():

@@ -33,7 +33,11 @@ def test_torch_port_never_imports_jax_or_serl_tpu():
     scanned = {str(path.relative_to(ROOT)) for path in files}
     for module in ("data/demos.py", "envs/scripted_expert.py", "training/runner.py",
                    "training/config.py", "common/logger.py", "utils/timer.py",
-                   "examples/fused_sac_state_sim.py", "examples/learning_check.py"):
+                   "examples/fused_sac_state_sim.py", "examples/learning_check.py",
+                   "networks/classifier.py", "agents/vice.py", "agents/bc.py",
+                   "data/dataset.py", "common/evaluation.py", "examples/fused_cable_route.py",
+                   "examples/vice_online.py", "examples/train_reward_classifier.py",
+                   "examples/record_demo.py", "examples/bc_policy.py"):
         assert f"serl_tpu_torch/{module}" in scanned, module
     for path in files:
         for mod in _imported_modules(path):
