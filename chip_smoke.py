@@ -26,9 +26,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      inputs (the peg env's settled resets with their per-env yaw, and after
      10 noisy pose-expert steps through the Euler box) at N = 16 and 2048,
      under the same rule, and at the cable-route env's inputs at 8, 16, 20 and
-     2048 envs, where K2 is held too; K2 (both -fmad builds)
+     2048 envs, where K2 is held too; K1 with the bin walls (its obstacle
+     input, M = 8) at N = 32 and 2048 at bin states (cubes pressed into
+     walls and corners, sunk into a wall's top, at its top edge: every set
+     with active obstacle contacts) under the same rule, repeated launches
+     bit for bit, and a launch with M = 0 equal bit for bit to one with no
+     table and to a build with the obstacle code compiled out; K2 (both -fmad builds)
      at N = 16 and 128, 128 px, on rollout and grasp states (cube in the
-     wrist camera's view) under the pixel rule of tests/torch_k2.py (failing
+     wrist camera's view), and at the fwbw paths' 32 chained envs on bin
+     states and on the chained env's states after a reset and 15, 40 and 80
+     expert steps (cube in the front camera's view), under the pixel rule of tests/torch_k2.py (failing
      the phase for the shipped build only), its scene rows (the kernel's
      debug output) within tests/torch_k2.py's SCENE_ATOL of pack_scene's,
      and one render under torch.cuda.set_sync_debug_mode("error"); K3 at
@@ -45,7 +52,11 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      rows, a base address 4 bytes off), and at the pixel RLPD path's
      online half (3,125 x 16, 512 rows of 128 px frames) and that half on
      the pixel path's ring, and at the pose tasks' pixel ring (1,250 x 16,
-     10-dim state, 7-dim actions; 512 rows and VICE's 80): exactly equal; K5 forward
+     10-dim state, 7-dim actions; 512 rows and VICE's 80), and on the fwbw
+     path's routed rings (6,250 x 32 from states, 625 x 32 of 128 px
+     frames, and the 600 x 16 demo rings of both; 512 rows each; unequal
+     stream sizes, one
+     stream never written): exactly equal; K5 forward
      and backward at every (form, E, M, K, D) of K5_SHAPES (the ResNet heads'
      bottleneck at K = 4,096 among them, and the shapes where the forward
      splits K over blocks) under the rule of tests/torch_k5.py, its
@@ -129,7 +140,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      finite; a 16-episode evaluation) and record_demo.py -> bc_policy.py
      (20 expert demos of the pick env, 500 BC steps with the NLL falling,
      evaluate_batched over 32 episodes; no K5 launch: the BC MLP has no
-     LayerNorm). Around each path
+     LayerNorm); the fwbw paths: examples/fused_fwbw_bin_relocation.py at
+     full width (32 chained envs, two learners at batch 256 x UTD 4, the
+     docstring's recipe): from states (16 demo streams of 100 of the
+     recipe's 600 chained-expert steps, the loop until both learners'
+     gates open, 3 timed chunks of 10, one evaluate_chained_env of 32
+     chains, where an iteration's time goes, the busy share), --pixels (3
+     chunks of 5) and --classifier_reward (the classifiers' frames, 20 of
+     800 steps, 1 chunk); a chained env step launches K1 six times, an
+     updating learner K4 twice; both learners' steps under
+     torch.cuda.set_sync_debug_mode("error"). Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -138,7 +158,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      shapes (calls back to back between one pair of CUDA events, and the
      kernel's device time from torch.profiler; K4's pixel gather also with
      L2 flushed before each call) beside its bound (K1 also beside its
-     critical path and ptxas's registers and spills; K2 beside its
+     critical path and ptxas's registers and spills, and with and without
+     the bin walls at N = 32 and 2048; K2 beside its
      operations per pixel, per (env, camera) and per env, the unhoisted
      count, and the device time of both -fmad builds), K5 also
      beside the torch sequence it replaced (Dense, bias, tanh(layer_norm),
@@ -242,6 +263,37 @@ PCB_ARGV = ["--bc_weight", "0.1", "--lr_decay", "--demo_reset_prob", "0.2"]
 POSE_CHUNK, POSE_CHUNKS, POSE_PAUSE_AT, POSE_EVAL_PERIOD = 16, 6, 4, 3
 POSE_DEMO_STREAMS, POSE_DEMO_MIN_SUCCESS = 20, 20
 POSE_K1_N = (16, 2048)
+# The fwbw path (examples/fused_fwbw_bin_relocation.py): K1 with the bin
+# walls held at FWBW_K1_N envs (the loop's 32 chained envs, and 2,048), and
+# beside the build with its obstacle code compiled out
+FWBW_K1_N = (32, 2048)
+K1_NO_OBSTACLES = ("-DSERL_NO_OBSTACLES",)
+# the fwbw phases: the recipe of the example's docstring (FWBW_ARGV), its
+# demos cut to FWBW_DEMO_STEPS of 600 steps a stream; timed chunks
+# (FWBW_CHUNK(S) from states, FWBW_PIXEL_CHUNK(S) from pixels; one chunk
+# with the classifiers after FWBW_CLASSIFIER_EPOCHS of the recipe's 800
+# steps); the pixel and classifier phases start training at the batch's
+# 1,024 rows (FWBW_CUT_ARGV) instead of 2,000; one evaluation of
+# FWBW_EVAL_CHAINS chains from states
+FWBW_ARGV = ["--bc_weight", "0.3", "--discount", "0.98", "--intervention_mode", "rescue",
+             "--intervention_prob", "0.02", "--intervention_decay_steps", "1500000",
+             "--intervention_min_prob", "0.008", "--fresh_reset_prob", "0.1"]
+FWBW_CUT_ARGV = ["--training_starts", "1024", "--random_steps", "1024"]
+FWBW_DEMO_STEPS = 100
+FWBW_CHUNK, FWBW_CHUNKS, FWBW_PIXEL_CHUNK, FWBW_PIXEL_CHUNKS = 10, 3, 5, 3
+FWBW_CLASSIFIER_EPOCHS, FWBW_EVAL_CHAINS, FWBW_MAX_WARMUP = 20, 32, 400
+FWBW_NOISE_LEVELS = (0.05, 0.2, 0.4, 0.8)  # the classifier frames' (the example's)
+# the routed rings: (slots, streams, rows) of the state ring's and the pixel
+# ring's online halves
+FWBW_K4_STATE = (6250, 32, 512)
+FWBW_K4_PIXEL = (625, 32, 512)
+# the demo rings: 600 slots (--demo_steps) x 16 streams, the 512-row demo half
+FWBW_K4_DEMO = (600, 16, 512)
+# K2 held at the 32 chained envs, after a reset and FWBW_K2_STEPS expert steps
+FWBW_K2_N = 32
+FWBW_K2_STEPS = (15, 40, 80)
+# K5 forwards of the pixel learner's Q-filtered BC term, per update_high_utd
+FWBW_PIXEL_BC_FWD = 5
 PEG_PIXEL_ARGV = ["--pixels"]
 PEG_PIXEL_CHUNK = 10
 # The learned-reward paths. Cable route (examples/fused_cable_route.py at its
@@ -340,6 +392,9 @@ K5_SHAPES = {
     # the reward classifier's bottleneck on the 20 demo streams' stepped frames
     # (its train step's 128 rows and the loop's 16 envs are held above)
     ("linear", 1, 20, 256, 256): (True, True),
+    # the fwbw pixel policies' proprio Dense acting on the 32 chained envs
+    # (their other layers, and the classifiers' bottleneck there, are held above)
+    ("linear", 1, 32, 10, 64): (True, False),
 }
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
@@ -902,12 +957,17 @@ def phase_learner_path(torch, device, card):
 
 def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk):
     g = torch.Generator(device=device).manual_seed(3)
+    noobs = _k1_no_obstacles_library(engine)
     rows = {}
     for n in BOUND_N:
         s = checks.rollout_states(n, g, device, steps=5)
         step = lambda: engine.control_step_cuda(s)
         ms = per_call_ms(step, calls=50)
         prof_ms = profiled_kernel_ms(step, calls=50, kernels="control_step_kernel")
+        # the build with the obstacle code compiled out, in the same run
+        step_free = lambda: engine.control_step_cuda(s, lib=noobs)
+        free_ms = per_call_ms(step_free, calls=50)
+        free_prof_ms = profiled_kernel_ms(step_free, calls=50, kernels="control_step_kernel")
         plain_ms = per_call_ms(lambda: engine.control_step_plain(s), calls=2, repeats=3)
         ops_per_env, path_per_env = checks.op_and_path_counts(s)
         ops = int(ops_per_env.sum())
@@ -915,9 +975,12 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
         bound_ms, bound_by = bound(bytes_moved, ops)
         rows[n] = dict(ms=ms, profiler_ms=prof_ms, plain_ms=plain_ms, ops=ops,
                        bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by,
-                       critical_path_ops=int(path_per_env.max()))
+                       critical_path_ops=int(path_per_env.max()),
+                       no_obstacle_code_ms=free_ms, no_obstacle_code_profiler_ms=free_prof_ms)
         print(f"K1 time, N={n}: kernel {ms:.4f} ms per launch (50 back to back, CUDA events; "
-              f"torch.profiler kernel time {prof_ms:.4f} ms), plain {plain_ms:.3f} ms per control "
+              f"torch.profiler kernel time {prof_ms:.4f} ms; the build with the obstacle code "
+              f"compiled out {free_ms:.4f}, device {free_prof_ms:.4f}), plain {plain_ms:.3f} "
+              f"ms per control "
               f"step; bound {bound_ms:.6f} ms by {bound_by} ({ops} fp32 ops "
               f"= {ops_per_env.min()}-{ops_per_env.max()} per env, counted in the kernel's code "
               f"by tests/k1_host.cpp; {bytes_moved} bytes); critical path (per phase the most "
@@ -1131,48 +1194,69 @@ def phase_k5_times(torch, k5_checks, device, card):
     return rows
 
 
+def _cube_frames(torch, frames) -> int:
+    """How many of the (N, H, W, 3) frames show the cube (purple: red = blue
+    > green)."""
+    w = frames.to(torch.int16)
+    cube = ((w[..., 0] - w[..., 2]).abs() <= 2) & (w[..., 0] > w[..., 1] + 10)
+    return int(cube.flatten(1).any(1).sum())
+
+
+def _k2_hold(torch, k2, builds, s, where: str, rule: dict):
+    """K2 on the states `s` against its plain version under the pixel rule
+    of tests/torch_k2.py, each build of `builds` (the first, the shipped one,
+    must hold), and each build's scene rows against pack_scene's. Returns
+    (the shipped build's worst level difference, the worst scene row error,
+    the plain frames); `rule` records which builds held."""
+    from serl_tpu_torch.envs import rendering
+
+    n = s.cube_pos.shape[0]
+    want = rendering.render_cameras_plain(s, PIXEL_SIZE)
+    shipped, worst, scene_err = next(iter(builds)), 0, 0.0
+    for label, lib in builds.items():
+        rows = torch.empty((n, rendering.SCENE_FLOATS), device=s.cube_pos.device)
+        got = rendering.render_cameras_cuda(s, PIXEL_SIZE, scene_out=rows, lib=lib)
+        torch.cuda.synchronize()
+        err = float((rows - rendering.pack_scene(s)).abs().max())
+        print(f"K2 ({label}) scene rows vs pack_scene, {where}: max abs err {err:.3g} "
+              f"(tolerance {k2.SCENE_ATOL})")
+        if err > k2.SCENE_ATOL:
+            raise AssertionError(f"K2 ({label}) scene rows, {where}: {err}")
+        scene_err = max(scene_err, err)
+        for cam, a, b in zip(IMAGE_KEYS, got, want):
+            failures, summary = k2.pixel_rule(a, b)
+            print(f"K2 ({label}) vs plain, {where}, {cam}: {json.dumps(summary)}")
+            rule[label] = rule[label] and not failures
+            if label == shipped:
+                if failures:
+                    raise AssertionError(f"K2, {where}, {cam}: " + "; ".join(failures))
+                worst = max(worst, summary["max_level_diff"])
+    return worst, scene_err, want
+
+
 def phase_k2_vs_plain(torch, checks, k2, builds, device):
     """K2 against its plain version at K2_N envs, 128 px, on rollout and
-    grasp states, under the pixel rule of tests/torch_k2.py, both -fmad
-    builds; the kernel's scene rows (its debug output) against pack_scene's;
-    one render under torch.cuda.set_sync_debug_mode("error")."""
+    grasp states, and at the fwbw paths' 32 chained envs on bin states
+    (phase_k2_bin_vs_plain), under the pixel rule of tests/torch_k2.py, both
+    -fmad builds; the kernel's scene rows (its debug output) against
+    pack_scene's; one render under torch.cuda.set_sync_debug_mode("error")."""
     from serl_tpu_torch.envs import rendering
 
     g = torch.Generator(device=device).manual_seed(2)
     worst, scene_err = 0, 0.0
     rule = {label: True for label in builds}
-    shipped = next(iter(builds))
     for n in K2_N:
         for source, make in (("rollout", checks.rollout_states), ("grasp", checks.grasp_states)):
             s = make(n, g, device)
-            want = rendering.render_cameras_plain(s, PIXEL_SIZE)
-            for label, lib in builds.items():
-                rows = torch.empty((n, rendering.SCENE_FLOATS), device=device)
-                got = rendering.render_cameras_cuda(s, PIXEL_SIZE, scene_out=rows, lib=lib)
-                torch.cuda.synchronize()
-                err = float((rows - rendering.pack_scene(s)).abs().max())
-                print(f"K2 ({label}) scene rows vs pack_scene, N={n}, {source} states: max abs "
-                      f"err {err:.3g} (tolerance {k2.SCENE_ATOL})")
-                if err > k2.SCENE_ATOL:
-                    raise AssertionError(f"K2 ({label}) scene rows N={n} {source}: {err}")
-                scene_err = max(scene_err, err)
-                for cam, a, b in zip(IMAGE_KEYS, got, want):
-                    failures, summary = k2.pixel_rule(a, b)
-                    print(f"K2 ({label}) vs plain, N={n}, {source} states, {cam}: "
-                          f"{json.dumps(summary)}")
-                    rule[label] = rule[label] and not failures
-                    if label == shipped:
-                        if failures:
-                            raise AssertionError(f"K2 N={n} {source} {cam}: " + "; ".join(failures))
-                        worst = max(worst, summary["max_level_diff"])
+            w, e, want = _k2_hold(torch, k2, builds, s, f"N={n}, {source} states", rule)
+            worst, scene_err = max(worst, w), max(scene_err, e)
             if source == "grasp":
-                # the cube (purple: red = blue > green) is in the wrist camera's view
-                w = want[1].to(torch.int16)
-                cube = ((w[..., 0] - w[..., 2]).abs() <= 2) & (w[..., 0] > w[..., 1] + 10)
-                envs = int(cube.flatten(1).any(1).sum())
+                envs = _cube_frames(torch, want[1])  # the cube in the wrist camera's view
                 print(f"K2 grasp states at N={n}: the cube is in {envs} of {n} wrist frames")
                 if envs < n // 2:
                     raise AssertionError(f"the cube is in view in only {envs} of {n} grasp frames")
+    w, e = phase_k2_bin_vs_plain(torch, checks, k2, builds, device, rule)
+    worst, scene_err = max(worst, w), max(scene_err, e)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1185,6 +1269,50 @@ def phase_k2_vs_plain(torch, checks, k2, builds, device):
           f"{json.dumps(rule)}; scene rows within {scene_err:.3g} of pack_scene's; a render ran "
           "under torch.cuda.set_sync_debug_mode('error'): nothing copied from the host")
     return worst, scene_err, rule
+
+
+def _chained_render_states(torch, device, n: int, g):
+    """The chained env's physics states at n envs, as the fwbw paths render
+    them: after a reset (each env's task drawn, the arm at its task's reset
+    pose, the cube in its source bin) and after FWBW_K2_STEPS steps of the
+    relocation expert with Gaussian noise (0.1) on its actions (the cube
+    grasped, lifted over the walls, carried, set down in the other bin)."""
+    from serl_tpu_torch.envs.chained_bin import ChainedBinEnv
+    from serl_tpu_torch.training.fwbw import chained_expert_action
+
+    env = ChainedBinEnv(device=device)
+    state, _ = env.reset(n, g)
+    out = {"chained reset": state.env.physics}
+    for step in range(1, max(FWBW_K2_STEPS) + 1):
+        noise = 0.1 * torch.randn((n, 7), generator=g, device=device)
+        state, *_ = env.step_auto_reset(state, chained_expert_action(env, state) + noise,
+                                        generator=g, final_obs=False)
+        if step in FWBW_K2_STEPS:
+            out[f"chained, {step} expert steps"] = state.env.physics
+    return out
+
+
+def phase_k2_bin_vs_plain(torch, checks, k2, builds, device, rule):
+    """K2 at the fwbw paths' width (FWBW_K2_N: the 32 chained envs whose
+    front frames the classifiers judge) on bin states: tests/torch_k1.py's
+    bin_states (cubes against the walls, in corners, over a wall's top, at
+    its top edge) and the chained env's own states (_chained_render_states),
+    both builds under the pixel rule; the cube must be in view of the front
+    camera in most envs. Returns (worst level difference, worst scene row
+    error)."""
+    g = torch.Generator(device=device).manual_seed(71)
+    n, worst, scene_err = FWBW_K2_N, 0, 0.0
+    sets = {f"{kind} bin states": s for kind, s in checks.bin_states(n, g, device).items()}
+    sets.update(_chained_render_states(torch, device, n, g))
+    for source, s in sets.items():
+        w, e, want = _k2_hold(torch, k2, builds, s, f"N={n}, {source}", rule)
+        worst, scene_err = max(worst, w), max(scene_err, e)
+        envs = _cube_frames(torch, want[0])
+        print(f"K2 {source} at N={n}: the cube is in {envs} of {n} front frames")
+        if envs < n // 2:
+            raise AssertionError(f"the cube is in view in only {envs} of {n} front frames "
+                                 f"({source})")
+    return worst, scene_err
 
 
 def phase_k3_vs_plain(torch, device):
@@ -2219,6 +2347,57 @@ def _pose_pre_step_states(torch, device, n: int, g, steps: int = 10, config=None
     return captured[0], captured[-1]
 
 
+def _k1_no_obstacles_library(engine):
+    """K1 built with its obstacle code compiled out (SERL_NO_OBSTACLES),
+    bound like the shipped build: the witness that a launch without
+    obstacles runs only the obstacle-free arithmetic."""
+    from serl_tpu_torch.native import build
+
+    return engine.bind_library(build.load_library("control_step", K1_NO_OBSTACLES))
+
+
+def phase_k1_bin_vs_plain(torch, engine, checks, device) -> float:
+    """K1 with the bin walls (the fwbw path's obstacle table) against its
+    plain version at bin states (tests/torch_k1.py::bin_states: cubes pressed
+    into walls and corners, sunk into a wall's top as when carried over it,
+    at a wall's top edge) at FWBW_K1_N envs, under tests/torch_k1.py's rule,
+    with active obstacle contacts in every set; two more launches equal bit
+    for bit; a launch with M = 0 equal bit for bit to one with
+    obstacles=None, and both to the build with the obstacle code compiled
+    out."""
+    from serl_tpu_torch.envs import tasks
+
+    walls = torch.as_tensor(tasks.bin_walls(), device=device)
+    noobs = _k1_no_obstacles_library(engine)
+    g = torch.Generator(device=device).manual_seed(41)
+    worst = 0.0
+    for n in FWBW_K1_N:
+        for kind, s in checks.bin_states(n, g, device).items():
+            active = engine.active_obstacle_contacts(s, walls)
+            envs = int(active.any(-1).any(-1).sum())
+            failures, summary, _ = checks.compare_step(engine.control_step_cuda, s, walls)
+            first = engine.control_step_cuda(s, walls)
+            again = engine.control_step_cuda(s, walls)
+            repeats = all(torch.equal(a, b) for a, b in zip(first, again))
+            none = engine.control_step_cuda(s)
+            m0 = engine.control_step_cuda(s, walls[:0])
+            before = engine.control_step_cuda(s, lib=noobs)
+            same = (all(torch.equal(a, b) for a, b in zip(m0, none))
+                    and all(torch.equal(a, b) for a, b in zip(none, before)))
+            print(f"K1 vs plain with the bin walls (M = {walls.shape[0]}), N={n}, {kind} states: "
+                  f"{int(active.sum())} corner-box contacts in {envs} envs; max abs err "
+                  f"{fmt(summary['max_err'])}; envs beyond the tight tolerance "
+                  f"{summary['envs_over_atol']} (at most {summary['budget']}); repeated launches "
+                  f"equal bit for bit: {repeats}; M = 0, obstacles=None and the build without "
+                  f"obstacle code equal bit for bit: {same}")
+            if failures or not repeats or not same:
+                raise AssertionError(f"K1 bin N={n} {kind}: {failures or 'launches differ'}")
+            if envs < n // 2:
+                raise AssertionError(f"K1 bin N={n} {kind}: only {envs} envs touch a wall")
+            worst = max(worst, max(summary["max_err"].values()))
+    return worst
+
+
 def phase_k1_pose_vs_plain(torch, engine, checks, device) -> float:
     """K1 against its plain version at pose-task inputs (per-env orientation
     targets: yaw +-pi/6 on peg, roll at pi) under tests/torch_k1.py's rule,
@@ -2830,6 +3009,354 @@ def phase_bc_path(torch, device, card):
 
 
 
+# ---------------------------------------------------------------- fwbw
+
+
+def phase_k4_routed_vs_plain(torch, device):
+    """K4 on the fwbw path's routed rings against its plain version, exactly:
+    the state ring (FWBW_K4_STATE: 6,250 x 32 slots, the 512-row online half
+    of a 1,024-row batch), the pixel ring (FWBW_K4_PIXEL: 625 x 32, 128 px,
+    512 rows) and the state and pixel demo rings (FWBW_K4_DEMO: 600 x 16,
+    the 512-row demo half), each with
+    unequal stream sizes: a stream never written (it samples its cursor
+    slot, a zero row with ep_id -1), short ones, full wrapped ones, and
+    cursors anywhere; offsets drawn by RoutedReplayBuffer.sample."""
+    from serl_tpu_torch.data import replay_buffer as rbm
+    from serl_tpu_torch.data.routed_buffer import RoutedBufferState, RoutedReplayBuffer
+
+    g = torch.Generator(device=device).manual_seed(61)
+    for label, slots, streams, rows, pixels in (
+            ("state", *FWBW_K4_STATE, False), ("state demo", *FWBW_K4_DEMO, False),
+            ("pixel", *FWBW_K4_PIXEL, True), ("pixel demo", *FWBW_K4_DEMO, True)):
+        if pixels:
+            data, _, _ = _pixel_ring(torch, device, g, slots, streams, state_dim=10, action_dim=7)
+            example = {"observations": {"state": torch.zeros(10),
+                                        **{k: torch.zeros((PIXEL_SIZE, PIXEL_SIZE, 3),
+                                                          dtype=torch.uint8) for k in IMAGE_KEYS}},
+                       "actions": torch.zeros(7), "rewards": torch.zeros(()),
+                       "masks": torch.zeros(()), "dones": torch.zeros(())}
+            rb = RoutedReplayBuffer(example, slots * streams, store_next_obs=False,
+                                    image_keys=IMAGE_KEYS, device=device)
+        else:
+            data = {k: torch.randn((slots, streams) + shape, generator=g, device=device)
+                    for k, shape in (("observations", (13,)), ("actions", (7,)),
+                                     ("next_observations", (13,)), ("rewards", ()),
+                                     ("masks", ()), ("dones", ()))}
+            rb = RoutedReplayBuffer({k: v[0, 0] for k, v in data.items()}, slots * streams,
+                                    device=device)
+        size = torch.randint(2, slots + 1, (streams,), generator=g, device=device)
+        size[0], size[1], size[2], size[3:6] = 0, 1, 2, slots  # empty, short, full
+        cursor = torch.randint(0, slots, (streams,), generator=g, device=device)
+        # each stream's rows: 100-slot episodes over its window, -1 outside it
+        age = (torch.arange(slots, device=device)[:, None] - cursor[None]) % slots  # 0 = oldest
+        first = slots - size
+        valid = age >= first[None]
+        stream = torch.arange(streams, device=device)
+        ep = ((age - first[None]) // 100) * streams + stream[None]
+        ep_id = torch.where(valid, ep, -1).to(torch.int32)
+        for leaf in [data] if not pixels else [data, data["observations"]]:
+            for k, v in leaf.items():
+                if isinstance(v, torch.Tensor):
+                    v[:, 0] = 0  # the never-written stream holds zeros
+        state = RoutedBufferState(data=data, insert_slot=cursor.long(), size=size.long(),
+                                  ep_id=ep_id)
+        r = rows // streams
+        sub = 0 if rb.store_next_obs else 1
+        n_valid = torch.clamp(state.size - sub, min=1)
+        u = torch.floor(torch.rand((r, streams), generator=g, device=device)
+                        * n_valid.float()).long()
+        before = rbm.gather_batch_aligned.launches
+        got = rb.sample(state, rows, u=u)
+        launched = rbm.gather_batch_aligned.launches - before
+        s2 = (state.insert_slot - state.size + u) % slots
+        want = rbm.gather_batch_aligned_plain(state.data, state.ep_id, s2, rb.store_next_obs,
+                                              rb.image_keys, rb.num_stack)
+        torch.cuda.synchronize()
+        if launched != 1:
+            raise AssertionError(f"K4 routed {label}: {launched} launches, want 1")
+        want = _to_cpu(want)
+        if _unequal(got, want):
+            raise AssertionError(f"K4 routed {label} differs from plain: {_unequal(got, want)}")
+        if not bool((want["rewards"][:r] == 0).all()) or not bool((s2[:, 0] == cursor[0]).all()):
+            raise AssertionError(f"K4 routed {label}: the empty stream did not sample its cursor")
+        print(f"K4 vs plain on the fwbw path's routed {label} ring ({slots} x {streams}, {rows} "
+              f"rows, stream sizes {size.min().item()}-{size.max().item()}, one stream empty): "
+              "exactly equal, one launch")
+    return 0.0
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def phase_k1_bin_times(torch, engine, checks, device, card):
+    """K1 per call with and without the wall table at FWBW_K1_N envs (corner
+    bin states: every env in contact), beside its plain version with the
+    walls and its bound from the operation count with the walls."""
+    from serl_tpu_torch.envs import tasks
+
+    walls = torch.as_tensor(tasks.bin_walls(), device=device)
+    g = torch.Generator(device=device).manual_seed(43)
+    rows = {}
+    for n in FWBW_K1_N:
+        s = checks.bin_states(n, g, device)["corner"]
+        with_walls = lambda: engine.control_step_cuda(s, walls)
+        without = lambda: engine.control_step_cuda(s)
+        ops = int(checks.op_counts(s, walls).sum())
+        ops_free = int(checks.op_counts(s).sum())
+        bytes_moved = (2 * sum(x.numel() * 4 for x in s) + engine.kernel_constants().nbytes
+                       + walls.numel() * 4)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        rows[n] = dict(ms=per_call_ms(with_walls, calls=50),
+                       profiler_ms=profiled_kernel_ms(with_walls, 50, "control_step_kernel"),
+                       ms_no_walls=per_call_ms(without, calls=50),
+                       profiler_ms_no_walls=profiled_kernel_ms(without, 50, "control_step_kernel"),
+                       plain_ms=per_call_ms(lambda: engine.control_step_plain(s, walls), calls=2,
+                                            repeats=3),
+                       ops=ops, ops_no_walls=ops_free, bytes=bytes_moved, bound_ms=bound_ms,
+                       bound_by=bound_by)
+        r = rows[n]
+        print(f"K1 time with the bin walls, N={n} (corner states): {r['ms']:.4f} ms per launch "
+              f"(device {r['profiler_ms']:.4f}); without the walls {r['ms_no_walls']:.4f} "
+              f"(device {r['profiler_ms_no_walls']:.4f}); plain with the walls "
+              f"{r['plain_ms']:.3f} ms; bound {bound_ms:.6f} ms by {bound_by} ({ops} fp32 ops with "
+              f"the walls, {ops_free} without; {bytes_moved} bytes) [{card}]")
+    return rows
+
+
+def _fwbw_per_update(args, config) -> dict:
+    """Launches of one learner's update per updating iteration: sample_mixed
+    (K4 for each half: the online half over its 32 streams, the demo half
+    over its 16), then update_high_utd (the state learner's K5 calls with the
+    BC term's critic pass, or the pixel learner's with a K3 crop)."""
+    u, k = config.utd_ratio, config.updates_per_iter
+    if args.pixels:
+        per = pixel_launches_per_iter(u, k)
+        fwd = per["dense_layer_norm_tanh_fwd"] - 5 + k * FWBW_PIXEL_BC_FWD * (args.bc_weight > 0)
+        return {"control_step": 0, "render": 0, "random_crop": k, "replay_gather": 2 * k,
+                "dense_layer_norm_tanh_fwd": fwd,
+                "dense_layer_norm_tanh_bwd": per["dense_layer_norm_tanh_bwd"]}
+    per = learner_launches_per_iter(u, k)
+    return {"control_step": 0, "render": 0, "random_crop": 0, "replay_gather": 2 * k,
+            "dense_layer_norm_tanh_fwd": per["dense_layer_norm_tanh_fwd"] - 2
+            + 2 * k * (args.bc_weight > 0),
+            "dense_layer_norm_tanh_bwd": per["dense_layer_norm_tanh_bwd"]}
+
+
+def _fwbw_launches(args, config, demo_steps: int, iters: int, updates: int, evals: int,
+                   limit: int = 100, classifier=None) -> dict:
+    """Launches over a fwbw path: the demos (a reset, then `demo_steps`
+    chained steps of the ground-truth env), the loop's reset, `iters`
+    iterations (a chained step: K1 six times, the observation's render with
+    pixels, with classifiers a front render and each classifier's K5
+    forward; both policies past random_steps: 2 K5 forwards each from
+    states, 5 from pixels), `updates` learner updates (both learners'
+    updating iterations), `evals` chained evaluations of FWBW_EVAL_CHAINS
+    (a reset, 2 x `limit` steps with both policies, a reset, `limit` with
+    the backward one; `limit` the episode length), and with `classifier` (epochs, frame
+    blocks, frame steps) their
+    frames (K1 six times and a render a step after a reset), train steps (K3,
+    K5 forward and backward) and the FP/FN report (a K5 forward a block).
+    A render call launches two kernels."""
+    from serl_tpu_torch.envs.tasks import SETTLE_STEPS as S
+
+    step = 1 + S
+    pixels, cls = int(args.pixels), classifier is not None
+    per_policy = 5 if pixels else 2
+    n = 2 * config.envs_per_task
+    random_iters = -(-config.random_steps // n)
+    acting = max(iters - random_iters, 0)
+    per = _fwbw_per_update(args, config)
+    counts = {
+        "control_step": S + step * demo_steps + S + step * iters
+        + evals * (2 * S + step * 3 * limit),
+        "render": 2 * (pixels * (1 + demo_steps) + pixels + (pixels + cls) * iters
+                       + evals * pixels * (2 + 3 * limit)),
+        "random_crop": updates * per["random_crop"],
+        "replay_gather": updates * per["replay_gather"],
+        "dense_layer_norm_tanh_fwd": 2 * per_policy * acting + 2 * cls * iters
+        + updates * per["dense_layer_norm_tanh_fwd"] + evals * per_policy * 5 * limit,
+        "dense_layer_norm_tanh_bwd": updates * per["dense_layer_norm_tanh_bwd"]}
+    if cls:
+        epochs, blocks, frame_steps = classifier
+        counts["control_step"] += len(FWBW_NOISE_LEVELS) * S + step * frame_steps
+        counts["render"] += 2 * frame_steps
+        counts["random_crop"] += 2 * epochs
+        counts["dense_layer_norm_tanh_fwd"] += 2 * epochs + blocks
+        counts["dense_layer_norm_tanh_bwd"] += 2 * epochs
+    return counts
+
+
+def phase_fwbw_path(torch, device, card, mode: str):
+    """examples/fused_fwbw_bin_relocation.py at full width (32 chained envs,
+    batch 256 x UTD 4 per learner, 10 critics subsampled to 2, the recipe of
+    the docstring), in `mode` "state", "pixels" (--pixels: DrQ on both 128
+    px cameras) or "classifier" (--classifier_reward: FWBW_CLASSIFIER_EPOCHS
+    of the recipe's 800 classifier steps, on the frames of 16 chained envs x
+    150 steps at each noise level): the demos (FWBW_DEMO_STEPS of the
+    recipe's 600 steps a stream), the loop warmed up until both learners'
+    gates are open (read on the host until then), timed chunks, and in state
+    mode one evaluate_chained_env of FWBW_EVAL_CHAINS chains. Exact launches
+    over the whole path (a chained step launches K1 six times; an updating
+    learner K4 twice), finite losses, both agents' params moved, a learner
+    step of each under torch.cuda.set_sync_debug_mode("error"); in state
+    mode where an iteration's time goes and the busy share."""
+    from serl_tpu_torch.examples import fused_fwbw_bin_relocation as ex
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+    from serl_tpu_torch.training.fwbw import evaluate_chained_env
+
+    chunk, chunks = {"state": (FWBW_CHUNK, FWBW_CHUNKS), "pixels": (FWBW_PIXEL_CHUNK,
+                                                                    FWBW_PIXEL_CHUNKS),
+                     "classifier": (FWBW_CHUNK, 1)}[mode]
+    argv = FWBW_ARGV + ["--device", str(device), "--demo_steps", str(FWBW_DEMO_STEPS)] + {
+        "state": [], "pixels": ["--pixels"] + FWBW_CUT_ARGV,
+        "classifier": ["--classifier_reward"] + FWBW_CUT_ARGV}[mode]
+    args = ex.parser().parse_args(argv)
+    out = _Lines()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    classifiers, cls_counts, cls_info = None, None, None
+    if mode == "classifier":
+        data = ex.classifier_frames(args, device, ex.CLASSIFIER_STREAMS, ex.CLASSIFIER_STEPS)
+        classifiers, cls_info = ex.train_fwbw_classifiers(args, out, device, data=data,
+                                                          epochs=FWBW_CLASSIFIER_EPOCHS)
+        block = 2 * ex.CLASSIFIER_HALF
+        blocks = sum(-(-int(lab.sum()) // block) + -(-int((1 - lab).sum()) // block)
+                     for lab in data[2:])
+        frame_steps = len(FWBW_NOISE_LEVELS) * ex.CLASSIFIER_STEPS
+        cls_counts = (FWBW_CLASSIFIER_EPOCHS, blocks, frame_steps)
+    (env, eval_env, rb, config, fw, bw, init_fn, run_chunk, demos,
+     info) = ex.build(args, out, classifiers=classifiers)
+    _drop_cpu_shapes(k5)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fw_demo, bw_demo, demo_rb = demos
+    carry = init_fn(fw, bw, args.seed, fw_demo=fw_demo, bw_demo=bw_demo, demo_rb=demo_rb)
+    history, warmup = [], 0
+    while carry.training != (True, True):
+        carry, m = run_chunk(carry, 1)
+        history.append(m)
+        warmup += 1
+        if warmup > FWBW_MAX_WARMUP:
+            raise AssertionError(f"fwbw {mode}: the gates did not open in {warmup} iterations")
+    before = [p.detach().clone() for a in (fw, bw) for p in a.parameters()]
+    n = 2 * config.envs_per_task
+    best = float("inf")
+    for _ in range(chunks):
+        t1 = time.perf_counter()
+        carry, m = run_chunk(carry, chunk)
+        float(m["reward_mean"][-1])  # waits for the chunk
+        best = min(best, time.perf_counter() - t1)
+        history.append(m)
+    evals, ev = 0, None
+    if mode == "state":
+        t1 = time.perf_counter()
+        ev = evaluate_chained_env(eval_env, carry.fw_agent, carry.bw_agent, 0,
+                                  num_episodes=FWBW_EVAL_CHAINS)
+        eval_s = time.perf_counter() - t1
+        evals = 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    iters = warmup + chunks * chunk
+    hist = {k: torch.cat([h[k].reshape(h[k].shape[0], -1) for h in history]).cpu()
+            for k in history[0]}
+    updating = {t: int((hist[f"{t}/critic_loss"] != 0).sum()) for t in ("fw", "bw")}
+    want = _fwbw_launches(args, config, FWBW_DEMO_STEPS, iters, sum(updating.values()), evals,
+                          env.time_limit_steps, cls_counts)
+    env_steps_s = chunk * n / best
+    updates_s = chunk * config.utd_ratio * 2 / best
+    print(f"fwbw {mode} path: build (demos {info['demos']}{', classifiers' if cls_info else ''}) "
+          f"{build_s:.2f} s; {warmup} warm-up iterations until both gates opened (fw updated "
+          f"{updating['fw']}, bw {updating['bw']} iterations), then {chunks} chunks of {chunk}: "
+          f"best chunk {best:.4f} s (host clock ending in a read): {env_steps_s:.1f} env-steps/s, "
+          f"{updates_s:.1f} critic updates/s (both learners); launches {json.dumps(launches)} "
+          f"[{card}]")
+    if cls_info:
+        print(f"fwbw classifiers: " + json.dumps(
+            {t: {k: v for k, v in c.items() if k != "state"} for t, c in cls_info.items()}))
+    if ev is not None:
+        print(f"fwbw evaluate_chained_env, {FWBW_EVAL_CHAINS} chains: {json.dumps(ev)} "
+              f"({eval_s:.2f} s)")
+    if launches != want:
+        raise AssertionError(f"expected launches {want} on the fwbw {mode} path, got {launches}")
+    last = {k: hist[k][-chunks * chunk:] for k in ("fw/critic_loss", "bw/critic_loss",
+                                                   "fw/actor_loss", "bw/actor_loss")}
+    params = [p for a in (carry.fw_agent, carry.bw_agent) for p in a.parameters()]
+    checks = {"losses finite and non-zero": all(bool((torch.isfinite(v) & (v != 0)).all())
+                                                for v in last.values()),
+              "params moved": all(not torch.equal(p, q) for p, q in zip(params, before)),
+              "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+              "rows in both rings": all(int(r.size.sum()) > 0 for r in (carry.fw_rb, carry.bw_rb)),
+              "evaluation in [0, 1]": ev is None or all(0.0 <= v <= 1.0 for v in ev.values())}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"fwbw {mode} path checks failed: {bad}")
+
+    # each learner's step never waits for the device once its gate is open
+    g = torch.Generator(device=device).manual_seed(17)
+    rows = config.batch_size * config.utd_ratio
+    steps = {"fw": lambda: carry.fw_agent.update_high_utd(
+                 rb.sample_mixed(carry.fw_rb, carry.fw_demo, rows, generator=g, buffer_b=demo_rb),
+                 utd_ratio=config.utd_ratio, generator=g),
+             "bw": lambda: carry.bw_agent.update_high_utd(
+                 rb.sample_mixed(carry.bw_rb, carry.bw_demo, rows, generator=g, buffer_b=demo_rb),
+                 utd_ratio=config.utd_ratio, generator=g)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in steps.values():
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # a chained env step launches K1 six times
+    k1_before = launch_counters()["control_step"].launches
+    acts = torch.zeros((n, env.ACTION_DIM), device=device)
+    env.step_auto_reset(carry.env_states, acts, generator=g, final_obs=False)
+    k1_step = launch_counters()["control_step"].launches - k1_before
+    print(f"fwbw {mode}: both learners' sample_mixed + update_high_utd ran under "
+          f"torch.cuda.set_sync_debug_mode('error'); a chained env step launched K1 {k1_step} "
+          "times")
+    if k1_step != 6:
+        raise AssertionError(f"a chained env step launched K1 {k1_step} times, want 6")
+    result = dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best,
+                  warmup=warmup, updating=updating, build_s=build_s, demos=info["demos"],
+                  evaluation=ev)
+    if mode != "state":
+        return launches, want, result
+    # where an iteration's time goes (single calls between CUDA events, host
+    # launch time included), and the loop's busy share
+    states, obs = carry.env_states, carry.obs
+    tr = {"observations": obs, "actions": acts, "rewards": acts[:, 0],
+          "masks": acts[:, 0], "dones": acts[:, 0], "next_observations": obs}
+    ep_ids = states.env.ep_id
+    parts = {
+        "acting (both policies)": lambda: (carry.fw_agent.sample_actions(obs, generator=g),
+                                           carry.bw_agent.sample_actions(obs, generator=g)),
+        "chained env step (6 K1, obs, reward, task graph, reset)": lambda: env.step_auto_reset(
+            states, acts, generator=g, final_obs=True),
+        "two masked inserts": lambda: (rb.insert(carry.fw_rb, tr, ep_ids, mask=states.task == 0),
+                                       rb.insert(carry.bw_rb, tr, ep_ids, mask=states.task == 1)),
+        "fw learner (sample_mixed + update_high_utd)": steps["fw"],
+        "bw learner (sample_mixed + update_high_utd)": steps["bw"],
+    }
+    split = {k: per_call_ms(fn, calls=1, repeats=10) for k, fn in parts.items()}
+    box = [carry]
+
+    def run(iters):
+        box[0], _ = run_chunk(box[0], iters)
+
+    split["whole loop iteration"] = per_call_ms(lambda: run(1), calls=1, repeats=10)
+    print(f"fwbw iteration at {n} chained envs, ms per call (median of 10 single calls between "
+          "CUDA events, host launch time included): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()}) + f" [{card}]")
+    print_busy_share(torch, "fwbw loop", run, card, ("K1", "K4", "K5"))
+    result["split"] = split
+    return launches, want, result
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -2974,7 +3501,8 @@ def main(kernels_only: bool = False) -> int:
 
     def nvcc():
         try:
-            build.build_all(build.KERNEL_SOURCES, [("render", K2_BUILDS[1][1])])
+            build.build_all(build.KERNEL_SOURCES, [("render", K2_BUILDS[1][1]),
+                                                   ("control_step", K1_NO_OBSTACLES)])
             built["s"] = time.perf_counter() - t0
         except Exception as exc:  # re-raised below, after the join
             built["error"] = exc
@@ -2997,22 +3525,25 @@ def main(kernels_only: bool = False) -> int:
     k5._library()
     t1 = time.perf_counter()
     ptxas = {}
-    for name, extra in [(name, None) for name in build.KERNEL_SOURCES] + [("render", K2_BUILDS[1][1])]:
+    for name, extra in ([(name, None) for name in build.KERNEL_SOURCES]
+                        + [("render", K2_BUILDS[1][1]), ("control_step", K1_NO_OBSTACLES)]):
         with open(build.ptxas_path(name, extra)) as f:
             ptxas[name if extra is None else f"{name} {' '.join(extra)}"] = " | ".join(
                 line.strip() for line in f if "registers" in line or "spill" in line)
-    print(f"K1-K5 built with nvcc ({', '.join(build.KERNEL_SOURCES)}, and render.cu with "
-          f"{K2_BUILDS[1][0]} beside the shipped {K2_BUILDS[0][0]}, in parallel) in "
+    print(f"K1-K5 built with nvcc ({', '.join(build.KERNEL_SOURCES)}, render.cu with "
+          f"{K2_BUILDS[1][0]} beside the shipped {K2_BUILDS[0][0]}, and control_step.cu with "
+          f"{' '.join(K1_NO_OBSTACLES)}, in parallel) in "
           f"{built['s']:.2f} s, all loaded after {t1 - t0:.2f} s; ptxas {json.dumps(ptxas)}; "
           f"K1's and K2's op-counting host builds (g++) meanwhile, done after {host_s:.2f} s")
 
     # phase 2: every kernel against its plain version
     errs = {"K1": max(phase_kernel_vs_plain(torch, engine, checks, device),
                       phase_k1_pose_vs_plain(torch, engine, checks, device),
-                      phase_learned_reward_kernels_vs_plain(torch, engine, checks, k2, device)),
+                      phase_learned_reward_kernels_vs_plain(torch, engine, checks, k2, device),
+                      phase_k1_bin_vs_plain(torch, engine, checks, device)),
             "K2": phase_k2_vs_plain(torch, checks, k2, k2_libs, device),
             "K3": phase_k3_vs_plain(torch, device),
-            "K4": phase_k4_vs_plain(torch, device),
+            "K4": max(phase_k4_vs_plain(torch, device), phase_k4_routed_vs_plain(torch, device)),
             "K4 pixel": max(phase_k4_pixel_vs_plain(torch, device),
                             phase_k4_copy_paths_vs_plain(torch, device)),
             "K5": phase_k5_vs_plain(torch, k5_checks, device)}
@@ -3057,6 +3588,11 @@ def main(kernels_only: bool = False) -> int:
     t_new = time.perf_counter()
     bc_launches, bc_want, bc_info = phase_bc_path(torch, device, card)
     new_s["bc"] = time.perf_counter() - t_new
+    fwbw = {}
+    for mode in ("state", "pixels", "classifier"):
+        t_new = time.perf_counter()
+        fwbw[mode] = phase_fwbw_path(torch, device, card, mode)
+        new_s[f"fwbw_{mode}"] = time.perf_counter() - t_new
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -3069,6 +3605,9 @@ def main(kernels_only: bool = False) -> int:
     t_rlpd = time.perf_counter()
     rlpd_rows = phase_rlpd_times(torch, device, card, r_agent, r_rb, r_config, r_carry, r_run)
     rlpd_s["times"] = time.perf_counter() - t_rlpd
+    t_new = time.perf_counter()
+    k1_walls = phase_k1_bin_times(torch, engine, checks, device, card)
+    new_s["k1_walls_times"] = time.perf_counter() - t_new
 
     per_iter = {"actor": ACTOR_LAUNCHES,  # the whole actor path, not per iteration
                 "learner": learner_launches_per_iter(l_config.utd_ratio,
@@ -3082,18 +3621,24 @@ def main(kernels_only: bool = False) -> int:
                                    for k, v in trained_launches.items()},  # per update_high_utd
                 "pcb": pcb_per_update, "peg_pixels": peg_per_update,  # per updating iteration
                 # the learned-reward paths: whole paths, as the actor's
-                "cable_route": cable_want, "vice": vice_want, "bc": bc_want}
+                "cable_route": cable_want, "vice": vice_want, "bc": bc_want,
+                # the fwbw paths: whole paths
+                **{f"fwbw_{m}": fwbw[m][1] for m in fwbw}}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
                             "pixel_rlpd": pixel_rlpd_launches_path, "resnet": resnet_launches,
                             "resnet_trained": trained_launches, "pcb": pcb_launches,
                             "peg_pixels": peg_launches, "cable_route": cable_launches,
-                            "vice": vice_launches, "bc": bc_launches},
+                            "vice": vice_launches, "bc": bc_launches,
+                            **{f"fwbw_{m}": fwbw[m][0] for m in fwbw}},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
             kernel["rlpd_sample"] = {k: rlpd_rows[k] for k in ("sample_mixed", "sample")}
+        if kernel["name"] == "control_step":
+            # the obstacle input (the bin walls, M = 8) on the fwbw path
+            kernel["with_walls_by_envs"] = {str(n): r for n, r in k1_walls.items()}
     print(f"learner rates: {rates['env_steps_s']:.1f} env-steps/s, {rates['updates_s']:.1f} "
           f"critic updates/s [{card}]")
     print(f"pixel rates: {p_rates['env_steps_s']:.1f} env-steps/s, {p_rates['updates_s']:.1f} "
@@ -3123,7 +3668,12 @@ def main(kernels_only: bool = False) -> int:
           f"{cable_info['demo_frac']:.3f}. VICE: bce_loss {vice_info['bce']}, grad_norm "
           f"{vice_info['grad_norm']}. BC: NLL {bc_info['nll_first']:.3f} -> "
           f"{bc_info['nll_last']:.3f}, eval {json.dumps(bc_info['eval'])} [{card}]")
-    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward and K5 timing phases' "
+    for mode, (_, _, info) in fwbw.items():
+        print(f"fwbw {mode}: {info['env_steps_s']:.1f} env-steps/s, {info['updates_s']:.1f} critic "
+              f"updates/s (both learners), {info['warmup']} warm-up iterations, demos "
+              f"{json.dumps(info['demos'])}" + (f", evaluation {json.dumps(info['evaluation'])}"
+                                                if info["evaluation"] else "") + f" [{card}]")
+    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, fwbw and timing phases' "
           "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))

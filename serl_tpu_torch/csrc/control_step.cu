@@ -23,10 +23,20 @@
 // whole chain on one thread per env: 0.43 ms a launch at 128 and at 2,048
 // envs on an NVIDIA H100 80GB HBM3 at 700 W.
 //
+// Static obstacles (engine.py::_obstacle_contact, the bin walls): an (M, 2,
+// 3) table of boxes that every env shares, M <= kMaxObstacles. The block
+// copies it into shared memory beside the constants. Each of the 8 cube
+// corners' contacts with the boxes is one task (serial over the boxes, in
+// order) on the lanes that the floor corners' round leaves idle, and the
+// corners' sums join the floor's force and torque in the next phase. M = 0
+// (a null table) skips both: a launch without obstacles equals, bit for bit,
+// the kernel built with SERL_NO_OBSTACLES (no obstacle code at all).
+//
 // C ABI (bound with ctypes): serl_control_step takes the 11 input and the 11
 // output PhysicsState fields (contiguous fp32, shapes (N,7)/(N,)/(N,3)/(N,4)),
-// the constant buffer (serl_control_step_constant_count() floats), N and the
-// CUDA stream; it returns cudaGetLastError() after the launch.
+// the constant buffer (serl_control_step_constant_count() floats), the
+// obstacle table (6 M floats; null when M = 0), M, N and the CUDA stream; it
+// returns cudaGetLastError() after the launch.
 #include <cuda_runtime.h>
 
 #include "control_step.cuh"
@@ -35,17 +45,21 @@ namespace {
 
 constexpr int kThreadsPerBlock = 64;
 constexpr int kEnvsPerBlock = kThreadsPerBlock / serl::kGroupLanes;
+constexpr int kMaxObstacles = 8;
 
 // 8 blocks a SM: 2,048 envs are one wave on the card's 132 SMs
 __global__ void __launch_bounds__(kThreadsPerBlock, 8)
-    control_step_kernel(serl::Fields in, serl::Fields out, const float* __restrict__ consts, int n) {
+    control_step_kernel(serl::Fields in, serl::Fields out, const float* __restrict__ consts,
+                        const float* __restrict__ obstacles, int m, int n) {
   __shared__ float C[serl::C_COUNT];
+  __shared__ float O[6 * kMaxObstacles];
   __shared__ serl::Group groups[kEnvsPerBlock];
   for (int k = threadIdx.x; k < serl::C_COUNT; k += kThreadsPerBlock) C[k] = consts[k];
+  for (int k = threadIdx.x; k < 6 * m; k += kThreadsPerBlock) O[k] = obstacles[k];
   __syncthreads();
   const int w = threadIdx.x / serl::kGroupLanes;
   const int e = blockIdx.x * kEnvsPerBlock + w;
-  if (e < n) serl::control_step_env(in, out, C, e, groups[w]);
+  if (e < n) serl::control_step_env(in, out, C, O, m, e, groups[w]);
 }
 
 }  // namespace
@@ -53,6 +67,8 @@ __global__ void __launch_bounds__(kThreadsPerBlock, 8)
 extern "C" {
 
 int serl_control_step_constant_count() { return serl::C_COUNT; }
+
+int serl_control_step_max_obstacles() { return kMaxObstacles; }
 
 const char* serl_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -63,8 +79,11 @@ int serl_control_step(const float* qpos, const float* qvel, const float* theta,
                       float* out_qvel, float* out_theta, float* out_dtheta,
                       float* out_grip_ctrl, float* out_mocap_pos, float* out_mocap_quat,
                       float* out_cube_pos, float* out_cube_quat, float* out_cube_linvel,
-                      float* out_cube_angvel, const float* consts, int n, void* stream) {
+                      float* out_cube_angvel, const float* consts, const float* obstacles,
+                      int m, int n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (m < 0 || m > kMaxObstacles || (m > 0 && obstacles == nullptr))
+    return (int)cudaErrorInvalidValue;
   serl::Fields in = {const_cast<float*>(qpos),        const_cast<float*>(qvel),
                      const_cast<float*>(theta),       const_cast<float*>(dtheta),
                      const_cast<float*>(grip_ctrl),   const_cast<float*>(mocap_pos),
@@ -75,7 +94,7 @@ int serl_control_step(const float* qpos, const float* qvel, const float* theta,
                       out_grip_ctrl, out_mocap_pos,  out_mocap_quat, out_cube_pos,
                       out_cube_quat, out_cube_linvel, out_cube_angvel};
   control_step_kernel<<<(n + kEnvsPerBlock - 1) / kEnvsPerBlock, kThreadsPerBlock, 0,
-                        (cudaStream_t)stream>>>(in, out, consts, n);
+                        (cudaStream_t)stream>>>(in, out, consts, obstacles, m, n);
   return (int)cudaGetLastError();
 }
 

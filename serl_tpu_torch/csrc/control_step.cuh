@@ -157,6 +157,7 @@ struct Group {
   float ddx[6], t6[6], Jnull[7][6], P[7][7], ddq[7], tau[7], rhs[7], qacc[7];
   float Rc[9], poly[4];     // cube frame; pad polynomials y, z, dy, dz at theta
   float corner[8][6];       // floor corner k: force, torque on the cube
+  float obstacle[8][6];     // corner k against every obstacle box: force, torque
   float pad_geo[4][14];     // pad point k: u, out_w, dpt, r_p, depth, active
   float pad[4][15];         // pad point k: -f, torque on cube, f, torque on arm, f * dpt
   float quat[4], dq[4];     // the pinch frame's quaternion; the cube's rotation increment
@@ -192,6 +193,15 @@ struct Repeat {
 // record the cycle counter.
 #ifndef SERL_PHASE_CLOCK
 #define SERL_PHASE_CLOCK()
+#endif
+
+// SERL_NO_OBSTACLES compiles the obstacle contacts out: a launch with no
+// obstacles must equal that build bit for bit (chip_smoke.py builds it beside
+// the shipped one; tests/torch_k1.py builds it for the host).
+#ifdef SERL_NO_OBSTACLES
+constexpr bool kObstacles = false;
+#else
+constexpr bool kObstacles = true;
 #endif
 
 // An env's group: half a warp, so a warp issues two envs' tasks at once.
@@ -546,6 +556,77 @@ SERL_FN void floor_corner(const Group& g, int k, const float* C, float* out) {
   }
 }
 
+// Cube corner k against the m static boxes of `O` ((lo, hi) as 6 floats a
+// box, world frame; the bin walls): for each box that holds the corner
+// strictly inside, a penalty contact along the face of least penetration
+// (the first axis on a tie; along +axis where the axis' two faces are
+// equally near) with the floor's constants and friction, summed over the
+// boxes in order. The corner's position and velocity repeat floor_corner's.
+SERL_FN void obstacle_corner(const Group& g, int k, const float* O, int m, const float* C,
+                             float* out) {
+  const State& s = g.s;
+  float cw[3], r[3], v[3];
+  {
+    const Repeat rep(true);
+    float wr[3];
+    matvec3(g.Rc, C + C_CORNERS + 3 * k, cw);
+    SERL_UNROLL
+    for (int d = 0; d < 3; ++d) cw[d] = s.cube_pos[d] + cw[d];
+    SERL_UNROLL
+    for (int d = 0; d < 3; ++d) r[d] = cw[d] - s.cube_pos[d];
+    cross3(s.cube_angvel, r, wr);
+    SERL_UNROLL
+    for (int d = 0; d < 3; ++d) v[d] = s.cube_linvel[d] + wr[d];
+  }
+  float sum[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < m; ++j) {
+    const float* lo = O + 6 * j;
+    const float* hi = lo + 3;
+    float depth_axis[3], sign[3];
+    bool inside = true;
+    SERL_UNROLL
+    for (int d = 0; d < 3; ++d) {
+      const float d_lo = cw[d] - lo[d], d_hi = hi[d] - cw[d];
+      inside = inside && d_lo > 0.0f && d_hi > 0.0f;
+      depth_axis[d] = fminf(d_lo, d_hi);
+      sign[d] = d_lo < d_hi ? -1.0f : 1.0f;
+    }
+    if (!inside) continue;
+    // the normal: +-e_ax, ax the first axis of least depth
+    const int ax = depth_axis[1] < depth_axis[0]
+                       ? (depth_axis[2] < depth_axis[1] ? 2 : 1)
+                       : (depth_axis[2] < depth_axis[0] ? 2 : 0);
+    float depth = depth_axis[0], vn = v[0] * sign[0], s_ax = sign[0];
+    SERL_UNROLL
+    for (int d = 1; d < 3; ++d) {
+      if (d == ax) {
+        depth = depth_axis[d];
+        vn = v[d] * sign[d];
+        s_ax = sign[d];
+      }
+    }
+    float fn = C[C_KN_FLOOR] * depth - C[C_KD_FLOOR] * vn;
+    fn = fmaxf(fn, 0.0f);
+    float f[3], vt[3];
+    SERL_UNROLL
+    for (int d = 0; d < 3; ++d) {
+      // vt = v - vn * normal: v off the normal's axis, exactly zero along it
+      f[d] = d == ax ? fn * s_ax : 0.0f;
+      vt[d] = d == ax ? 0.0f : v[d];
+    }
+    friction(fn, vt, C[C_MU_FLOOR], C, f);
+    float t[3];
+    cross3(r, f, t);
+    SERL_UNROLL
+    for (int d = 0; d < 3; ++d) {
+      sum[d] = sum[d] + f[d];
+      sum[3 + d] = sum[3 + d] + t[d];
+    }
+  }
+  SERL_UNROLL
+  for (int d = 0; d < 6; ++d) out[d] = sum[d];
+}
+
 // Pad point k (plane vs box along the closing axis), in two steps. The
 // geometry, from the pinch frame and the cube's pose: u, the outward normal
 // out_w, dpt, r_p, the depth and whether the contact is active.
@@ -679,7 +760,7 @@ SERL_FN void cube_frame(Group& g, const float* C) {
 
 // A substep: 16 phases. Each comment names the phase's tasks, the side work
 // on tasks 32 and up after the bar.
-SERL_FN void substep(Group& g, const float* __restrict__ C) {
+SERL_FN void substep(Group& g, const float* __restrict__ C, const float* __restrict__ O, int m) {
   SERL_SUBSTEP_BEGIN(g);
   State& s = g.s;
   const float dt = C[C_DT];
@@ -715,10 +796,13 @@ SERL_FN void substep(Group& g, const float* __restrict__ C) {
   });
 
   // forward kinematics and the pinch frame, a row a lane | the floor
-  // corners' contacts
-  phase(40, [&](int t) {
+  // corners' contacts; with obstacles, the corners' contacts with them on
+  // the third round's idle lanes (tasks 40-47)
+  phase(kObstacles && m > 0 ? 48 : 40, [&](int t) {
     if (t < 3) {
       forward_kinematics_row(g, t, C);
+    } else if (t >= 40) {
+      obstacle_corner(g, t - 40, O, m, C, g.obstacle[t - 40]);
     } else if (t >= 32) {
       floor_corner(g, t - 32, C, g.corner[t - 32]);
     }
@@ -747,6 +831,12 @@ SERL_FN void substep(Group& g, const float* __restrict__ C) {
       float sum = 0.0f;
       SERL_UNROLL
       for (int k = 0; k < 8; ++k) sum = sum + g.corner[k][d];
+      if (kObstacles && m > 0) {
+        float obs = 0.0f;
+        SERL_UNROLL
+        for (int k = 0; k < 8; ++k) obs = obs + g.obstacle[k][d];
+        sum = sum + obs;
+      }
       g.floor_sum[d] = sum;
     } else if (t == 38) {
       mat_to_quat(g.PR, g.quat);
@@ -1074,16 +1164,17 @@ SERL_FN float* state_entry(const Fields& f, int e, int t) {
 }
 
 // Env e: its group of lanes reads its state from `in`, runs the substeps
-// and writes the state to `out`.
+// against the m obstacle boxes of `O` (6 floats a box; m = 0: none) and
+// writes the state to `out`.
 SERL_FN void control_step_env(const Fields& in, const Fields& out, const float* __restrict__ C,
-                              int e, Group& g) {
+                              const float* __restrict__ O, int m, int e, Group& g) {
   float* state = &g.s.qpos[0];
   phase(kStateFloats, [&](int t) {
     state[t] = *state_entry(in, e, t);
     if (t < 3) g.zero[t] = 0.0f;
   });
   const int n_substeps = (int)C[C_N_SUBSTEPS];
-  for (int k = 0; k < n_substeps; ++k) substep(g, C);
+  for (int k = 0; k < n_substeps; ++k) substep(g, C, O, m);
   phase(kStateFloats, [&](int t) { *state_entry(out, e, t) = state[t]; });
 }
 

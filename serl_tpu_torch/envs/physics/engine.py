@@ -6,8 +6,10 @@ vmaps a single-env pytree.
 
 Pipeline per 2 ms substep (10 substeps per 20 ms control step):
   1. arm FK -> mass matrix (CRBA) -> bias forces (RNEA)
-  2. contact forces: cube-floor (8 corners) and pad-cube (4 pad points),
-     compliant normal + regularized Coulomb friction; reaction wrenches go to
+  2. contact forces: cube-floor (8 corners), cube-obstacle (8 corners
+     against each static box of an (M, 2, 3) table, the bin walls) and
+     pad-cube (4 pad points), compliant normal + regularized Coulomb
+     friction; reaction wrenches go to
      the arm through the pinch-site Jacobian and to the finger DOF through the
      pad jacobian
   3. operational-space controller torques (opspace.py)
@@ -24,12 +26,15 @@ Two implementations of `control_step` sit side by side:
     launches in `control_step.launches`.
 The kernel reads every model and contact constant from one float32 buffer
 that `kernel_constants` packs from this module's constants, so the two
-cannot drift apart.
+cannot drift apart. The obstacle table, shared by every env, goes to the
+kernel as a second buffer of M x 6 floats (M <= MAX_OBSTACLES; M = 0, or
+`obstacles=None`, runs only the obstacle-free arithmetic, bit for bit that
+of the kernel built without obstacle code).
 """
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +104,10 @@ V_EPS = 0.003  # friction regularization velocity (m/s)
 IMPULSE_CAP = 0.5 * CUBE_MASS
 # a pad point counts as over the cube within this slack of its half-size
 LATERAL_LIMIT = CUBE_HALF + np.float32(2e-3)
+
+# the most static boxes the kernel takes (control_step.cuh: one lane per cube
+# corner loops over them)
+MAX_OBSTACLES = 8
 
 # cube corners in the cube frame: (8, 3)
 CORNERS = np.asarray(
@@ -211,6 +220,50 @@ def _floor_contact(state: PhysicsState):
     return f.sum(-2), torque, active
 
 
+def _obstacle_contact(state: PhysicsState, boxes: torch.Tensor):
+    """Cube vs static axis-aligned boxes (bin walls): corner penalty contacts
+    with the floor's constants and friction cap. `boxes`: (M, 2, 3) world
+    (lo, hi) corners. A cube corner strictly inside a box is pushed out
+    through the face of least penetration (the first axis on a tie; along
+    +axis where the two faces of that axis are equally near). Returns
+    (force, torque) on the cube about its COM and the (N, 8, M) mask of
+    corners inside a box."""
+    c = _consts(state.cube_pos.device, state.cube_pos.dtype)
+    Rc = quat_to_mat(state.cube_quat)
+    pos = state.cube_pos[..., None, :]
+    corners_w = pos + c["corners"] @ Rc.transpose(-1, -2)  # (N, 8, 3)
+    r = corners_w - pos
+    v = state.cube_linvel[..., None, :] + cross(state.cube_angvel[..., None, :], r)
+
+    lo, hi = boxes[:, 0], boxes[:, 1]  # (M, 3)
+    p = corners_w[..., None, :]  # (N, 8, 1, 3)
+    d_lo = p - lo  # (N, 8, M, 3) distance inside from each lo face
+    d_hi = hi - p
+    inside = ((d_lo > 0.0) & (d_hi > 0.0)).all(-1)  # (N, 8, M)
+
+    depth_axis = torch.minimum(d_lo, d_hi)
+    sign = torch.where(d_lo < d_hi, -1.0, 1.0).to(d_lo.dtype)  # toward the nearer face
+    ax = torch.argmin(depth_axis, -1, keepdim=True)  # the first minimum on a tie
+    depth = torch.where(inside, depth_axis.gather(-1, ax)[..., 0], 0.0)
+    normal = torch.zeros_like(d_lo).scatter(-1, ax, sign.gather(-1, ax))  # (N, 8, M, 3)
+
+    vv = v[..., None, :]
+    vn = (vv * normal).sum(-1)
+    fn_mag = torch.clamp(KN_FLOOR * depth - KD_FLOOR * vn, min=0.0) * inside
+    vt = vv - vn[..., None] * normal
+    f = fn_mag[..., None] * normal + _friction(fn_mag, vt, MU_FLOOR)  # (N, 8, M, 3)
+    torque = cross(r[..., None, :], f).sum((-3, -2))
+    return f.sum((-3, -2)), torque, inside
+
+
+def obstacle_table(obstacles, device) -> torch.Tensor:
+    """An (M, 2, 3) obstacle table as a contiguous float32 tensor on `device`."""
+    boxes = torch.as_tensor(obstacles, dtype=torch.float32, device=device).contiguous()
+    if boxes.dim() != 3 or tuple(boxes.shape[1:]) != (2, 3) or boxes.shape[0] > MAX_OBSTACLES:
+        raise ValueError(f"obstacles: want (M <= {MAX_OBSTACLES}, 2, 3), got {tuple(boxes.shape)}")
+    return boxes
+
+
 def _pad_contacts(state: PhysicsState, kin, pinch_v, pinch_w):
     """Pad-cube contacts: per-pad plane vs box along the closing axis.
 
@@ -282,13 +335,19 @@ def active_contacts(state: PhysicsState) -> Tuple[torch.Tensor, torch.Tensor]:
     return _floor_contact(state)[2], _pad_contacts(state, kin, pinch_v, pinch_w)[5]
 
 
+def active_obstacle_contacts(state: PhysicsState, obstacles) -> torch.Tensor:
+    """(N, 8, M) cube corners of `state` inside each box of `obstacles`."""
+    return _obstacle_contact(state, obstacle_table(obstacles, state.cube_pos.device)
+                             .to(state.cube_pos.dtype))[2]
+
+
 # ------------------------------------------------------------------ #
 # Stepping (plain version)
 # ------------------------------------------------------------------ #
 
 
 @f32_precision
-def substep(state: PhysicsState) -> PhysicsState:
+def substep(state: PhysicsState, obstacles: Optional[torch.Tensor] = None) -> PhysicsState:
     c = _consts(state.qpos.device, state.qpos.dtype)
     kin = fk(state.qpos)
     M = mass_matrix(kin)
@@ -300,6 +359,10 @@ def substep(state: PhysicsState) -> PhysicsState:
     f_cube_p, tau_cube_p, f_arm, tau_arm, tau_theta, _ = _pad_contacts(
         state, kin, pinch_v, pinch_w
     )
+    if obstacles is not None:
+        f_obs, tau_obs, _ = _obstacle_contact(state, obstacles)
+        f_floor = f_floor + f_obs
+        tau_floor = tau_floor + tau_obs
 
     # controller torque
     tau_ctrl = opspace_torques(
@@ -348,10 +411,14 @@ def substep(state: PhysicsState) -> PhysicsState:
     )
 
 
-def control_step_plain(state: PhysicsState) -> PhysicsState:
-    """10 physics substeps = one 20 ms control period, in plain PyTorch."""
+def control_step_plain(state: PhysicsState, obstacles=None) -> PhysicsState:
+    """10 physics substeps = one 20 ms control period, in plain PyTorch.
+    `obstacles`: an optional (M, 2, 3) table of static boxes (see
+    `_obstacle_contact`)."""
+    if obstacles is not None:
+        obstacles = obstacle_table(obstacles, state.qpos.device).to(state.qpos.dtype)
     for _ in range(N_SUBSTEPS):
-        state = substep(state)
+        state = substep(state, obstacles)
     return state
 
 
@@ -409,11 +476,21 @@ def _kernel_library():
     """Build (once per source hash) and bind the control-step kernel."""
     from serl_tpu_torch.native.build import load_library
 
-    lib = load_library("control_step")
-    lib.serl_control_step.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int, ctypes.c_void_p]
+    return bind_library(load_library("control_step"))
+
+
+def bind_library(lib):
+    """Declare the kernel's C entry points on a loaded build of
+    csrc/control_step.cu (this module's, or a variant's) and check its
+    constant count and obstacle limit."""
+    # 22 state fields, the constants, the obstacle table, M, N, the stream
+    lib.serl_control_step.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int, ctypes.c_int,
+                                                               ctypes.c_void_p]
     lib.serl_control_step.restype = ctypes.c_int
     lib.serl_control_step_constant_count.argtypes = []
     lib.serl_control_step_constant_count.restype = ctypes.c_int
+    lib.serl_control_step_max_obstacles.argtypes = []
+    lib.serl_control_step_max_obstacles.restype = ctypes.c_int
     lib.serl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.serl_cuda_error_string.restype = ctypes.c_char_p
     want = lib.serl_control_step_constant_count()
@@ -422,6 +499,9 @@ def _kernel_library():
             f"control_step kernel expects {want} constants, the table packs "
             f"{kernel_constants().size}"
         )
+    if lib.serl_control_step_max_obstacles() != MAX_OBSTACLES:
+        raise RuntimeError(f"control_step kernel takes {lib.serl_control_step_max_obstacles()} "
+                           f"obstacles, engine.MAX_OBSTACLES is {MAX_OBSTACLES}")
     return lib
 
 
@@ -441,20 +521,25 @@ def _check_state(state: PhysicsState) -> int:
     return n
 
 
-def control_step_cuda(state: PhysicsState) -> PhysicsState:
-    """One control step by the CUDA kernel; the output is a new state."""
+def control_step_cuda(state: PhysicsState, obstacles=None, lib=None) -> PhysicsState:
+    """One control step by the CUDA kernel (of `lib`, a `bind_library` of
+    another build, where given); the output is a new state. `obstacles`
+    (M, 2, 3) is copied to the card unless it lies there as a contiguous
+    float32 tensor already."""
     n = _check_state(state)
     device = state.qpos.device
     if device.type != "cuda":
         raise ValueError(f"control_step_cuda needs CUDA tensors, got {device}")
-    lib = _kernel_library()
+    boxes = None if obstacles is None else obstacle_table(obstacles, device)
+    m = 0 if boxes is None else boxes.shape[0]
+    lib = lib or _kernel_library()
     out = PhysicsState(*(torch.empty_like(x) for x in state))
     consts = _kernel_constants_on(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.serl_control_step(
             *(x.data_ptr() for x in state), *(x.data_ptr() for x in out),
-            consts.data_ptr(), n, stream,
+            consts.data_ptr(), boxes.data_ptr() if m else None, m, n, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -465,15 +550,15 @@ def control_step_cuda(state: PhysicsState) -> PhysicsState:
 
 
 def control_step(state: PhysicsState, obstacles=None) -> PhysicsState:
-    """One 20 ms control period for every env of `state`.
+    """One 20 ms control period for every env of `state`, with the cube
+    against the static boxes of `obstacles` ((M, 2, 3), shared by every env)
+    where given.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise. Static obstacles (bin walls) are not ported yet."""
-    if obstacles is not None:
-        raise NotImplementedError("obstacle contacts are not ported yet")
+    raise."""
     if state.qpos.device.type == "cpu":
-        return control_step_plain(state)
-    return control_step_cuda(state)
+        return control_step_plain(state, obstacles)
+    return control_step_cuda(state, obstacles)
 
 
 control_step.launches = 0

@@ -5,8 +5,8 @@ N envs of a structure-of-arrays `EnvState`: a stateless geometric state
 machine (approach above the block, descend, close, lift) computed from the
 physics state each step. It generates the RLPD demos and is the default
 expert of the loop's interventions. `pose_expert_action` is the pose
-tasks' expert (peg and PCB insertion); `relocation_expert_action`, the bin
-task's, is not ported yet.
+tasks' expert (peg and PCB insertion); `relocation_expert_action` the bin
+relocation task's (pick, carry over the walls, lower, release).
 """
 
 from typing import Optional, Sequence, Union
@@ -76,6 +76,56 @@ def pose_expert_action(state: EnvState, target_pose: Union[Sequence[float], torc
     drot = torch.clamp(quat_to_axis_angle(q_rel) / torch.clamp(action_scale[1], min=1e-6),
                        -1.0, 1.0)
     action = torch.cat([dpos, drot, torch.zeros_like(dpos[:, :1])], -1)
+    if noise is not None:
+        action = action + noise
+    return torch.clamp(action, -1.0, 1.0)
+
+
+def relocation_expert_action(state: EnvState, target_bin: torch.Tensor,
+                             action_scale: Union[Sequence[float], torch.Tensor],
+                             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, 7) actions for `envs/tasks.py::BinRelocationEnv`: pick the cube,
+    carry it over the target bin ((2,) or per env (N, 2)), lower it, release.
+    A geometric state machine on what the policy observes (the pinch's
+    position and velocity, the cube's position, the gripper's drive), never
+    the hidden mocap target. A gripper closed on air (no cube near the hand)
+    opens and the approach restarts; the held cube is lowered to ~4 cm over
+    the bin floor before the release. PD on the tcp error with tcp_vel
+    damping, the gain 1 / (2 action_scale[0]). `noise`, (N, 7) or (7,), is
+    added before the final clip to [-1, 1]."""
+    phys = state.physics
+    device = phys.qpos.device
+    dtype = phys.qpos.dtype
+    action_scale = torch.as_tensor(action_scale, dtype=dtype, device=device)
+    tgt = torch.as_tensor(target_bin, dtype=dtype, device=device).expand(phys.qpos.shape[0], 2)
+    kin = fk(phys.qpos)
+    tcp, cube, theta = kin.pinch_pos, phys.cube_pos, phys.theta
+    tcp_vel, _ = pinch_velocity(kin, phys.qvel)
+    vnorm = lambda x: torch.linalg.vector_norm(x, dim=-1)
+
+    near_hand = vnorm(tcp - cube) < 0.045
+    closing = (theta > 0.25) & near_hand
+    empty_closed = (theta > 0.25) & ~near_hand
+    holding = closing & (cube[:, 2] > 0.05)
+    aligned = vnorm(tcp[:, :2] - cube[:, :2]) < 0.010
+    near_grasp = aligned & (tcp[:, 2] < cube[:, 2] + 0.012)
+
+    z = lambda v: torch.full_like(cube[:, :1], v)
+    above_cube = torch.cat([cube[:, :2], z(0.18)], -1)
+    grasp_pos = torch.cat([cube[:, :2], cube[:, 2:3] - 0.006], -1)
+    carry = torch.cat([tgt, z(0.15)], -1)
+    lower = torch.cat([tgt, z(0.085)], -1)
+    over_tgt = vnorm(tcp[:, :2] - tgt) < 0.02
+
+    col = lambda m: m[:, None]
+    target = torch.where(
+        col(holding), torch.where(col(over_tgt), lower, carry),
+        torch.where(col(closing), carry, torch.where(col(aligned), grasp_pos, above_cube)))
+    release = holding & over_tgt & (tcp[:, 2] < 0.10)
+    grasp = torch.where(release | empty_closed, -1.0,
+                        torch.where(near_grasp | closing | holding, 1.0, -1.0)).to(dtype)
+    dpos = torch.clamp((target - tcp) / (action_scale[0] * 2.0) - 1.0 * tcp_vel, -1.0, 1.0)
+    action = torch.cat([dpos, torch.zeros_like(dpos), grasp[:, None]], -1)
     if noise is not None:
         action = action + noise
     return torch.clamp(action, -1.0, 1.0)

@@ -26,15 +26,21 @@ cameras' frames (K2) and no "block_pos" (10-dim proprio). The roll of
 "tcp_pose" sits at the +pi/-pi flip of `quat_to_euler` for the whole task:
 it is the JAX package's observation, kept as it is.
 
-Not ported: `BinRelocationEnv` (it needs K1's obstacle contacts) raises,
-and with it the dense-shaping reward and object-placement hooks only it
-uses; `dense_shaping = True` on a pose task only turns off the early
-termination on success, as in the JAX package.
+`BinRelocationEnv` is the forward/backward bin relocation task: two bins
+with physical walls (an (8, 2, 3) table of static boxes that K1 takes as
+its obstacle input in every control step), the cube placed in the source
+bin at every reset (the `_place_objects` hook: after the settle steps, before
+the demo-reset draw, with its own jitter draw), success = the cube inside
+the target bin and below 5 cm, and either the sparse reward or, with
+`dense_shaping`, reach, lift and carry terms. On a pose task
+`dense_shaping = True` only turns off the early termination on success, as
+in the JAX package.
 """
 
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from serl_tpu_torch.envs.panda_pick import EnvState, PandaPickCubeEnv, where_state
@@ -121,6 +127,7 @@ class ResetDraws(NamedTuple):
     drz: torch.Tensor  # (N,) reset-pose yaw offset, uniform in +-random_rz_range
     use: Optional[torch.Tensor] = None  # (N,) uniform: a bank state where < demo_reset_prob
     idx: Optional[torch.Tensor] = None  # (N,) int64 bank row
+    jitter: Optional[torch.Tensor] = None  # (N, 2) the bin task's cube offset in its source bin
 
 
 class PandaPoseTaskEnv:
@@ -152,6 +159,9 @@ class PandaPoseTaskEnv:
         # True: success no longer ends an episode (the reward stays the
         # sparse one here; vice_online sets it to run whole episodes)
         self.dense_shaping = False
+        # an optional (M, 2, 3) table of static boxes the cube collides with
+        # (BinRelocationEnv's walls); None = the free tabletop
+        self.obstacles: Optional[torch.Tensor] = None
 
     def set_demo_reset_bank(self, bank: EnvState, prob: float) -> None:
         """`bank`: an EnvState whose leading axis is the bank's (M, ...)
@@ -186,18 +196,31 @@ class PandaPoseTaskEnv:
         idx = torch.randint(0, m, (num_envs,), generator=generator, device=self.device)
         return ResetDraws(xy, dxy, drz, u(num_envs), idx)
 
-    def _reset_state(self, draws: ResetDraws) -> EnvState:
+    def _reset_state(self, draws: ResetDraws, pose: Optional[torch.Tensor] = None,
+                     source: Optional[torch.Tensor] = None) -> EnvState:
+        """A reset at the task's reset pose, or at `pose` ((6,) or (N, 6)
+        xyz + Euler); `source` goes to `_place_objects` (ChainedBinEnv
+        passes each env's own task's pose and bin)."""
         n = draws.xy.shape[0]
         f32 = lambda x: x.to(self.device, torch.float32)
         state = self._base._fresh(f32(draws.xy), torch.zeros((n,), dtype=torch.int32,
                                                              device=self.device))
-        pose = self._reset_pose
-        pos = torch.cat([pose[:2] + f32(draws.dxy), pose[2:3].expand(n, 1)], -1)
-        euler = torch.cat([pose[3:5].expand(n, 2), (pose[5] + f32(draws.drz))[:, None]], -1)
+        pose = self._reset_pose if pose is None else pose
+        pos = torch.cat([pose[..., :2] + f32(draws.dxy), pose[..., 2:3].expand(n, 1)], -1)
+        euler = torch.cat([pose[..., 3:5].expand(n, 2), (pose[..., 5] + f32(draws.drz))[:, None]],
+                          -1)
         phys = state.physics._replace(mocap_pos=pos, mocap_quat=euler_to_quat(euler))
         for _ in range(SETTLE_STEPS):  # let the controller settle at the reset pose
-            phys = engine.control_step(phys)
-        return self._maybe_demo_reset(state._replace(physics=phys), draws)
+            phys = engine.control_step(phys, self.obstacles)
+        # the task's objects are placed after the settle, before the demo-reset draw
+        state = self._place_objects(state._replace(physics=phys), draws, source)
+        return self._maybe_demo_reset(state, draws)
+
+    def _place_objects(self, state: EnvState, draws: ResetDraws,
+                       source: Optional[torch.Tensor] = None) -> EnvState:
+        """Task-specific object placement at reset; the pose tasks keep the
+        pick env's uniform cube placement."""
+        return state
 
     def _maybe_demo_reset(self, state: EnvState, draws: ResetDraws) -> EnvState:
         """Where draws.use < the bank probability, a bank state's physics and
@@ -241,20 +264,22 @@ class PandaPoseTaskEnv:
         ng = torch.clamp(g + action[:, 6] * cfg.action_scale[2], 0.0, 1.0)
         gripper_moved = (ng - g).abs() > 0.25
         phys = engine.control_step(phys._replace(mocap_pos=npos, mocap_quat=nquat,
-                                                 grip_ctrl=ng * 255.0))
+                                                 grip_ctrl=ng * 255.0), self.obstacles)
         return state._replace(physics=phys, t=state.t + 1), gripper_moved
 
     def _step_state(self, state: EnvState, action: torch.Tensor):
         """Physics and reward, no observation: (state, reward, done, info)."""
         new_state, gripper_moved = self._apply_action(state, action)
         success = self._success(new_state)
-        reward = self._reward(success, gripper_moved)
+        reward = self._reward(new_state, success, gripper_moved)
         done = (new_state.t >= self.config.time_limit_steps).to(torch.float32)
         if not self.dense_shaping:
             done = torch.maximum(done, success)  # success ends the episode
         return new_state, reward, done, {"success": success}
 
-    def _reward(self, success: torch.Tensor, gripper_moved: torch.Tensor) -> torch.Tensor:
+    def _reward(self, state: EnvState, success: torch.Tensor,
+                gripper_moved: torch.Tensor) -> torch.Tensor:
+        """Sparse: success less the gripper penalty."""
         return success - self.config.gripper_penalty * gripper_moved.to(torch.float32)
 
     def step(self, state: EnvState, action: torch.Tensor):
@@ -306,10 +331,135 @@ class PandaPoseTaskEnv:
         return (err < self._threshold).all(-1).to(torch.float32)
 
 
-class BinRelocationEnv(PandaPoseTaskEnv):
-    """The forward/backward bin relocation task: not ported yet (its bin
-    walls need K1's obstacle contacts)."""
+def _bin_walls(cx: float, cy: float, half: float, height: float, thickness: float):
+    """Four wall boxes ((lo, hi) corners) around a bin centred at (cx, cy)."""
+    t, h = thickness, half
+    return [
+        # y walls (along x)
+        [[cx - h - t, cy - h - t, 0.0], [cx + h + t, cy - h, height]],
+        [[cx - h - t, cy + h, 0.0], [cx + h + t, cy + h + t, height]],
+        # x walls (along y)
+        [[cx - h - t, cy - h, 0.0], [cx - h, cy + h, height]],
+        [[cx + h, cy - h, 0.0], [cx + h + t, cy + h, height]],
+    ]
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("BinRelocationEnv is not ported yet: it needs the obstacle "
-                                  "contacts of the control step")
+
+# the bin task's geometry (JAX's BinRelocationEnv class attributes)
+FW_BIN = (0.45, 0.15)  # the forward task's target bin centre
+BW_BIN = (0.45, -0.15)
+BIN_HALF = 0.06
+WALL_HEIGHT = 0.04
+WALL_THICKNESS = 0.008
+BIN_JITTER = 0.038  # the cube's offset in its source bin: up to near the walls
+CUBE_REST_Z = 0.02
+
+
+def bin_walls() -> np.ndarray:
+    """The (8, 2, 3) float32 wall table: the forward bin's four walls, then
+    the backward bin's."""
+    walls = []
+    for centre in (FW_BIN, BW_BIN):
+        # the centres are float32 first, as the JAX package keeps them
+        cx, cy = (float(v) for v in np.asarray(centre, np.float32))
+        walls += _bin_walls(cx, cy, BIN_HALF, WALL_HEIGHT, WALL_THICKNESS)
+    return np.asarray(walls, np.float32)
+
+
+def bin_config(task_id: int) -> PoseTaskConfig:
+    """The reference BinEnvConfig: a tight box spanning both bins (x +-0.07,
+    z within ~0.2 of the table), roll and pitch pinned to +-0.01, yaw +-pi/6,
+    action scale (0.05, 0.1, 1); the reset over the source bin, the target
+    over the other."""
+    fw = task_id == 0
+    return PoseTaskConfig(
+        target_pose=(0.45, 0.15 if fw else -0.15, 0.1, 3.14159, 0, 0),
+        reset_pose=(0.45, -0.15 if fw else 0.15, 0.18, 3.14159, 0, 0),
+        action_scale=(0.05, 0.1, 1.0),
+        gripper_penalty=0.1,
+        cartesian_lo=(0.38, -0.23, 0.012),
+        cartesian_hi=(0.52, 0.23, 0.20),
+        rot_lo=(_PI - 0.01, -0.01, -_PI / 6),
+        rot_hi=(_PI + 0.01, 0.01, _PI / 6),
+    )
+
+
+class BinRelocationEnv(PandaPoseTaskEnv):
+    """Forward/backward bin relocation (reference
+    franka_bin_relocation.py): move the cube between two walled bins;
+    `task_id` 0 = forward (into FW_BIN), 1 = backward (into BW_BIN). The
+    walls are K1's obstacle input, so the cube must be carried over them."""
+
+    def __init__(self, task_id: int = 0, dense_shaping: bool = True, image_obs: bool = False,
+                 render_size: int = 128, device=None):
+        super().__init__(config=bin_config(task_id), image_obs=image_obs,
+                         render_size=render_size, device=device)
+        self.task_id = int(task_id)
+        self.dense_shaping = bool(dense_shaping)
+        self.obstacles = torch.as_tensor(bin_walls(), device=self.device)
+        t = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
+        self._fw_bin, self._bw_bin = t(FW_BIN), t(BW_BIN)
+
+    def target_bin(self) -> torch.Tensor:
+        return self._fw_bin if self.task_id == 0 else self._bw_bin
+
+    def source_bin(self) -> torch.Tensor:
+        return self._bw_bin if self.task_id == 0 else self._fw_bin
+
+    def sample_reset_draws(self, num_envs: int,
+                           generator: Optional[torch.Generator] = None) -> ResetDraws:
+        """The pose task's draws and the cube's (N, 2) jitter in its source bin."""
+        draws = super().sample_reset_draws(num_envs, generator)
+        jitter = (2.0 * torch.rand((num_envs, 2), generator=generator, device=self.device)
+                  - 1.0) * BIN_JITTER
+        return draws._replace(jitter=jitter)
+
+    def _place_objects(self, state: EnvState, draws: ResetDraws,
+                       source: Optional[torch.Tensor] = None) -> EnvState:
+        """The cube at rest in the source bin (or `source`, (2,) or (N, 2)),
+        offset by draws.jitter, on every reset (the auto-reset's too)."""
+        return place_cube(state, self.source_bin() if source is None else source, draws.jitter)
+
+    def _success(self, state: EnvState) -> torch.Tensor:
+        return bin_success(state.physics.cube_pos, self.target_bin())
+
+    def _reward(self, state: EnvState, success: torch.Tensor,
+                gripper_moved: torch.Tensor) -> torch.Tensor:
+        """With dense shaping: reach the cube, lift it over the walls, carry
+        it toward the target bin, plus success, less the gripper penalty;
+        otherwise the sparse reward."""
+        if not self.dense_shaping:
+            return super()._reward(state, success, gripper_moved)
+        return bin_shaped_reward(state, success, gripper_moved, self.target_bin(),
+                                 self.config.gripper_penalty)
+
+
+def place_cube(state: EnvState, src: torch.Tensor, jitter: torch.Tensor) -> EnvState:
+    """`state` with each env's cube at rest at src + jitter ((2,) or (N, 2)
+    source-bin centres; (N, 2) offsets) on the table, and z_init at rest."""
+    n = state.t.shape[0]
+    xy = src.expand(n, 2) + jitter.to(src.device, torch.float32)
+    z = torch.full((n, 1), CUBE_REST_Z, dtype=torch.float32, device=src.device)
+    zeros = torch.zeros((n, 3), dtype=torch.float32, device=src.device)
+    phys = state.physics._replace(cube_pos=torch.cat([xy, z], -1), cube_linvel=zeros,
+                                  cube_angvel=zeros.clone())
+    return state._replace(physics=phys, z_init=z[:, 0].clone())
+
+
+def bin_success(cube_pos: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(N,) 1.0 where the cube lies inside the target bin ((2,) or (N, 2)
+    centres) and below 5 cm."""
+    inside = ((cube_pos[:, :2] - target).abs() < BIN_HALF).all(-1) & (cube_pos[:, 2] < 0.05)
+    return inside.to(torch.float32)
+
+
+def bin_shaped_reward(state: EnvState, success: torch.Tensor, gripper_moved: torch.Tensor,
+                      target: torch.Tensor, gripper_penalty: float) -> torch.Tensor:
+    """0.15 exp(-20 |tcp - cube|) + 0.25 lift (over the walls) + 0.6 carry
+    (toward `target`, (2,) or (N, 2)) + success - the gripper penalty."""
+    tcp, _, cube = engine.observe(state.physics)
+    r_reach = 0.15 * torch.exp(-20.0 * norm(tcp - cube))
+    r_lift = 0.25 * torch.clamp((cube[:, 2] - 0.02) / (WALL_HEIGHT + 0.04), 0.0, 1.0)
+    d0 = math.hypot(FW_BIN[0] - BW_BIN[0], FW_BIN[1] - BW_BIN[1])
+    r_carry = 0.6 * torch.clamp(1.0 - norm(cube[:, :2] - target) / d0, 0.0, 1.0)
+    penalty = gripper_penalty * gripper_moved.to(torch.float32)
+    return r_reach + r_lift + r_carry + success - penalty

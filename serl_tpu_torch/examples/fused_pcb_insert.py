@@ -7,7 +7,7 @@ box), the peg recipe from states (20 auto-reset expert demo streams at
 50/50, the expert owning whole episodes with probability 0.5 annealed over
 100k env steps, discount 0.97, 16 envs, batch 256 x UTD 4), and `run_fused`
 (chunks of 50, an evaluation every 5 chunks, solved at two evaluations in a
-row >= 0.9). Options: `--demo_reset_prob` starts episodes from a bank of
+row >= 0.9, or --success_stop). Options: `--demo_reset_prob` starts episodes from a bank of
 expert-visited states (8 streams x 100 steps, rebuilt from the seed: the
 bank is not part of a checkpoint), `--bc_weight` adds the Q-filtered BC
 term to the actor, `--lr_decay` decays both learning rates by a cosine over
@@ -68,6 +68,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--log_dir", type=str, default=None)
+    p.add_argument("--success_stop", type=float, default=SUCCESS_STOP)
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -139,7 +140,7 @@ def main(argv=None):
                      total_env_steps=args.total_steps, chunk_iters=CHUNK_ITERS,
                      eval_period_chunks=EVAL_PERIOD_CHUNKS, eval_episodes=args.eval_episodes,
                      seed=args.seed, demo_state=demo_state, logger=logger,
-                     checkpoint_dir=args.checkpoint_dir, success_stop=SUCCESS_STOP,
+                     checkpoint_dir=args.checkpoint_dir, success_stop=args.success_stop,
                      resume=args.resume)
 
 

@@ -6,7 +6,11 @@ and the preset `--preset`, the example's own by default: `state_sim`, or
 `drq_rlpd` for the pixel example; or `fused_peg_insert`, peg insertion from
 states or with `--pixels` from pixels; or `fused_cable_route`, cable route
 on the learned classifier's reward; or `vice_online`, each recipe as it
-is) once per seed,
+is; or `fused_pcb_insert`, PCB insertion from states to JAX's round-4
+recipe (--bc_weight 0.1 --intervention_min_prob 0.05); or
+`fused_fwbw_bin_relocation`, the chained forward/backward bin relocation
+to its docstring's recipe, whose success is the round trip, with
+eval_fw, eval_bw and eval_bw|fw beside it) once per seed,
 all concurrently on one card (the loop is host-bound, so they overlap), and
 when all have ended writes `<out>/summary.json`: per seed, the evaluations
 (env steps, eval success and return), the env step at which the seed was
@@ -21,6 +25,9 @@ the last logged env-steps/s; with the card's name and power limit.
         --example fused_peg_insert --pixels --total_env_steps 96000 --success_stop 0.9
     python -m serl_tpu_torch.examples.learning_check --out runs/cable_route \
         --example fused_cable_route --total_env_steps 60000 --success_stop 0.9
+
+    python -m serl_tpu_torch.examples.learning_check --out runs/fwbw \\
+        --example fused_fwbw_bin_relocation --total_env_steps 720000 --success_stop 0.8
 
 A cable-route seed's evaluations carry the classifier's success beside the
 ground truth, and its summary the classifier's data counts and last
@@ -46,11 +53,25 @@ THREADS_PER_SEED = 2
 # each RLPD example's preset unless --preset names another; the pose-task
 # examples take none
 EXAMPLES = {"fused_sac_state_sim": "state_sim", "fused_drq_sim": "drq_rlpd",
-            "fused_peg_insert": None, "fused_cable_route": None, "vice_online": None}
+            "fused_peg_insert": None, "fused_cable_route": None, "vice_online": None,
+            "fused_pcb_insert": None, "fused_fwbw_bin_relocation": None}
+# recipes passed to a pose-task example beyond its defaults
+RECIPES = {
+    # JAX's PCB round-4 recipe (pcb_insert_v5e_run2.log, _run3.log)
+    "fused_pcb_insert": ["--bc_weight", "0.1", "--intervention_min_prob", "0.05"],
+    # the JAX example's docstring recipe (fwbw_r5_chained_state_r3.log)
+    "fused_fwbw_bin_relocation": ["--bc_weight", "0.3", "--discount", "0.98",
+                                  "--intervention_mode", "rescue", "--intervention_prob", "0.02",
+                                  "--intervention_decay_steps", "1500000",
+                                  "--intervention_min_prob", "0.008", "--fresh_reset_prob", "0.1",
+                                  "--demo_steps", "600"],
+}
 # the evaluation keys of a chunk log beyond success and return, by their
 # summary names
 EXTRA_EVAL_KEYS = {"eval/classifier_success_rate": "eval_classifier_success",
-                   "eval/vice_rate": "eval_vice_rate", "vice/bce_loss": "vice_bce"}
+                   "eval/vice_rate": "eval_vice_rate", "vice/bce_loss": "vice_bce",
+                   "eval/fw_success": "eval_fw", "eval/bw_success": "eval_bw",
+                   "eval/bw_success_given_fw": "eval_bw_given_fw"}
 
 
 def card_line() -> str:
@@ -101,7 +122,7 @@ def main(argv=None) -> int:
     def recipe(seed):
         if EXAMPLES[args.example] is None:  # a pose-task example, its recipe as it is
             return (["--seed", str(seed), "--total_steps", str(args.total_env_steps)]
-                    + (["--pixels"] if args.pixels else []))
+                    + RECIPES.get(args.example, []) + (["--pixels"] if args.pixels else []))
         return ["--rlpd", "--preset", preset, "--seed", str(seed),
                 "--total_env_steps", str(args.total_env_steps)]
 

@@ -7,7 +7,8 @@
 // chosen by a macro at compile time (tests/torch_k1.py builds both with g++
 // and binds them with ctypes):
 //
-//   default          k1_host_step(): the header's arithmetic over N envs on
+//   default          k1_host_step(): the header's arithmetic over N envs (and
+//                    an obstacle table) on
 //                    the CPU, so that the CPU tests can hold the kernel's
 //                    code, not only the plain PyTorch version, against the
 //                    JAX package and against control_step_plain;
@@ -135,11 +136,14 @@ extern "C" {
 
 // ops[e] = float32 operations of env e's control step, path[e] its critical
 // path; `fields` are the 11 PhysicsState inputs (contiguous float32),
-// `consts` the kernel's constants.
-void k1_count_ops(float* const* fields, const float* consts, int n, int64_t* ops, int64_t* path) {
+// `consts` the kernel's constants, `obstacles` the m boxes' 6 m floats.
+void k1_count_ops(float* const* fields, const float* consts, const float* obstacles, int m, int n,
+                  int64_t* ops, int64_t* path) {
   static const int widths[11] = {7, 7, 1, 1, 1, 3, 4, 3, 4, 3, 3};
   opcount::Real C[serl::C_COUNT];
   for (int i = 0; i < serl::C_COUNT; ++i) C[i] = opcount::Real::data(consts[i]);
+  opcount::Real O[6 * 8];
+  for (int i = 0; i < 6 * m; ++i) O[i] = opcount::Real::data(obstacles[i]);
   serl::Group* g = new serl::Group;
   for (int e = 0; e < n; ++e) {
     opcount::Real in[11][7], out[11][7];
@@ -149,7 +153,7 @@ void k1_count_ops(float* const* fields, const float* consts, int n, int64_t* ops
     serl::Fields fo = {out[0], out[1], out[2], out[3], out[4], out[5],
                        out[6], out[7], out[8], out[9], out[10]};
     opcount::g_ops = opcount::g_path = opcount::g_phase_max = 0;
-    serl::control_step_env(fi, fo, C, 0, *g);
+    serl::control_step_env(fi, fo, C, O, m, 0, *g);
     ops[e] = opcount::g_ops;
     path[e] = opcount::g_path;
   }
@@ -201,13 +205,15 @@ int64_t k1_div_mismatches(int64_t n, uint32_t seed) {
 }
 
 // One control step of n envs on the CPU: 11 input and 11 output PhysicsState
-// fields (contiguous float32) and the kernel's constant buffer.
-void k1_host_step(float* const* in, float* const* out, const float* consts, int n) {
+// fields (contiguous float32), the kernel's constant buffer and the m
+// obstacle boxes (6 m floats).
+void k1_host_step(float* const* in, float* const* out, const float* consts, const float* obstacles,
+                  int m, int n) {
   const serl::Fields fi = {in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10]};
   const serl::Fields fo = {out[0], out[1], out[2], out[3], out[4], out[5],
                            out[6], out[7], out[8], out[9], out[10]};
   serl::Group* g = new serl::Group;
-  for (int e = 0; e < n; ++e) serl::control_step_env(fi, fo, consts, e, *g);
+  for (int e = 0; e < n; ++e) serl::control_step_env(fi, fo, consts, obstacles, m, e, *g);
   delete g;
 }
 

@@ -69,7 +69,8 @@ def build_clocked() -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(proc.stdout + proc.stderr)
     cdll = ctypes.CDLL(lib)
-    cdll.serl_control_step.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int, ctypes.c_void_p]
+    cdll.serl_control_step.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int, ctypes.c_int,
+                                                                ctypes.c_void_p]
     cdll.serl_read_clocks.argtypes = [ctypes.c_void_p]
     return cdll
 
@@ -85,7 +86,7 @@ def main() -> None:
     clocks = np.zeros(N_CLOCKS, np.int64)
     for _ in range(3):  # the last launch's clocks: warm caches
         rc = lib.serl_control_step(*(x.data_ptr() for x in s), *(x.data_ptr() for x in out),
-                                   consts.data_ptr(), n, None)
+                                   consts.data_ptr(), None, 0, n, None)
         if rc != 0:
             raise RuntimeError(f"launch failed: {rc}")
         count = lib.serl_read_clocks(clocks.ctypes.data)

@@ -37,7 +37,9 @@ def test_torch_port_never_imports_jax_or_serl_tpu():
                    "networks/classifier.py", "agents/vice.py", "agents/bc.py",
                    "data/dataset.py", "common/evaluation.py", "examples/fused_cable_route.py",
                    "examples/vice_online.py", "examples/train_reward_classifier.py",
-                   "examples/record_demo.py", "examples/bc_policy.py"):
+                   "examples/record_demo.py", "examples/bc_policy.py",
+                   "envs/chained_bin.py", "data/routed_buffer.py", "training/fwbw.py",
+                   "examples/fused_fwbw_bin_relocation.py"):
         assert f"serl_tpu_torch/{module}" in scanned, module
     for path in files:
         for mod in _imported_modules(path):

@@ -226,8 +226,12 @@ def test_torch_control_step_wrapper_dispatch():
     assert engine.control_step.launches == before
     for a, b in zip(out, engine.control_step_plain(s)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        engine.control_step(s, obstacles=np.zeros((1, 2, 3), np.float32))
+    # obstacles on CPU tensors take the plain version too, and launch nothing
+    walls = np.asarray([[[0.0, 0.0, 0.0], [1.0, 1.0, 0.01]]], np.float32)
+    out = engine.control_step(s, obstacles=walls)
+    assert engine.control_step.launches == before
+    for a, b in zip(out, engine.control_step_plain(s, walls)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError):
         engine.control_step_cuda(s)  # not on a CUDA card
     with pytest.raises(ValueError):

@@ -66,8 +66,11 @@ def test_torch_pose_configs_equal_jax():
     assert tuple(tasks.PoseTaskConfig()) == tuple(jtasks.PoseTaskConfig())
     for name in ("PEG_INSERT_CONFIG", "PCB_INSERT_CONFIG", "CABLE_ROUTE_CONFIG"):
         assert tuple(getattr(tasks, name)) == tuple(getattr(jtasks, name)), name
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tasks.BinRelocationEnv()
+    # the bin relocation task's configs (forward and backward) equal JAX's
+    for task_id in (0, 1):
+        want = jtasks.BinRelocationEnv(task_id=task_id).config
+        assert tuple(tasks.bin_config(task_id)) == tuple(want), task_id
+        assert tuple(tasks.BinRelocationEnv(task_id, device="cpu").config) == tuple(want)
 
 
 def test_torch_quat_euler_match_jax():

@@ -1,8 +1,9 @@
 """Checks of the control-step kernel (K1), shared by chip_smoke.py and the tests.
 
   * state builders: reset states, rollout states (cubes resting on the floor,
-    so floor contacts are active) and grasp states (the cube pressed between
-    the pads, so every pad contact is active);
+    so floor contacts are active), grasp states (the cube pressed between
+    the pads, so every pad contact is active) and bin states (the cube
+    pressed into the bin walls, so obstacle contacts are active);
   * the tolerance rule by which two float32 implementations of one control
     step are held to each other, per env and PhysicsState field;
   * host builds of csrc/control_step.cuh: the kernel's arithmetic compiled
@@ -163,13 +164,88 @@ def grasp_states(n: int, g: torch.Generator, device):
     )
 
 
-def compare_step(step, s):
+def bin_states(n: int, g: torch.Generator, device) -> Dict[str, engine.PhysicsState]:
+    """Reset states with the cube moved against the bin walls of
+    envs/tasks.py::bin_walls, per env at a random wall or bin: "wall" (pressed
+    0.2-2 mm into a wall's inner face, resting on the floor, yawed up to
+    +-0.1 rad), "corner" (into a bin's corner, two walls), "top" (over a
+    wall's top, one column of corners sunk into it, tilted up to 0.1 rad,
+    moving at up to 0.2 m/s, as when carried over it), "edge" (a corner
+    column inside the wall at its top inner edge, 0.2-3 mm from the top and
+    from the side, axis-aligned: depths near a tie between the axes)."""
+    from serl_tpu_torch.envs import tasks
+    from serl_tpu_torch.envs.physics.math3d import quat_from_axis_angle
+
+    u = lambda *shape: torch.rand(shape, generator=g, device=device)
+    pick = lambda k: torch.randint(0, k, (n,), generator=g, device=device)
+    half = float(engine.CUBE_HALF[0])
+    h, t, top = tasks.BIN_HALF, tasks.WALL_THICKNESS, tasks.WALL_HEIGHT
+    centres = torch.tensor([tasks.FW_BIN, tasks.BW_BIN], device=device)[pick(2)]  # (n, 2)
+    cx, cy = centres[:, 0], centres[:, 1]
+    inner = h - half  # the cube centre's reach from the bin centre before it touches a wall
+    out = {}
+
+    def state(pos, axis, angle, linvel):
+        s = reset_states(n, g, device)
+        return s._replace(cube_pos=pos.contiguous(),
+                          cube_quat=quat_from_axis_angle(axis, angle).contiguous(),
+                          cube_linvel=linvel.contiguous(),
+                          cube_angvel=(0.5 * (2.0 * u(n, 3) - 1.0)).contiguous())
+
+    z_axis = torch.tensor([0.0, 0.0, 1.0], device=device).expand(n, 3)
+    rest_z = torch.full((n,), half - 1e-4, device=device)
+    # a wall: k 0/1 the low/high y wall, 2/3 the low/high x wall
+    k, pen, along = pick(4), 0.0002 + 0.0018 * u(n), (2.0 * u(n) - 1.0) * inner
+    side = torch.where(k % 2 == 0, -1.0, 1.0)
+    off = side * (inner + pen)
+    x = torch.where(k >= 2, cx + off, cx + along)
+    y = torch.where(k >= 2, cy + along, cy + off)
+    toward = torch.stack([torch.where(k >= 2, side, 0.0), torch.where(k >= 2, 0.0, side),
+                          torch.zeros_like(side)], -1)
+    out["wall"] = state(torch.stack([x, y, rest_z], -1), z_axis, 0.1 * (2.0 * u(n) - 1.0),
+                        0.05 * u(n)[:, None] * toward)
+    sx, sy = torch.where(u(n) < 0.5, -1.0, 1.0), torch.where(u(n) < 0.5, -1.0, 1.0)
+    pos = torch.stack([cx + sx * (inner + 0.0002 + 0.0018 * u(n)),
+                       cy + sy * (inner + 0.0002 + 0.0018 * u(n)), rest_z], -1)
+    out["corner"] = state(pos, z_axis, 0.1 * (2.0 * u(n) - 1.0),
+                          0.05 * torch.stack([sx, sy, torch.zeros_like(sx)], -1))
+    # over a wall's top: the wall's mid-plane at c -+ (h + t / 2); the cube's
+    # centre half - t / 2 off it, so one column of corners lies over the wall
+    k, pen = pick(4), 0.0002 + 0.0018 * u(n)
+    side = torch.where(k % 2 == 0, -1.0, 1.0)
+    off = side * (h + 0.5 * t) + torch.where(u(n) < 0.5, -1.0, 1.0) * (half - 0.25 * t)
+    along = (2.0 * u(n) - 1.0) * inner
+    x = torch.where(k >= 2, cx + off, cx + along)
+    y = torch.where(k >= 2, cy + along, cy + off)
+    axis = 2.0 * u(n, 3) - 1.0
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    out["top"] = state(torch.stack([x, y, top + half - pen], -1), axis, 0.1 * u(n),
+                       0.2 * (2.0 * u(n, 3) - 1.0))
+    # at a wall's top inner edge: a column of corners pen_side inside the
+    # inner face and pen_top below the top
+    k = pick(4)
+    side = torch.where(k % 2 == 0, -1.0, 1.0)
+    pen_side, pen_top = 0.0002 + 0.0028 * u(n), 0.0002 + 0.0028 * u(n)
+    off = side * (h + pen_side - half)
+    along = (2.0 * u(n) - 1.0) * inner
+    x = torch.where(k >= 2, cx + off, cx + along)
+    y = torch.where(k >= 2, cy + along, cy + off)
+    out["edge"] = state(torch.stack([x, y, top - pen_top + half], -1), z_axis,
+                        torch.zeros(n, device=device), 0.02 * (2.0 * u(n, 3) - 1.0))
+    return out
+
+
+def compare_step(step, s, obstacles=None):
     """One control step by `step` (the kernel, or its host build) against
-    control_step_plain in float32, with the plain version's float64 run as
-    the measure of rounding; returns (failures, summary, errors per env)."""
-    got, want = step(s), engine.control_step_plain(s)
+    control_step_plain in float32 (against the (M, 2, 3) `obstacles` where
+    given), with the plain version's float64 run as the measure of rounding;
+    returns (failures, summary, errors per env)."""
+    if obstacles is None:
+        got, want = step(s), engine.control_step_plain(s)
+    else:
+        got, want = step(s, obstacles), engine.control_step_plain(s, obstacles)
     err = per_env_errors(got, want)
-    spread = per_env_errors(want, engine.control_step_plain(to_f64(s)))
+    spread = per_env_errors(want, engine.control_step_plain(to_f64(s), obstacles))
     failures, summary = judge(err, spread, STEP_ATOL, STEP_CAP)
     return failures, summary, err
 
@@ -186,18 +262,22 @@ def _compiler() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _host_library(count_ops: bool, csrc: str, ascending: bool = False) -> ctypes.CDLL:
+def _host_library(count_ops: bool, csrc: str, ascending: bool = False,
+                  no_obstacles: bool = False) -> ctypes.CDLL:
     source = os.path.join(HERE, "k1_host.cpp")
     flags = ["-O1", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
     if count_ops:
         flags.append("-DSERL_COUNT_OPS")
     if ascending:
         flags.append("-DSERL_HOST_ASCENDING")
+    if no_obstacles:
+        flags.append("-DSERL_NO_OBSTACLES")
     h = hashlib.sha256(" ".join(flags + [os.path.abspath(csrc)]).encode())
     for path in (source, os.path.join(csrc, "control_step.cuh")):
         with open(path, "rb") as f:
             h.update(f.read())
-    name = "count" if count_ops else "step-up" if ascending else "step"
+    name = ("count" if count_ops else "step-up" if ascending else "step") + (
+        "-noobs" if no_obstacles else "")
     out = os.path.join(BUILD_DIR, f"libk1_{name}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -210,10 +290,11 @@ def _host_library(count_ops: bool, csrc: str, ascending: bool = False) -> ctypes
     lib = ctypes.CDLL(out)
     ptr, n = ctypes.c_void_p, ctypes.c_int
     if count_ops:
-        lib.k1_count_ops.argtypes = [ptr, ptr, n, ptr, ptr]  # fields, consts, n, ops, path
+        # fields, consts, obstacles, m, n, ops, path
+        lib.k1_count_ops.argtypes = [ptr, ptr, ptr, n, n, ptr, ptr]
         lib.k1_count_ops.restype = None
     else:
-        lib.k1_host_step.argtypes = [ptr, ptr, ptr, n]  # in, out, consts, n
+        lib.k1_host_step.argtypes = [ptr, ptr, ptr, ptr, n, n]  # in, out, consts, obstacles, m, n
         lib.k1_host_step.restype = None
         lib.k1_div_mismatches.argtypes = [ctypes.c_int64, ctypes.c_uint32]
         lib.k1_div_mismatches.restype = ctypes.c_int64
@@ -224,17 +305,30 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def host_step(s, csrc: str = CSRC, ascending: bool = False):
-    """One control step of CPU state `s` by the kernel's code built for the
-    CPU (`csrc` names another copy of the header, for a planted fault), its
-    lanes run from the last to the first, or from the first to the last."""
-    lib = _host_library(False, csrc, ascending)
+def _boxes(obstacles) -> Tuple[np.ndarray, int]:
+    """(contiguous float32 table, M) of an obstacle table or None."""
+    if obstacles is None:
+        return np.zeros(6, np.float32), 0
+    boxes = np.ascontiguousarray(engine.obstacle_table(obstacles, "cpu").numpy())
+    return boxes, boxes.shape[0]
+
+
+def host_step(s, obstacles=None, csrc: str = CSRC, ascending: bool = False,
+              no_obstacles: bool = False):
+    """One control step of CPU state `s` against the (M, 2, 3) `obstacles`
+    by the kernel's code built for the CPU (`csrc` names another copy of the
+    header, for a planted fault), its lanes run from the last to the first,
+    or from the first to the last; `no_obstacles` builds the header with its
+    obstacle code compiled out (SERL_NO_OBSTACLES)."""
+    lib = _host_library(False, csrc, ascending, no_obstacles)
     engine._check_state(s)
     if s.qpos.device.type != "cpu":
         raise ValueError(f"host_step needs CPU tensors, got {s.qpos.device}")
     out = [torch.empty_like(x) for x in s]
     consts = engine.kernel_constants()
-    lib.k1_host_step(_pointers(list(s)), _pointers(out), consts.ctypes.data, s.qpos.shape[0])
+    boxes, m = _boxes(obstacles)
+    lib.k1_host_step(_pointers(list(s)), _pointers(out), consts.ctypes.data, boxes.ctypes.data, m,
+                     s.qpos.shape[0])
     return engine.PhysicsState(*out)
 
 
@@ -245,21 +339,24 @@ def div_mismatches(n: int, seed: int = 0) -> int:
     return int(_host_library(False, CSRC).k1_div_mismatches(n, seed))
 
 
-def op_and_path_counts(s) -> Tuple[np.ndarray, np.ndarray]:
-    """(N,) float32 operations that each env's control step executes in the
-    kernel's code, and (N,) its critical path (per phase the most operations
-    of any one lane, summed over phases and substeps), counted as k1_host.cpp
-    says; `s` may lie on any device."""
+def op_and_path_counts(s, obstacles=None) -> Tuple[np.ndarray, np.ndarray]:
+    """(N,) float32 operations that each env's control step (against the
+    (M, 2, 3) `obstacles`, if given) executes in the kernel's code, and (N,)
+    its critical path (per phase the most operations of any one lane, summed
+    over phases and substeps), counted as k1_host.cpp says; `s` may lie on
+    any device."""
     lib = _host_library(True, CSRC)
     s = engine.PhysicsState(*(x.detach().to("cpu", torch.float32).contiguous() for x in s))
     engine._check_state(s)
     n = s.qpos.shape[0]
     ops, path = np.zeros(n, np.int64), np.zeros(n, np.int64)
     consts = engine.kernel_constants()
-    lib.k1_count_ops(_pointers(list(s)), consts.ctypes.data, n, ops.ctypes.data, path.ctypes.data)
+    boxes, m = _boxes(None if obstacles is None else torch.as_tensor(obstacles).cpu())
+    lib.k1_count_ops(_pointers(list(s)), consts.ctypes.data, boxes.ctypes.data, m, n,
+                     ops.ctypes.data, path.ctypes.data)
     return ops, path
 
 
-def op_counts(s) -> np.ndarray:
+def op_counts(s, obstacles=None) -> np.ndarray:
     """(N,) float32 operations of each env's control step (K1's bound)."""
-    return op_and_path_counts(s)[0]
+    return op_and_path_counts(s, obstacles)[0]

@@ -42,8 +42,9 @@ def to_torch(state: jpick.EnvState) -> EnvState:
                     t(state.ep_id))
 
 
-def jax_reset_draws(keys, config, bank_size=None) -> ResetDraws:
-    """The draws JAX's `_reset_state(key)` takes, per key of (N, 2) keys."""
+def jax_reset_draws(keys, config, bank_size=None, jitter=False) -> ResetDraws:
+    """The draws JAX's `_reset_state(key)` takes, per key of (N, 2) keys;
+    with `jitter`, the bin task's cube offset (`_place_objects`)."""
     lo, hi = jpick.SAMPLING_BOUNDS
 
     def one(key):
@@ -54,13 +55,16 @@ def jax_reset_draws(keys, config, bank_size=None) -> ResetDraws:
         dxy = jax.random.uniform(k_xy, (2,), minval=-r, maxval=r)
         drz = jax.random.uniform(k_rz, (), minval=-rz, maxval=rz)
         k_sel, k_idx = jax.random.split(jax.random.fold_in(rng, 7))  # _maybe_demo_reset
+        # BinRelocationEnv._place_objects
+        cube = jax.random.uniform(jax.random.fold_in(rng, 99), (2,), minval=-0.038, maxval=0.038)
         return xy, dxy, drz, jax.random.uniform(k_sel), jax.random.randint(
-            k_idx, (), 0, bank_size or 1)
+            k_idx, (), 0, bank_size or 1), cube
 
-    xy, dxy, drz, use, idx = (torch.from_numpy(np.array(x)) for x in jax.vmap(one)(keys))
+    xy, dxy, drz, use, idx, cube = (torch.from_numpy(np.array(x)) for x in jax.vmap(one)(keys))
+    extra = {"jitter": cube} if jitter else {}
     if not bank_size:
-        return ResetDraws(xy, dxy, drz)
-    return ResetDraws(xy, dxy, drz, use, idx.long())
+        return ResetDraws(xy, dxy, drz, **extra)
+    return ResetDraws(xy, dxy, drz, use, idx.long(), **extra)
 
 
 def angle_error(got, want) -> np.ndarray:
