@@ -15,14 +15,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      code for the host to count their operations (tests/k1_host.cpp,
      tests/k2_host.cpp); print the build times and ptxas lines;
   2. every kernel against its plain version on the card: K1 at N = 128,
-     2048 and 101 (not a multiple of the envs per block) env states from two
+     2048, 101 (not a multiple of the envs per block) and 1 (the two-process
+     actors' one env) env states from two
      sources (a plain-version rollout with random actions, and constructed
      grasp states with the cube between the pads), which must include active
      floor and pad contacts: one control step, field by field and env by env,
-     and a 100-step kernel-vs-plain rollout, under the tolerance rule of
-     tests/torch_k1.py; two more launches on each input, at N = 2048 a
-     launch on its first 101 envs and at N = 128 launches on its first 30
-     and 32 (the RLPD path's widths), equal bit for bit; K1 also at pose-task
+     and a 100-step kernel-vs-plain rollout at N = 128 and 1, under the
+     tolerance rule of tests/torch_k1.py; two more launches on each input,
+     at N = 2048 a launch on its first 101 envs and at N = 128 launches on
+     its first 30 and 32 (the RLPD path's widths) and on its first env
+     alone, equal bit for bit; K1 also at pose-task
      inputs (the peg env's settled resets with their per-env yaw, and after
      10 noisy pose-expert steps through the Euler box) at N = 16 and 2048,
      under the same rule, and at the cable-route env's inputs at 8, 16, 20 and
@@ -32,7 +34,7 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      with active obstacle contacts) under the same rule, repeated launches
      bit for bit, and a launch with M = 0 equal bit for bit to one with no
      table and to a build with the obstacle code compiled out; K2 (both -fmad builds)
-     at N = 16 and 128, 128 px, on rollout and grasp states (cube in the
+     at N = 1, 16 and 128, 128 px, on rollout and grasp states (cube in the
      wrist camera's view), and at the fwbw paths' 32 chained envs on bin
      states and on the chained env's states after a reset and 15, 40 and 80
      expert steps (cube in the front camera's view), under the pixel rule of tests/torch_k2.py (failing
@@ -149,7 +151,21 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      chunks of 5) and --classifier_reward (the classifiers' frames, 20 of
      800 steps, 1 chunk); a chained env step launches K1 six times, an
      updating learner K4 twice; both learners' steps under
-     torch.cuda.set_sync_debug_mode("error"). Around each path
+     torch.cuda.set_sync_debug_mode("error"); the two-process paths:
+     examples/async_sac_state_sim.py and async_drq_sim.py at their
+     reference defaults, the learner and the actor as two subprocesses on a
+     free port pair (300 learner updates and 4,000 actor steps from states,
+     60 and 2,500 from pixels), each process counting its launches from 0
+     and printing them and K5's shapes in its summary line: both exit 0, the
+     learner's ring reached training_starts, its losses are finite, the
+     actor loaded at least one published version and every digest it
+     printed is one the learner printed for a version it published; the
+     actor's env-steps/s, the learner's updates/s, ms per publish, the
+     transitions received, the versions loaded and, from pixels, the host
+     sample, the pinned staging and the host-to-device copy per update;
+     an actor step launches K1 once (from pixels also K2 twice, and twice
+     more a reset), a policy step the policy's K5 layers, a learner update
+     as the fused learner's with no K4. Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -185,9 +201,11 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -201,6 +219,7 @@ PEAK_TF32_OPS_PER_S = 495e12
 BOUND_N = (128, 2048)
 K1_ODD_N = 101  # not a multiple of K1's envs per block (control_step.cu)
 K1_RLPD_N = (30, 32)  # the RLPD path's demo collection and its loop and evaluation
+K1_ONE_N = 1  # the two-process actors step one env
 MAIN_ENVS = 128
 # bench.py::bench_state's configuration, passed to make_state_sim_experiment
 BENCH_STATE = dict(seed=0, num_envs=128, updates_per_iter=1, utd_ratio=8, training_starts=1000,
@@ -227,7 +246,7 @@ BENCH_PIXELS = dict(seed=0, encoder_type="small", num_envs=16, batch_size=256, u
 PIXEL_CHUNK = 25  # loop iterations per timed chunk, as bench_pixels
 PIXEL_SIZE = 128
 IMAGE_KEYS = ("front", "wrist")
-K2_N = (16, 128)
+K2_N = (1, 16, 128)  # the two-process pixel actor renders one env
 K2_KERNELS = ("render_scene_kernel", "render_pixels_kernel")  # a render launches both
 # The RLPD path: examples/fused_sac_state_sim.py --rlpd at the state_sim
 # preset (32 envs, batch 256 x UTD 8, 4 update_high_utd calls per
@@ -395,6 +414,14 @@ K5_SHAPES = {
     # the fwbw pixel policies' proprio Dense acting on the 32 chained envs
     # (their other layers, and the classifiers' bottleneck there, are held above)
     ("linear", 1, 32, 10, 64): (True, False),
+    # the two-process actors' policies on one env (one row: the forward's K
+    # split at its extreme): state layers 1 and 2, the pixel policy's layer 1,
+    # the bottleneck per camera and the proprio Dense (also the pixel
+    # learner's constructor sample, on the CPU)
+    ("linear", 1, 1, 10, 256): (True, False),
+    ("linear", 1, 1, 256, 256): (True, True),
+    ("linear", 1, 1, 576, 256): (True, False),
+    ("linear", 1, 1, 7, 64): (True, False),
 }
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
@@ -681,7 +708,7 @@ def check_k5_shapes(log) -> None:
 def phase_kernel_vs_plain(torch, engine, checks, device):
     g = torch.Generator(device=device).manual_seed(0)
     main_path_err = 0.0
-    for n in BOUND_N + (K1_ODD_N,):
+    for n in BOUND_N + (K1_ODD_N, K1_ONE_N):
         for source, make in (("rollout", checks.rollout_states), ("grasp", checks.grasp_states)):
             s = make(n, g, device)
             floor, pad = engine.active_contacts(s)
@@ -689,11 +716,11 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
             failures, summary, _ = checks.compare_step(engine.control_step_cuda, s)
             # two more launches on the same input; at N = 2048 also the first
             # K1_ODD_N envs alone (a partial block), at N = 128 the first
-            # K1_RLPD_N envs alone, against the same envs' outputs of the
-            # whole launch (which the plain version judged)
+            # K1_RLPD_N envs and the first env alone, against the same envs'
+            # outputs of the whole launch (which the plain version judged)
             first, second = engine.control_step_cuda(s), engine.control_step_cuda(s)
             repeats = all(torch.equal(a, b) for a, b in zip(first, second))
-            parts = {BOUND_N[-1]: (K1_ODD_N,), MAIN_ENVS: K1_RLPD_N}.get(n, ())
+            parts = {BOUND_N[-1]: (K1_ODD_N,), MAIN_ENVS: K1_RLPD_N + (K1_ONE_N,)}.get(n, ())
             for m in parts:
                 part = engine.control_step_cuda(type(s)(*(x[:m] for x in s)))
                 repeats = repeats and all(torch.equal(a, b[:m]) for a, b in zip(part, first))
@@ -718,9 +745,15 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
           f"envs may exceed STEP_ATOL; STEP_ATOL {fmt(checks.STEP_ATOL)}; STEP_CAP "
           f"{fmt(checks.STEP_CAP)}")
 
-    # 100-step kernel-vs-plain rollout with the same random actions, beside a
-    # float64 plain rollout that measures float32 rounding's own drift
-    n = MAIN_ENVS
+    for n in (MAIN_ENVS, K1_ONE_N):
+        _k1_rollout_vs_plain(torch, engine, checks, device, g, n)
+    return main_path_err
+
+
+def _k1_rollout_vs_plain(torch, engine, checks, device, g, n: int) -> None:
+    """A 100-step kernel-vs-plain rollout of n envs with the same random
+    actions, beside a float64 plain rollout that measures float32 rounding's
+    own drift, under tests/torch_k1.py's drift rule."""
     sk = sp = checks.reset_states(n, g, device)
     s64 = checks.to_f64(sp)
     drift = {f: torch.zeros(n, dtype=torch.float64, device=device) for f in checks.DRIFT_ATOL}
@@ -746,8 +779,7 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
           f"beyond DRIFT_ATOL {fmt(checks.DRIFT_ATOL)}: {summary['envs_over_atol']} (at most "
           f"{summary['budget']}); DRIFT_CAP {fmt(checks.DRIFT_CAP)}")
     if failures:
-        raise AssertionError("100-step rollout: " + "; ".join(failures))
-    return main_path_err
+        raise AssertionError(f"100-step rollout at N={n}: " + "; ".join(failures))
 
 
 def phase_k4_vs_plain(torch, device):
@@ -959,7 +991,7 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
     g = torch.Generator(device=device).manual_seed(3)
     noobs = _k1_no_obstacles_library(engine)
     rows = {}
-    for n in BOUND_N:
+    for n in BOUND_N + (K1_ONE_N,):
         s = checks.rollout_states(n, g, device, steps=5)
         step = lambda: engine.control_step_cuda(s)
         ms = per_call_ms(step, calls=50)
@@ -1569,6 +1601,20 @@ def phase_pixel_times(torch, device, card, k2, builds, env, agent, rb, config, c
         ops_per_pixel=ops["pixel"] / (2 * n * pixels), ops_per_env_camera=ops["camera"] / (2 * n),
         ops_per_env=ops["scene"] / n, ops_unhoisted=ops["unhoisted"],
         bound_ms_unhoisted=bound(nbytes, ops["unhoisted"])[0], fmad=fmad)
+    # K2 on one env (the two-process pixel actor's call)
+    one = type(s)(*(x[:1] for x in s))
+    render_one = lambda: rendering.render_cameras_cuda(one, PIXEL_SIZE)
+    one_ops = k2.render_ops(one, PIXEL_SIZE)
+    one_bytes = ((7 + 1 + 3 + 4) * 4 + rendering.kernel_constants().nbytes + 2 * 2 * pixels * 4
+                 + 2 * pixels * 3)
+    one_bound = bound(one_bytes, one_ops["scene"] + one_ops["camera"] + one_ops["pixel"])
+    rows["render"]["at_one_env"] = dict(
+        ms=per_call_ms(render_one, calls=50),
+        profiler_ms=profiled_kernel_ms(render_one, 50, K2_KERNELS),
+        plain_ms=per_call_ms(lambda: rendering.render_cameras_plain(one, PIXEL_SIZE), calls=5),
+        bound_ms=one_bound[0], bound_by=one_bound[1])
+    print(f"K2 time at N=1 (the two-process pixel actor's call): "
+          f"{json.dumps(rows['render']['at_one_env'])} [{card}]")
     print(f"K2 operations (counted in the kernel's code by tests/k2_host.cpp): "
           f"{rows['render']['ops_per_pixel']:.2f} per pixel, "
           f"{rows['render']['ops_per_env_camera']:.1f} per (env, camera), "
@@ -3357,6 +3403,180 @@ def phase_fwbw_path(torch, device, card, mode: str):
     return launches, want, result
 
 
+# ---------------------------------------------------------------- two processes
+
+# The two-process examples at their reference defaults (state: batch 256 x
+# UTD 8, training_starts 1000, random_steps 1000, a push every 30 steps, a
+# publish every update, a 1,000,000-row ring; pixels: 128 px, the small
+# encoders, batch 256 x UTD 4, a publish every 30 updates, a 25,000-row
+# ring), cut in length only: the learner takes ASYNC_UPDATES updates and the
+# actor ASYNC_ACTOR_STEPS steps.
+ASYNC_EXAMPLES = {"state": "serl_tpu_torch.examples.async_sac_state_sim",
+                  "pixels": "serl_tpu_torch.examples.async_drq_sim"}
+ASYNC_UPDATES = {"state": 300, "pixels": 60}
+ASYNC_ACTOR_STEPS = {"state": 4000, "pixels": 2500}
+ASYNC_LOG_PERIOD = {"state": 100, "pixels": 20}
+ASYNC_DEFAULTS = {"state": dict(utd_ratio=8, training_starts=1000, batch_size=256),
+                  "pixels": dict(utd_ratio=4, training_starts=1000, batch_size=256)}
+ASYNC_TIMEOUT_S = 240  # each process's own
+ASYNC_ARGV = {"state": [], "pixels": []}  # extra flags to both processes (none: the defaults)
+
+
+def async_actor_launches(mode: str, actor: dict) -> dict:
+    """What an actor's run launches, from its summary: one K1 launch a step;
+    the pixel env renders (2 launches) after every step, every reset (one an
+    episode's end) and the first reset; the policy, past the random steps, runs its K5 layers (state:
+    the MLP's 2; pixels: the encoder's 3 and the MLP's 2)."""
+    policy_steps = actor["steps"] - actor["random_steps"]
+    pixels = mode == "pixels"
+    return {"control_step": actor["steps"],
+            "render": 2 * (actor["steps"] + actor["episodes"] + 1) if pixels else 0,
+            "random_crop": 0, "replay_gather": 0,
+            "dense_layer_norm_tanh_fwd": (5 if pixels else 2) * policy_steps,
+            "dense_layer_norm_tanh_bwd": 0}
+
+
+def async_learner_launches_per_update(mode: str, utd: int) -> dict:
+    """An update_high_utd of the fused learner (learner_launches_per_iter,
+    pixel_launches_per_iter), without the loop's control step, render, K4
+    sample and acting: the host ring samples on the host."""
+    if mode == "pixels":
+        per = pixel_launches_per_iter(utd, 1)
+        return {**per, "control_step": 0, "render": 0, "replay_gather": 0,
+                "dense_layer_norm_tanh_fwd": per["dense_layer_norm_tanh_fwd"] - 5}
+    per = learner_launches_per_iter(utd, 1)
+    return {**per, "control_step": 0, "replay_gather": 0,
+            "dense_layer_norm_tanh_fwd": per["dense_layer_norm_tanh_fwd"] - 2}
+
+
+def _free_port_pair(start: int = 15488) -> int:
+    import socket
+
+    for port in range(start, start + 2000, 2):
+        try:
+            with socket.socket() as a, socket.socket() as b:
+                a.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                b.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                a.bind(("127.0.0.1", port))
+                b.bind(("127.0.0.1", port + 1))
+            return port
+        except OSError:
+            continue
+    raise RuntimeError("no free port pair")
+
+
+def _summary_line(text: str, who: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith(f"{who} summary ")]
+    if not lines:
+        raise AssertionError(f"the {who} printed no summary:\n{text[-3000:]}")
+    return json.loads(lines[-1][len(f"{who} summary "):])
+
+
+def phase_async_path(torch, card: str, mode: str, logdir: str, device: str = "cuda") -> dict:
+    """The two-process mode on the card: the example's learner and actor as
+    two subprocesses (`--device cuda --diagnostics`) on a free port pair, the
+    learner relaunched on the next pair if it fails to bind. Each process
+    counts its kernels' launches from 0 (a fresh process) and prints them with
+    K5's shapes at its end. Gates: both exit 0 within ASYNC_TIMEOUT_S; the
+    learner's ring reached training_starts; its critic losses are finite;
+    the actor loaded at least one published version, and every digest it
+    printed is one the learner printed for a version it published; exact
+    launches; K5 only at K5_SHAPES."""
+    import re
+
+    module = ASYNC_EXAMPLES[mode]
+    procs, logs = {}, {}
+    env = dict(os.environ)
+    try:
+        for attempt in range(3):
+            port = _free_port_pair(15488 + 100 * attempt + (0 if mode == "state" else 50))
+            logs = {role: os.path.join(logdir, f"async_{mode}_{role}.log")
+                    for role in ("learner", "actor")}
+            common = [sys.executable, "-m", module, "--device", device, "--diagnostics",
+                      "--port", str(port), *ASYNC_ARGV[mode]]
+            t0 = time.perf_counter()
+            procs["learner"] = subprocess.Popen(
+                common + ["--learner", "--max_steps", str(ASYNC_UPDATES[mode]), "--log_period",
+                          str(ASYNC_LOG_PERIOD[mode])],
+                stdout=open(logs["learner"], "w"), stderr=subprocess.STDOUT, cwd=HERE, env=env)
+            procs["actor"] = subprocess.Popen(
+                common + ["--actor", "--max_steps", str(ASYNC_ACTOR_STEPS[mode])],
+                stdout=open(logs["actor"], "w"), stderr=subprocess.STDOUT, cwd=HERE, env=env)
+            rcs = {}
+            for role in ("learner", "actor"):
+                left = max(1.0, t0 + ASYNC_TIMEOUT_S - time.perf_counter())
+                try:
+                    rcs[role] = procs[role].wait(timeout=left)
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"the {mode} {role} did not end within "
+                                         f"{ASYNC_TIMEOUT_S} s:\n"
+                                         + open(logs[role]).read()[-3000:])
+            seconds = time.perf_counter() - t0
+            out = {role: open(path).read() for role, path in logs.items()}
+            if rcs["learner"] != 0 and "could not bind" in out["learner"]:
+                print(f"async {mode}: the learner could not bind {port}/{port + 1}; next pair")
+                continue
+            break
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for role, rc in rcs.items():
+        if rc != 0:
+            raise AssertionError(f"the {mode} {role} exited {rc}:\n{out[role][-4000:]}")
+    learner, actor = _summary_line(out["learner"], "learner"), _summary_line(out["actor"], "actor")
+    losses = [float(x) for x in re.findall(r"^update \d+ closs (\S+)", out["learner"], re.M)]
+    published = dict(re.findall(r"^learner published version (\d+) digest (\w+)",
+                                out["learner"], re.M))
+    loaded = re.findall(r"^actor loaded params digest (\w+)", out["actor"], re.M)
+    want_actor = async_actor_launches(mode, actor)
+    per_update = async_learner_launches_per_update(mode, learner["utd_ratio"])
+    want_learner = {k: v * learner["updates"] for k, v in per_update.items()}
+    d = {k: learner[k] for k in ASYNC_DEFAULTS[mode]}
+    print(f"async {mode}: actor {actor['steps']} env steps at {actor['env_steps_s']:.1f} "
+          f"env-steps/s ({actor['env_steps_s_random']:.1f} over its {actor['random_steps']} random "
+          f"steps, {actor['env_steps_s_policy']:.1f} over its policy steps; {actor['episodes']} "
+          f"episodes, times {json.dumps(actor['times'])}); "
+          f"learner {learner['updates']} updates (batch {d['batch_size']} x UTD {d['utd_ratio']}) "
+          f"at {learner['updates_s']:.2f} "
+          f"updates/s, {learner['publishes']} publishes at {learner['publish_ms']:.2f} ms each "
+          f"({learner['publish_layout_ms']:.2f} the params' to_jax_layout, "
+          f"{learner['publish_send_ms']:.2f} encoding and sending; the digest beside it "
+          f"{learner['digest_ms']:.2f}), "
+          f"{learner['transitions_received']} transitions received (ring {learner['ring_at_start']} "
+          f"at its first update, training_starts {d['training_starts']}), critic loss "
+          f"{learner['critic_loss_first']:.4f} -> {learner['critic_loss_last']:.4f}, times "
+          f"{json.dumps(learner['times'])}"
+          + (f", host-to-device {learner['h2d_ms']} ms per update of "
+             f"{learner['batch_bytes'] / 1e6:.1f} MB" if mode == "pixels" else "")
+          + f"; versions the actor loaded {actor['versions_loaded']} (received "
+          f"{actor['versions_received']}), each digest one the learner published: "
+          f"{bool(loaded) and set(loaded) <= set(published.values())}; {seconds:.1f} s for the "
+          f"pair; launches: actor {json.dumps(actor['launches'])}, learner "
+          f"{json.dumps(learner['launches'])} [{card}]")
+    gates = {
+        "the reference defaults": ASYNC_ARGV[mode] or d == ASYNC_DEFAULTS[mode],
+        "ring reached training_starts": learner["ring_at_start"] >= d["training_starts"],
+        "critic losses finite": bool(losses) and learner["critic_loss_finite"]
+                                and all(math.isfinite(v) for v in losses),
+        "actor loaded a published version": actor["versions_loaded"] >= 1 and bool(loaded),
+        "loaded digests were published": set(loaded) <= set(published.values()),
+        "actor launches": actor["launches"] == want_actor,
+        "learner launches": learner["launches"] == want_learner,
+    }
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        raise AssertionError(f"async {mode} gates failed: {bad}; actor launches "
+                             f"{actor['launches']} (want {want_actor}), learner "
+                             f"{learner['launches']} (want {want_learner})")
+    check_k5_shapes({tuple(x) for x in actor["k5_shapes"] + learner["k5_shapes"]})
+    return {"actor": actor, "learner": learner, "seconds": seconds,
+            "launches_actor": actor["launches"], "launches_learner": learner["launches"],
+            "per_step_actor": {k: v / actor["steps"] for k, v in want_actor.items()},
+            "per_update_learner": per_update}
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -3382,10 +3602,10 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
         "bound_by": main["bound_by"],
         "library_ms": None,
         "profiler_ms": main["profiler_ms"],
-        "ms_by_envs": {str(n): rows[n]["ms"] for n in BOUND_N},
-        "profiler_ms_by_envs": {str(n): rows[n]["profiler_ms"] for n in BOUND_N},
-        "plain_ms_by_envs": {str(n): rows[n]["plain_ms"] for n in BOUND_N},
-        "bound_ms_by_envs": {str(n): rows[n]["bound_ms"] for n in BOUND_N},
+        "ms_by_envs": {str(n): r["ms"] for n, r in rows.items()},
+        "profiler_ms_by_envs": {str(n): r["profiler_ms"] for n, r in rows.items()},
+        "plain_ms_by_envs": {str(n): r["plain_ms"] for n, r in rows.items()},
+        "bound_ms_by_envs": {str(n): r["bound_ms"] for n, r in rows.items()},
         "ops_per_env": main["ops"] // MAIN_ENVS,
         "critical_path_ops_per_env": main["critical_path_ops"],
         "ptxas": ptxas["control_step"],
@@ -3403,7 +3623,7 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
         "scene_max_abs_err": errs["K2"][1],
         "pixel_rule_by_build": errs["K2"][2],
         **{k: prows["render"][k] for k in ("ops", "ops_per_pixel", "ops_per_env_camera",
-                                           "ops_per_env", "ops_unhoisted",
+                                           "ops_per_env", "ops_unhoisted", "at_one_env",
                                            "bound_ms_unhoisted", "fmad")},
         "ptxas": ptxas["render"],
     })
@@ -3504,6 +3724,8 @@ def main(kernels_only: bool = False) -> int:
             build.build_all(build.KERNEL_SOURCES, [("render", K2_BUILDS[1][1]),
                                                    ("control_step", K1_NO_OBSTACLES)])
             built["s"] = time.perf_counter() - t0
+            build.build_transport()  # g++: the two-process phases' TCP layer
+            built["transport_s"] = time.perf_counter() - t0
         except Exception as exc:  # re-raised below, after the join
             built["error"] = exc
 
@@ -3533,7 +3755,8 @@ def main(kernels_only: bool = False) -> int:
     print(f"K1-K5 built with nvcc ({', '.join(build.KERNEL_SOURCES)}, render.cu with "
           f"{K2_BUILDS[1][0]} beside the shipped {K2_BUILDS[0][0]}, and control_step.cu with "
           f"{' '.join(K1_NO_OBSTACLES)}, in parallel) in "
-          f"{built['s']:.2f} s, all loaded after {t1 - t0:.2f} s; ptxas {json.dumps(ptxas)}; "
+          f"{built['s']:.2f} s, all loaded after {t1 - t0:.2f} s (native/transport.cpp built "
+          f"with g++ after {built['transport_s']:.2f} s); ptxas {json.dumps(ptxas)}; "
           f"K1's and K2's op-counting host builds (g++) meanwhile, done after {host_s:.2f} s")
 
     # phase 2: every kernel against its plain version
@@ -3593,6 +3816,15 @@ def main(kernels_only: bool = False) -> int:
         t_new = time.perf_counter()
         fwbw[mode] = phase_fwbw_path(torch, device, card, mode)
         new_s[f"fwbw_{mode}"] = time.perf_counter() - t_new
+    asyncs = {}
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        for mode in ("state", "pixels"):
+            t_new = time.perf_counter()
+            asyncs[mode] = phase_async_path(torch, card, mode, logdir)
+            new_s[f"async_{mode}"] = time.perf_counter() - t_new
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -3623,7 +3855,10 @@ def main(kernels_only: bool = False) -> int:
                 # the learned-reward paths: whole paths, as the actor's
                 "cable_route": cable_want, "vice": vice_want, "bc": bc_want,
                 # the fwbw paths: whole paths
-                **{f"fwbw_{m}": fwbw[m][1] for m in fwbw}}
+                **{f"fwbw_{m}": fwbw[m][1] for m in fwbw},
+                # the two-process paths: per actor step, per learner update
+                **{f"async_{m}_actor": a["per_step_actor"] for m, a in asyncs.items()},
+                **{f"async_{m}_learner": a["per_update_learner"] for m, a in asyncs.items()}}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
@@ -3631,7 +3866,10 @@ def main(kernels_only: bool = False) -> int:
                             "resnet_trained": trained_launches, "pcb": pcb_launches,
                             "peg_pixels": peg_launches, "cable_route": cable_launches,
                             "vice": vice_launches, "bc": bc_launches,
-                            **{f"fwbw_{m}": fwbw[m][0] for m in fwbw}},
+                            **{f"fwbw_{m}": fwbw[m][0] for m in fwbw},
+                            **{f"async_{m}_actor": a["launches_actor"] for m, a in asyncs.items()},
+                            **{f"async_{m}_learner": a["launches_learner"]
+                               for m, a in asyncs.items()}},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
@@ -3673,7 +3911,17 @@ def main(kernels_only: bool = False) -> int:
               f"updates/s (both learners), {info['warmup']} warm-up iterations, demos "
               f"{json.dumps(info['demos'])}" + (f", evaluation {json.dumps(info['evaluation'])}"
                                                 if info["evaluation"] else "") + f" [{card}]")
-    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, fwbw and timing phases' "
+    for mode, a in asyncs.items():
+        print(f"async {mode}: actor {a['actor']['env_steps_s']:.1f} env-steps/s, learner "
+              f"{a['learner']['updates_s']:.2f} updates/s, {a['learner']['publish_ms']:.2f} ms "
+              f"per publish, {a['learner']['transitions_received']} transitions received, "
+              f"{a['actor']['versions_loaded']} versions loaded"
+              + (f", host sample {1e3 * a['learner']['times']['sample_replay_buffer']:.2f} ms, "
+                 f"pinned staging {1e3 * a['learner']['times']['stage']:.2f} ms and "
+                 f"host-to-device {a['learner']['h2d_ms']} ms per update"
+                 if mode == "pixels" else "") + f" [{card}]")
+    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, fwbw, two-process and "
+          "timing phases' "
           "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))

@@ -41,8 +41,8 @@ PRESETS = ("drq_sim", "drq_rlpd")
 # WorkloadConfig fields that this entry point does not read: the launcher
 # builds the pick-cube DrQ agent with the reference hyperparameters (its
 # discount is make_drq_agent's 0.96, as in the JAX example), and the
-# transport is not ported. A value other than the preset's would be
-# silently ignored, so it raises.
+# transport's fields belong to the two-process examples (async_drq_sim.py).
+# A value other than the preset's would be silently ignored, so it raises.
 UNREAD_FIELDS = ("algo", "task", "image_obs", "discount", "critic_ensemble_size",
                  "critic_subsample_size", "temperature_init", "ip", "port", "steps_per_update",
                  "publish_period")

@@ -62,9 +62,10 @@ def scripted_demos(env, seed: int, num_demos: int, episode_len: int = 100):
 
 # WorkloadConfig fields that this entry point does not read: the launcher
 # builds the state pick-cube SAC agent with the reference hyperparameters,
-# and the transport is not ported. A value other than the state_sim
-# preset's would be silently ignored, so it raises (`name` is the preset's:
-# --preset picks it).
+# and the transport's fields belong to the two-process examples
+# (async_sac_state_sim.py). A value other than the state_sim preset's would
+# be silently ignored, so it raises (`name` is the preset's: --preset picks
+# it).
 UNREAD_FIELDS = ("name", "algo", "task", "image_obs", "image_size", "encoder_type", "discount",
                  "critic_ensemble_size", "critic_subsample_size", "temperature_init", "ip",
                  "port", "steps_per_update", "publish_period")

@@ -1,10 +1,15 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, and its transport with g++.
 
 Each kernel library is one `csrc/<name>.cu` (plus the `csrc/*.cuh` headers)
 with a plain C interface. It is compiled at first use into
 `serl_tpu_torch/_build/` (listed in .gitignore), under a file name keyed by a
 hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+unchanged one is loaded as it is. `build_transport` does the same for
+`native/transport.cpp`, the two-process mode's TCP layer (never the JAX
+package's prebuilt library). Every build writes a temporary file and renames
+it into place, so two processes that build at once (an actor and a learner
+started together) each load a whole library. Nothing here runs at import
+time, and a failed build raises.
 """
 
 import ctypes
@@ -24,6 +29,10 @@ NVCC_FLAGS = (
 # Every csrc/<name>.cu, in the order of the kernels K1 to K5
 KERNEL_SOURCES = ("control_step", "render", "random_crop", "replay_gather",
                   "dense_layer_norm_tanh")
+
+
+TRANSPORT_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "transport.cpp")
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def find_nvcc() -> str:
@@ -106,3 +115,25 @@ def build(name: str, extra=None) -> str:
 
 def load_library(name: str, extra=None) -> ctypes.CDLL:
     return ctypes.CDLL(build(name, extra))
+
+
+def build_transport() -> str:
+    """Compile native/transport.cpp with g++ unless a build of the same
+    source and flags exists; returns the shared library's path."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(TRANSPORT_SOURCE, "rb") as f:
+        h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"libserl_transport-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the transport is built from native/transport.cpp")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, *GXX_FLAGS, TRANSPORT_SOURCE, "-o", tmp],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {TRANSPORT_SOURCE}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out

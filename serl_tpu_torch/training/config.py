@@ -5,10 +5,10 @@ canonical presets.
 The port's copy of `serl_tpu/training/config.py`: the same fields, presets
 and command-line surface. `loop_overrides()` feeds `training/loop.py`'s
 LoopConfig and `runner_kwargs()` `training/runner.py::run_fused`, the
-checkpoint fields (directory, period, pause file, resume) included. Presets
-of task envs that are not ported yet exist as data; what they need raises
-where it is reached. The transport fields wait for the two-process mode
-(`trainer_config()` raises).
+checkpoint fields (directory, period, pause file, resume) included, and
+`trainer_config()` the two-process mode's transport
+(`distributed/transport.py`). Presets of task envs that are not ported yet
+exist as data; what they need raises where it is reached.
 """
 
 from __future__ import annotations
@@ -91,9 +91,11 @@ class WorkloadConfig:
         )
 
     def trainer_config(self):
-        """Transport config for the two-process async mode: the transport is
-        not ported yet."""
-        raise NotImplementedError("the two-process transport is not ported yet")
+        """Transport config for the two-process async mode (reference
+        make_trainer_config, utils/launcher.py:171-177)."""
+        from serl_tpu_torch.distributed.transport import TrainerConfig
+
+        return TrainerConfig(port_number=self.port, broadcast_port=self.port + 1)
 
     def runner_kwargs(self) -> dict:
         """Fields consumed by training.runner.run_fused."""

@@ -39,7 +39,9 @@ def test_torch_port_never_imports_jax_or_serl_tpu():
                    "examples/vice_online.py", "examples/train_reward_classifier.py",
                    "examples/record_demo.py", "examples/bc_policy.py",
                    "envs/chained_bin.py", "data/routed_buffer.py", "training/fwbw.py",
-                   "examples/fused_fwbw_bin_relocation.py"):
+                   "examples/fused_fwbw_bin_relocation.py", "distributed/serialization.py",
+                   "distributed/transport.py", "data/host_buffer.py",
+                   "examples/async_sac_state_sim.py", "examples/async_drq_sim.py"):
         assert f"serl_tpu_torch/{module}" in scanned, module
     for path in files:
         for mod in _imported_modules(path):

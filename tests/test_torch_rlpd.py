@@ -33,6 +33,7 @@ import serl_tpu.training.runner as jrunner
 from serl_tpu.data.replay_buffer import ReplayBuffer as JaxReplayBuffer
 from serl_tpu.training import config as jconfig
 from serl_tpu_torch.data.replay_buffer import ReplayBuffer
+from serl_tpu_torch.distributed.transport import TrainerConfig
 from serl_tpu_torch.envs.panda_pick import PandaPickCubeEnv, flatten_obs
 from serl_tpu_torch.envs.scripted_expert import expert_action
 from serl_tpu_torch.examples import fused_sac_state_sim
@@ -409,8 +410,11 @@ def test_torch_workload_presets_equal_jax():
         assert LoopConfig(**port.loop_overrides()).demo_fraction == cfg.demo_fraction
     params = set(inspect.signature(trunner.run_fused).parameters)
     assert set(tconfig.WorkloadConfig().runner_kwargs()) <= params
-    with pytest.raises(NotImplementedError):
-        tconfig.WorkloadConfig().trainer_config()
+    tc = tconfig.WorkloadConfig.preset("state_sim", port=6100).trainer_config()
+    assert isinstance(tc, TrainerConfig)
+    assert (tc.port_number, tc.broadcast_port, tc.request_types) == (6100, 6101, ["send-stats"])
+    jtc = jconfig.WorkloadConfig.preset("state_sim", port=6100).trainer_config()
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jtc)
     p = argparse.ArgumentParser()
     tconfig.WorkloadConfig.add_args(p, preset="drq_sim")
     cfg = tconfig.WorkloadConfig.from_args(p.parse_args(["--utd_ratio", "2", "--num_envs", "4"]))
