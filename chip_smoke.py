@@ -23,8 +23,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      and a 100-step kernel-vs-plain rollout at N = 128 and 1, under the
      tolerance rule of tests/torch_k1.py; two more launches on each input,
      at N = 2048 a launch on its first 101 envs and at N = 128 launches on
-     its first 30 and 32 (the RLPD path's widths) and on its first env
-     alone, equal bit for bit; K1 also at pose-task
+     its first 30 and 32 (the RLPD path's widths), on its first env
+     alone and on its first 64 and 8 (a data-parallel rank's envs), equal
+     bit for bit; K1 also at pose-task
      inputs (the peg env's settled resets with their per-env yaw, and after
      10 noisy pose-expert steps through the Euler box) at N = 16 and 2048,
      under the same rule, and at the cable-route env's inputs at 8, 16, 20 and
@@ -32,23 +33,26 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      input, M = 8) at N = 32 and 2048 at bin states (cubes pressed into
      walls and corners, sunk into a wall's top, at its top edge: every set
      with active obstacle contacts) under the same rule, repeated launches
-     bit for bit, and a launch with M = 0 equal bit for bit to one with no
+     and one on a data-parallel rank's first 16 envs bit for bit, and a launch with M = 0 equal bit for bit to one with no
      table and to a build with the obstacle code compiled out; K2 (both -fmad builds)
-     at N = 1, 16 and 128, 128 px, on rollout and grasp states (cube in the
-     wrist camera's view), and at the fwbw paths' 32 chained envs on bin
-     states and on the chained env's states after a reset and 15, 40 and 80
-     expert steps (cube in the front camera's view), under the pixel rule of tests/torch_k2.py (failing
-     the phase for the shipped build only), its scene rows (the kernel's
+     at N = 1, 8 (a data-parallel rank's), 16 and 128, 128 px, on rollout and grasp states (cube in the
+     wrist camera's view), on K2_GRAZE_STATE (a ray that grazes a dark capsule over the dark
+     hand box; the state is first checked to still show it), and at the fwbw paths' 32 chained
+     envs on bin states and on the chained env's states after a reset and 15, 40 and 80
+     expert steps (cube in the front camera's view), under the pixel rule of tests/torch_k2.py
+     with its surface clause (failing the phase for the shipped build only), its scene rows (the kernel's
      debug output) within tests/torch_k2.py's SCENE_ATOL of pack_scene's,
      and one render under torch.cuda.set_sync_debug_mode("error"); K3 at
-     (1024, 1, 128, 128, 3) and (1024, 3, 128, 128, 3), four image batches
-     per launch, and at K3_PATHS, which reach its word and byte paths
+     (1024, 1, 128, 128, 3), (1024, 3, 128, 128, 3) and a data-parallel
+     rank's (512, 1, 128, 128, 3), four image batches per launch, and at K3_PATHS, which reach its word and byte paths
      (frames 4 bytes off, 252- and 33-byte rows) and float frames, and the
      classifier's and VICE's (128, 1, 128, 128, 3) crops: exactly
      equal; K4 at the state path's shapes (782 slots x 128 streams, 2048
-     rows, next_observations stored and not), the RLPD path's online half
+     rows, and a data-parallel rank's 782 x 64, 1,024 rows; next_observations
+     stored and not), the RLPD path's online half
      (6,250 x 32, 1,024 rows) and at the pixel path's (625 x
-     16, 1024 rows of 128 px frames, frame stacks T = 1 and 3), on wrapped
+     16, 1024 rows of 128 px frames, and a data-parallel rank's 625 x 8, 512
+     rows; frame stacks T = 1 and 3), on wrapped
      rings with episode boundaries and the seam, and on fields that reach
      each of its copy paths (16-byte, word and byte units, wide and narrow
      rows, a base address 4 bytes off), and at the pixel RLPD path's
@@ -56,9 +60,9 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      the pixel path's ring, and at the pose tasks' pixel ring (1,250 x 16,
      10-dim state, 7-dim actions; 512 rows and VICE's 80), and on the fwbw
      path's routed rings (6,250 x 32 from states, 625 x 32 of 128 px
-     frames, and the 600 x 16 demo rings of both; 512 rows each; unequal
-     stream sizes, one
-     stream never written): exactly equal; K5 forward
+     frames, and the 600 x 16 demo rings of both; 512 rows each; a
+     data-parallel rank's 6,250 x 16, 256 rows, and the 100 x 16 demo ring;
+     unequal stream sizes, one stream never written): exactly equal; K5 forward
      and backward at every (form, E, M, K, D) of K5_SHAPES (the ResNet heads'
      bottleneck at K = 4,096 among them, and the shapes where the forward
      splits K over blocks) under the rule of tests/torch_k5.py, its
@@ -165,7 +169,28 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      sample, the pinned staging and the host-to-device copy per update;
      an actor step launches K1 once (from pixels also K2 twice, and twice
      more a reset), a policy step the policy's K5 layers, a learner update
-     as the fused learner's with no K4. Around each path
+     as the fused learner's with no K4; the data-parallel phase
+     (phase_dp_path): serl_tpu_torch/examples/dryrun_multichip.py's state,
+     pixel and chained fwbw programs at full width (bench_state's,
+     bench_pixels' and the fwbw recipe's configurations) on 2 gloo ranks
+     sharing the card, each past its learner gate and then timed, with
+     every rank's layout checked after each segment (env rows and ring
+     streams of its share, an equal digest of the replicated learner state
+     and generator on every rank, env_steps, routed rows, learners
+     stepped), exact launches and collectives per rank (no collective in an
+     insert, one all-to-all a sample, UTD + 2 gradient all-reduces an
+     update_high_utd, one all-reduce of the statistics an iteration), the
+     two-rank state run against the 1-rank run at the same seed (bit for
+     bit through the 15 iterations before the first update; after it env
+     rows and ring bit for bit, the learner state within
+     DP_FIRST_UPDATE_ATOL; after 40 iterations qpos, the tcp position, the
+     ring's actions and the learner state within DP_DRIFT, step counts,
+     episode ids and ends exactly; beside it the witness, the 1-rank run
+     acting on a rank's 64 rows a call), the
+     state program on one NCCL rank with its learner steps under
+     torch.cuda.set_sync_debug_mode("error"), and each rank's iteration
+     split (env step, sample, exchange, update compute, all-reduces; host
+     clock), collective bytes and device busy ms. Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -190,8 +215,8 @@ Phases, each fatal (non-zero exit, no result line) on failure:
 It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
 repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py,
-tests/torch_k5.py, tests/torch_resnet.py, resnet10_params.pkl); it never
-imports JAX or serl_tpu.
+tests/torch_k5.py, tests/torch_resnet.py, tests/torch_dp.py,
+resnet10_params.pkl); it never imports JAX or serl_tpu.
 """
 
 import copy
@@ -220,12 +245,15 @@ BOUND_N = (128, 2048)
 K1_ODD_N = 101  # not a multiple of K1's envs per block (control_step.cu)
 K1_RLPD_N = (30, 32)  # the RLPD path's demo collection and its loop and evaluation
 K1_ONE_N = 1  # the two-process actors step one env
+K1_DP_N = (64, 8)  # a rank's envs on the data-parallel state and pixel paths (2 ranks)
 MAIN_ENVS = 128
 # bench.py::bench_state's configuration, passed to make_state_sim_experiment
 BENCH_STATE = dict(seed=0, num_envs=128, updates_per_iter=1, utd_ratio=8, training_starts=1000,
                    random_steps=1000, buffer_capacity=100_000)
 CHUNK = 50  # loop iterations per timed chunk, as bench_state
 K4_SHAPE = dict(slots=782, streams=128, rows_per_stream=16)  # 100,096 rows, batch 2048
+# a rank's half of that ring on the data-parallel state path (2 ranks): 1,024 rows
+K4_DP_STATE_SHAPE = dict(slots=782, streams=64, rows_per_stream=16)
 # the RLPD path's online half: 200,000 rows over 32 streams, 1,024 of a 2,048-row batch
 K4_RLPD_SHAPE = dict(slots=6250, streams=32, rows_per_stream=32)
 K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows, batch 1024
@@ -233,7 +261,9 @@ K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows,
 # the pixel RLPD path's online half (50,000 rows over 16 streams, 512 of a
 # 1,024-row batch), and that half on bench_pixels' ring
 K4_PIXEL_SHAPES = (K4_PIXEL_SHAPE, dict(slots=3125, streams=16, rows_per_stream=32),
-                   dict(slots=625, streams=16, rows_per_stream=32))
+                   dict(slots=625, streams=16, rows_per_stream=32),
+                   # a rank's half of bench_pixels' ring on the data-parallel path
+                   dict(slots=625, streams=8, rows_per_stream=64))
 # the pose tasks' pixel rings (10-dim state, 7-dim actions): 20,000 rows over
 # 16 streams, sampled 512 rows (sample_mixed's online half on the peg and
 # cable-route paths) and 80 (VICE's classifier batches)
@@ -246,7 +276,24 @@ BENCH_PIXELS = dict(seed=0, encoder_type="small", num_envs=16, batch_size=256, u
 PIXEL_CHUNK = 25  # loop iterations per timed chunk, as bench_pixels
 PIXEL_SIZE = 128
 IMAGE_KEYS = ("front", "wrist")
-K2_N = (1, 16, 128)  # the two-process pixel actor renders one env
+# the two-process pixel actor renders one env; a data-parallel rank 8
+K2_N = (1, 8, 16, 128)
+# One env's state (float32 bit patterns) whose front frame holds a flip that
+# the pixel rule's contrast edges miss: env 90 of the N = 128 grasp states
+# drawn after K2_N's smaller sets. At pixel (row 0, col 77) the ray grazes
+# the end sphere of capsule 5 (the dark wrist link) at the capsule test's
+# first sphere hit, with the dark hand box (box 1) behind it; the kernel's
+# shipped build hits the capsule, the plain version misses it, and the two
+# dark greys are 3 levels apart (tests/torch_k2.py's surface clause).
+K2_GRAZE_STATE = dict(
+    qpos=("0x1.2927940000000p-3", "-0x1.dba6ae0000000p-1", "-0x1.7730c00000000p-7",
+          "-0x1.23c3220000000p+1", "0x1.cdc78c0000000p-4", "0x1.76ac320000000p+0",
+          "0x1.bda67a0000000p-1"),
+    theta=("0x1.d70a3e0000000p-2",),
+    cube_pos=("0x1.0c88680000000p-2", "0x1.082f300000000p-4", "0x1.0690c20000000p-1"),
+    cube_quat=("0x1.0ea5620000000p-4", "-0x1.fdee420000000p-1", "-0x1.225df60000000p-5",
+               "-0x1.9508dc0000000p-5"))
+K2_GRAZE_PIXEL = dict(cam=0, row=0, col=77, capsule="capsule 5", behind="box 1")
 K2_KERNELS = ("render_scene_kernel", "render_pixels_kernel")  # a render launches both
 # The RLPD path: examples/fused_sac_state_sim.py --rlpd at the state_sim
 # preset (32 envs, batch 256 x UTD 8, 4 update_high_utd calls per
@@ -308,6 +355,11 @@ FWBW_K4_STATE = (6250, 32, 512)
 FWBW_K4_PIXEL = (625, 32, 512)
 # the demo rings: 600 slots (--demo_steps) x 16 streams, the 512-row demo half
 FWBW_K4_DEMO = (600, 16, 512)
+# the data-parallel fwbw path (2 ranks): a rank's half of the online ring
+# and its 256 rows of the online half; the replicated 100-step demo ring
+FWBW_K4_DP = (6250, 16, 256)
+FWBW_K4_DP_DEMO = (100, 16, 512)
+FWBW_K1_DP_N = 16  # a rank's chained envs
 # K2 held at the 32 chained envs, after a reset and FWBW_K2_STEPS expert steps
 FWBW_K2_N = 32
 FWBW_K2_STEPS = (15, 40, 80)
@@ -332,7 +384,8 @@ CLASSIFIER_FILE_FACTOR = 4.0
 # K2's two builds, the shipped one (nvcc's default flags) first: (label,
 # extra nvcc flags)
 K2_BUILDS = (("-fmad=true", None), ("-fmad=false", ("-fmad=false",)))
-K3_SHAPES = ((1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3), (1024, 3, PIXEL_SIZE, PIXEL_SIZE, 3))
+K3_SHAPES = ((1024, 1, PIXEL_SIZE, PIXEL_SIZE, 3), (1024, 3, PIXEL_SIZE, PIXEL_SIZE, 3),
+             (512, 1, PIXEL_SIZE, PIXEL_SIZE, 3))  # a DP rank's share of the pixel batch
 # K3's other copy paths: (shape, dtype, base bytes past 16-byte alignment,
 # images per launch, the unit the kernel must take)
 K3_PATHS = (
@@ -423,6 +476,37 @@ K5_SHAPES = {
     ("linear", 1, 1, 576, 256): (True, False),
     ("linear", 1, 1, 7, 64): (True, False),
 }
+# the data-parallel paths' shapes (2 ranks; serl_tpu_torch/examples/dryrun_multichip.py):
+# a rank's share of each critic minibatch (128 rows) and of the actor
+# update's batch (1,024 from states, 512 from pixels and on the fwbw
+# learners), and acting on a rank's 64 (state), 8 (pixels) and 16 (chained)
+# envs; the other shapes there are held above. Phase 2 holds them; phase 4
+# does not time them (their neighbours in K5_SHAPES are timed), to keep the
+# run inside its time limit.
+K5_DP_SHAPES = {
+    ("shared", 10, 128, 14, 256): (True, False),
+    ("member", 10, 128, 256, 256): (True, True),
+    ("shared", 10, 1024, 14, 256): (False, True),
+    ("linear", 1, 1024, 10, 256): (True, False),
+    ("linear", 1, 64, 10, 256): (True, False),
+    ("linear", 1, 64, 256, 256): (True, True),
+    ("shared", 10, 128, 580, 256): (True, True),
+    ("linear", 1, 128, 7, 64): (True, False),
+    ("linear", 1, 128, 576, 256): (True, False),
+    ("linear", 1, 512, 576, 256): (True, False),
+    ("linear", 1, 512, 256, 256): (True, True),
+    ("linear", 1, 512, 7, 64): (True, False),
+    ("shared", 10, 512, 580, 256): (False, True),
+    ("member", 10, 512, 256, 256): (False, True),
+    ("linear", 1, 8, 576, 256): (True, False),
+    ("linear", 1, 8, 256, 256): (True, True),
+    ("linear", 1, 8, 7, 64): (True, False),
+    ("shared", 10, 128, 20, 256): (True, False),
+    ("shared", 10, 512, 20, 256): (False, True),
+    ("linear", 1, 128, 13, 256): (True, False),
+    ("linear", 1, 512, 13, 256): (True, False),
+}
+K5_SHAPES.update(K5_DP_SHAPES)
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
 # its kernels' code (the per-row divisions and square root left out):
@@ -716,11 +800,13 @@ def phase_kernel_vs_plain(torch, engine, checks, device):
             failures, summary, _ = checks.compare_step(engine.control_step_cuda, s)
             # two more launches on the same input; at N = 2048 also the first
             # K1_ODD_N envs alone (a partial block), at N = 128 the first
-            # K1_RLPD_N envs and the first env alone, against the same envs'
-            # outputs of the whole launch (which the plain version judged)
+            # K1_RLPD_N envs, the first env alone and a data-parallel rank's
+            # K1_DP_N, against the same envs' outputs of the whole launch
+            # (which the plain version judged)
             first, second = engine.control_step_cuda(s), engine.control_step_cuda(s)
             repeats = all(torch.equal(a, b) for a, b in zip(first, second))
-            parts = {BOUND_N[-1]: (K1_ODD_N,), MAIN_ENVS: K1_RLPD_N + (K1_ONE_N,)}.get(n, ())
+            parts = {BOUND_N[-1]: (K1_ODD_N,),
+                     MAIN_ENVS: K1_RLPD_N + (K1_ONE_N,) + K1_DP_N}.get(n, ())
             for m in parts:
                 part = engine.control_step_cuda(type(s)(*(x[:m] for x in s)))
                 repeats = repeats and all(torch.equal(a, b[:m]) for a, b in zip(part, first))
@@ -784,10 +870,11 @@ def _k1_rollout_vs_plain(torch, engine, checks, device, g, n: int) -> None:
 
 def phase_k4_vs_plain(torch, device):
     """K4 against its plain version at the state paths' shapes: the learner
-    path's (K4_SHAPE) and the RLPD path's online half (K4_RLPD_SHAPE)."""
+    path's (K4_SHAPE), the RLPD path's online half (K4_RLPD_SHAPE) and a
+    data-parallel rank's half of the learner's ring (K4_DP_STATE_SHAPE)."""
     g = torch.Generator(device=device).manual_seed(4)
     return max(_k4_state_vs_plain(torch, device, g, **shape)
-               for shape in (K4_SHAPE, K4_RLPD_SHAPE))
+               for shape in (K4_SHAPE, K4_RLPD_SHAPE, K4_DP_STATE_SHAPE))
 
 
 def _k4_state_vs_plain(torch, device, g, slots, streams, rows_per_stream):
@@ -1137,7 +1224,7 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
 
 
 def phase_k5_times(torch, k5_checks, device, card):
-    """K5 at each of K5_SHAPES: the kernels' wrappers, the plain versions,
+    """K5 at each of K5_SHAPES but the data-parallel ones: the kernels' wrappers, the plain versions,
     the op end to end (the forward through autograd; the backward with its
     two products), and the torch sequence the op replaced (the Dense as
     F.linear or matmul/bmm plus the bias, then tanh(F.layer_norm); its
@@ -1151,6 +1238,8 @@ def phase_k5_times(torch, k5_checks, device, card):
     g = torch.Generator(device=device).manual_seed(8)
     rows = {}
     for shape, (wg, need_dx) in K5_SHAPES.items():
+        if shape in K5_DP_SHAPES:
+            continue
         form, e, m, k, d = shape
         member = form == "member"
         x, kernel, bias, gamma, beta, dy = k5_checks.inputs(form, e, m, k, d, g, device)
@@ -1244,6 +1333,7 @@ def _k2_hold(torch, k2, builds, s, where: str, rule: dict):
 
     n = s.cube_pos.shape[0]
     want = rendering.render_cameras_plain(s, PIXEL_SIZE)
+    ids = k2.surface_ids(s, PIXEL_SIZE)
     shipped, worst, scene_err = next(iter(builds)), 0, 0.0
     for label, lib in builds.items():
         rows = torch.empty((n, rendering.SCENE_FLOATS), device=s.cube_pos.device)
@@ -1255,8 +1345,8 @@ def _k2_hold(torch, k2, builds, s, where: str, rule: dict):
         if err > k2.SCENE_ATOL:
             raise AssertionError(f"K2 ({label}) scene rows, {where}: {err}")
         scene_err = max(scene_err, err)
-        for cam, a, b in zip(IMAGE_KEYS, got, want):
-            failures, summary = k2.pixel_rule(a, b)
+        for cam, a, b, i in zip(IMAGE_KEYS, got, want, ids):
+            failures, summary = k2.pixel_rule(a, b, i)
             print(f"K2 ({label}) vs plain, {where}, {cam}: {json.dumps(summary)}")
             rule[label] = rule[label] and not failures
             if label == shipped:
@@ -1287,6 +1377,8 @@ def phase_k2_vs_plain(torch, checks, k2, builds, device):
                 print(f"K2 grasp states at N={n}: the cube is in {envs} of {n} wrist frames")
                 if envs < n // 2:
                     raise AssertionError(f"the cube is in view in only {envs} of {n} grasp frames")
+    w, e = phase_k2_graze(torch, checks, k2, builds, device, rule)
+    worst, scene_err = max(worst, w), max(scene_err, e)
     w, e = phase_k2_bin_vs_plain(torch, checks, k2, builds, device, rule)
     worst, scene_err = max(worst, w), max(scene_err, e)
     torch.cuda.synchronize()
@@ -1301,6 +1393,41 @@ def phase_k2_vs_plain(torch, checks, k2, builds, device):
           f"{json.dumps(rule)}; scene rows within {scene_err:.3g} of pack_scene's; a render ran "
           "under torch.cuda.set_sync_debug_mode('error'): nothing copied from the host")
     return worst, scene_err, rule
+
+
+def phase_k2_graze(torch, checks, k2, builds, device, rule):
+    """K2 on K2_GRAZE_STATE, under the pixel rule with its surface clause:
+    first that the state still shows what it was kept for (float64
+    intersections of the graze pixel's ray: the capsule nearest, the hand
+    box behind it; the plain version's surface ids: both in the pixel's
+    neighbourhood), then the hold, and the graze pixel's colours in every
+    build beside the plain version's."""
+    from serl_tpu_torch.envs import rendering
+
+    s = checks.reset_states(1, torch.Generator(device=device).manual_seed(0), device)
+    s = s._replace(**{k: torch.tensor([[float.fromhex(x) for x in v]], dtype=torch.float32,
+                                      device=device).reshape(getattr(s, k).shape)
+                      for k, v in K2_GRAZE_STATE.items()})
+    px = K2_GRAZE_PIXEL
+    cam, r, c = px["cam"], px["row"], px["col"]
+    hits = {str(dt).split(".")[-1]: k2.ray_hits(s, cam, r, c, PIXEL_SIZE, dt)
+            for dt in (torch.float32, torch.float64)}
+    near64 = min(hits["float64"], key=hits["float64"].get)
+    ids = k2.surface_ids(s, PIXEL_SIZE)[cam][0, max(r - 1, 0):r + 2, c - 1:c + 2]
+    around = {k2.PRIMITIVES[i] for i in ids.unique().tolist() if i >= 0}
+    print(f"K2 graze state, {IMAGE_KEYS[cam]} pixel ({r}, {c}): distances along its ray "
+          f"{json.dumps(hits)}; nearest in float64: {near64}; the plain version's surfaces "
+          f"around it: {sorted(around)}")
+    if near64 != px["capsule"] or px["behind"] not in hits["float64"] or \
+            not {px["capsule"], px["behind"]} <= around:
+        raise AssertionError(f"K2_GRAZE_STATE no longer shows {px['capsule']} over "
+                             f"{px['behind']} at its pixel")
+    worst, scene_err, want = _k2_hold(torch, k2, builds, s, "the graze state", rule)
+    colours = {label: rendering.render_cameras_cuda(s, PIXEL_SIZE, lib=lib)[cam][0, r, c].tolist()
+               for label, lib in builds.items()}
+    print(f"K2 graze pixel colours: {json.dumps(colours)}, plain "
+          f"{want[cam][0, r, c].tolist()}")
+    return worst, scene_err
 
 
 def _chained_render_states(torch, device, n: int, g):
@@ -2407,8 +2534,9 @@ def phase_k1_bin_vs_plain(torch, engine, checks, device) -> float:
     plain version at bin states (tests/torch_k1.py::bin_states: cubes pressed
     into walls and corners, sunk into a wall's top as when carried over it,
     at a wall's top edge) at FWBW_K1_N envs, under tests/torch_k1.py's rule,
-    with active obstacle contacts in every set; two more launches equal bit
-    for bit; a launch with M = 0 equal bit for bit to one with
+    with active obstacle contacts in every set; two more launches, and one
+    on a data-parallel rank's first FWBW_K1_DP_N envs, equal bit for bit; a
+    launch with M = 0 equal bit for bit to one with
     obstacles=None, and both to the build with the obstacle code compiled
     out."""
     from serl_tpu_torch.envs import tasks
@@ -2425,6 +2553,10 @@ def phase_k1_bin_vs_plain(torch, engine, checks, device) -> float:
             first = engine.control_step_cuda(s, walls)
             again = engine.control_step_cuda(s, walls)
             repeats = all(torch.equal(a, b) for a, b in zip(first, again))
+            if n > FWBW_K1_DP_N:  # a data-parallel rank's envs alone
+                part = engine.control_step_cuda(type(s)(*(x[:FWBW_K1_DP_N] for x in s)), walls)
+                repeats = repeats and all(torch.equal(a, b[:FWBW_K1_DP_N])
+                                          for a, b in zip(part, first))
             none = engine.control_step_cuda(s)
             m0 = engine.control_step_cuda(s, walls[:0])
             before = engine.control_step_cuda(s, lib=noobs)
@@ -2705,8 +2837,8 @@ def phase_learned_reward_kernels_vs_plain(torch, engine, checks, k2, device) -> 
             got = rendering.render_cameras_cuda(s, PIXEL_SIZE)
             want = rendering.render_cameras_plain(s, PIXEL_SIZE)
             torch.cuda.synchronize()
-            for cam, a, b in zip(IMAGE_KEYS, got, want):
-                failures, summary = k2.pixel_rule(a, b)
+            for cam, a, b, i in zip(IMAGE_KEYS, got, want, k2.surface_ids(s, PIXEL_SIZE)):
+                failures, summary = k2.pixel_rule(a, b, i)
                 print(f"K2 vs plain, cable route N={n}, {source}, {cam}: {json.dumps(summary)}")
                 if failures:
                     raise AssertionError(f"K2 cable N={n} {source} {cam}: " + "; ".join(failures))
@@ -3063,7 +3195,9 @@ def phase_k4_routed_vs_plain(torch, device):
     the state ring (FWBW_K4_STATE: 6,250 x 32 slots, the 512-row online half
     of a 1,024-row batch), the pixel ring (FWBW_K4_PIXEL: 625 x 32, 128 px,
     512 rows) and the state and pixel demo rings (FWBW_K4_DEMO: 600 x 16,
-    the 512-row demo half), each with
+    the 512-row demo half), and the data-parallel fwbw path's rings
+    (FWBW_K4_DP: a rank's 6,250 x 16 half of the state ring, 256 rows;
+    FWBW_K4_DP_DEMO: the 100 x 16 demo ring, 512 rows), each with
     unequal stream sizes: a stream never written (it samples its cursor
     slot, a zero row with ep_id -1), short ones, full wrapped ones, and
     cursors anywhere; offsets drawn by RoutedReplayBuffer.sample."""
@@ -3073,7 +3207,9 @@ def phase_k4_routed_vs_plain(torch, device):
     g = torch.Generator(device=device).manual_seed(61)
     for label, slots, streams, rows, pixels in (
             ("state", *FWBW_K4_STATE, False), ("state demo", *FWBW_K4_DEMO, False),
-            ("pixel", *FWBW_K4_PIXEL, True), ("pixel demo", *FWBW_K4_DEMO, True)):
+            ("pixel", *FWBW_K4_PIXEL, True), ("pixel demo", *FWBW_K4_DEMO, True),
+            ("data-parallel state", *FWBW_K4_DP, False),
+            ("data-parallel state demo", *FWBW_K4_DP_DEMO, False)):
         if pixels:
             data, _, _ = _pixel_ring(torch, device, g, slots, streams, state_dim=10, action_dim=7)
             example = {"observations": {"state": torch.zeros(10),
@@ -3577,6 +3713,304 @@ def phase_async_path(torch, card: str, mode: str, logdir: str, device: str = "cu
             "per_update_learner": per_update}
 
 
+# The data-parallel phase: serl_tpu_torch/examples/dryrun_multichip.py's
+# programs at full width (bench_state's, bench_pixels' and the fwbw recipe's
+# configurations) on DP_RANKS gloo ranks that share the card (NCCL refuses
+# two ranks on one GPU), in DP_SEGMENTS of iterations (the first up to, or
+# past, the learner gate; the others timed, a device sync around each traced
+# phase), then DP_PROFILE_ITERS profiled; the state program beside the
+# 1-rank run at the same seed, with random actions until the first update
+# (DP_STATE: random_steps at the gate's 2,048 rows, so that both runs draw
+# and compute the same until then, bit for bit), and once more on one NCCL
+# rank, its last segment under torch.cuda.set_sync_debug_mode("error").
+DP_RANKS = 2
+DP_STATE = dict(random_steps=2048)
+DP_SEGMENTS = {"state": [15, 1, 4, 10, 10], "pixels": [64, 3, 3], "fwbw": [0, 5, 5]}
+DP_NCCL_SEGMENTS = [16, 4]
+DP_PROFILE_ITERS = {"state": 3, "pixels": 1, "fwbw": 2}
+# the fwbw program trains from the batch's 1,024 rows (FWBW_CUT_ARGV) instead of 2,000
+DP_FWBW = dict(training_starts=1024, random_steps=1024)
+# The two-rank state run against the one-rank run at the same seed, after
+# DP_SEGMENTS["state"]'s segments 0 (15 iterations: no update yet), 1 (the
+# first update, in iteration 15, whose actions were still random) and the
+# last (40 iterations, 25 updates):
+#   * segment 0: every env row, ring field and learner tensor bit for bit;
+#   * segment 1: env rows and ring bit for bit; the learner state within
+#     DP_FIRST_UPDATE_ATOL: one update apart only by the order in which the
+#     all-reduce sums each group's gradients;
+#   * the last: the step counts, episode ids and ends exact; qpos, the tcp
+#     position (in the env's obs and the ring's observations), the ring's
+#     actions and the learner state within DP_DRIFT. From the first update on
+#     the policies differ in their last bits, and the closed loop (actions,
+#     physics, ring, updates) carries that apart. The witness, the one-rank
+#     run with its policy acting on DP_ACT_ROWS rows a call as a rank's
+#     does, equals the one-rank run bit for bit (NVIDIA H100 80GB HBM3,
+#     700.00 W): the acting split adds nothing, the learner state is the one
+#     difference that enters the loop.
+# Each limit is the geometric mean of the sound reading and the nearer of two
+# planted faults' readings (a local minibatch split without the exchange;
+# the policy's noise drawn at the rank's shape), rounded down to one digit:
+# first update 1.77e-8 against 6.06e-3; after 40 iterations qpos 7.1e-4
+# against 0.209, tcp 8.73e-6 against 0.0606, actions 6.35e-4 against 0.826,
+# the learner state 1.19e-7 against 2.52e-3 (PERF.md, PR 13).
+DP_FIRST_UPDATE_ATOL = 1e-5
+DP_DRIFT = {"qpos": 1e-2, "tcp_pos": 7e-4, "actions": 2e-2, "agent": 1e-5}
+DP_ACT_ROWS = 64
+DP_EXACT = ("/t", "/ep_id", "/z_init", "/dones", "/masks")
+TCP_POS = slice(4, 7)  # the flat state obs (sorted keys): block_pos, gripper_pos, tcp_pos, tcp_vel
+
+
+def _dp_diffs(dpc, got: dict, ref: dict) -> dict:
+    """Per-field differences of two global state-program snapshots: every
+    env and ring field, the tcp position in the env's obs and the ring's
+    observations, the learner state ("agent")."""
+    env = dpc.field_diffs(got["env"], ref["env"])
+    ring = dpc.field_diffs(got["rings"]["rb_state"], ref["rings"]["rb_state"])
+    tcp = {f"{where} tcp_pos": dpc.max_abs_diff([a[..., TCP_POS]], [b[..., TCP_POS]])
+           for where, a, b in (("obs", got["env"]["/obs"], ref["env"]["/obs"]),
+                               ("ring obs", got["rings"]["rb_state"]["/observations"],
+                                ref["rings"]["rb_state"]["/observations"]))}
+    return {**{f"env{k}": v for k, v in env.items()}, **{f"ring{k}": v for k, v in ring.items()},
+            **tcp, "agent": dpc.max_abs_diff(got["agents"][0], ref["agents"][0])}
+
+
+def _dp_rule(d: dict, rule: str) -> list:
+    """The fields of differences `d` beyond `rule`: "exact", "first update"
+    or "drift" (see DP_FIRST_UPDATE_ATOL and DP_DRIFT)."""
+    if rule == "exact":
+        return [k for k, v in d.items() if v != 0]
+    if rule == "first update":
+        return ([k for k, v in d.items() if k != "agent" and v != 0]
+                + (["agent"] if not d["agent"] <= DP_FIRST_UPDATE_ATOL else []))
+    bad = [k for k, v in d.items() if any(k.endswith(e) for e in DP_EXACT) and v != 0]
+    limits = {"env/physics/qpos": DP_DRIFT["qpos"], "obs tcp_pos": DP_DRIFT["tcp_pos"],
+              "ring obs tcp_pos": DP_DRIFT["tcp_pos"], "ring/actions": DP_DRIFT["actions"],
+              "agent": DP_DRIFT["agent"]}
+    return bad + [k for k, lim in limits.items() if not d[k] <= lim]
+
+
+def dp_state_against_one(torch, device, dm, dpc, ranks: list, snap: str) -> dict:
+    """The two-rank state run (`ranks`' results, their snapshots in `snap`)
+    against the one-rank run at the same seed, and the witness: the
+    one-rank run acting on DP_ACT_ROWS rows a call. Prints every reading,
+    then raises if the gate opened elsewhere or a segment breaks its rule."""
+    segs = DP_SEGMENTS["state"]
+    dirs = {k: tempfile.mkdtemp(prefix=f"chip_smoke_{k}_") for k in ("one", "witness")}
+    try:
+        t0 = time.perf_counter()
+        one = dm.run_program("state", None, device, 1, True, segments=segs, overrides=DP_STATE,
+                             snapshot_dir=dirs["one"])
+        witness = dm.run_program("state", None, device, 1, True, segments=segs,
+                                 overrides=DP_STATE, snapshot_dir=dirs["witness"],
+                                 act_rows=DP_ACT_ROWS)
+        one_s = time.perf_counter() - t0
+
+        def load(seg):
+            two = dpc.merge_snapshots([os.path.join(snap, f"state_r{r}_s{seg}.pt")
+                                       for r in range(len(ranks))])
+            return two, *(torch.load(os.path.join(dirs[k], f"state_r0_s{seg}.pt"),
+                                     weights_only=False) for k in ("one", "witness"))
+
+        readings, equal = {}, True
+        for seg, rule in ((0, "exact"), (1, "first update"), (len(segs) - 1, "drift")):
+            two, ref, wit = load(seg)
+            equal = equal and two["agents_equal"]
+            readings[seg] = {"rule": rule, "two vs one": _dp_diffs(dpc, two, ref),
+                             "witness vs one": _dp_diffs(dpc, wit, ref),
+                             "two vs witness": _dp_diffs(dpc, two, wit)}
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    keys = ("env/physics/qpos", "obs tcp_pos", "ring obs tcp_pos", "ring/actions", "agent")
+    for seg, r in readings.items():
+        print(f"dp state after {sum(segs[:seg + 1])} iterations ({r['rule']} rule): "
+              + "; ".join(f"{label} {json.dumps({k: float(f'{d[k]:.3g}') for k in keys})}"
+                          for label, d in r.items() if label != "rule"))
+    last = readings[len(segs) - 1]["two vs one"]
+    print(f"dp state, 2 ranks against 1, every field after {sum(segs)} iterations (max abs "
+          f"differences, counts of unequal entries for integers): "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in last.items()})}")
+    failures = []
+    if any(r["gate_iter"] != one["gate_iter"] for r in ranks):
+        failures.append(f"the gate opened at {[r['gate_iter'] for r in ranks]} on the ranks, at "
+                        f"{one['gate_iter']} in the 1-rank run")
+    if not equal:
+        failures.append("the ranks' learner states differ")
+    for seg, r in readings.items():
+        bad = _dp_rule(r["two vs one"], r["rule"])
+        if bad:
+            failures.append(f"after segment {seg} ({r['rule']} rule): {bad}")
+    if failures:
+        raise AssertionError("dp state against 1 rank: " + "; ".join(failures))
+    print(f"dp state, 2 ranks against 1 at the same seed: the gate opened at iteration "
+          f"{one['gate_iter']} in both; segment by segment within the rules: bit for bit after "
+          f"{segs[0]} iterations; after the first update env rows and ring bit for bit, the "
+          f"learner state within {DP_FIRST_UPDATE_ATOL}; after {sum(segs)} iterations "
+          f"{', '.join(DP_EXACT)} exact and {json.dumps(DP_DRIFT)} (1-rank runs "
+          f"{one_s:.1f} s, host clock)")
+    return {"one": one, "readings": readings, "seconds": one_s}
+
+
+def _dp_expected(name: str, r: dict) -> tuple:
+    """(kernel launches, collectives by op) that a rank's run of program
+    `name` must count, from its iterations, its learner gates and its
+    configuration: per iteration the env step (K1 once; six times in the
+    chained env, which settles each env's candidate reset; the pixel env's
+    render two kernels) and one all-reduce of the episode statistics; per
+    updating iteration and update_high_utd one sample (K4, and K4 again for
+    the demo half of the fwbw learners' mixed batch; one all-to-all), the
+    update's K5 calls (learner_launches_per_iter, pixel_launches_per_iter,
+    _fwbw_per_update) and UTD + 2 gradient all-reduces (+1 for the BC term's
+    row count); per policy iteration each policy's K5 forwards; one
+    all_gather of the digests per segment."""
+    from types import SimpleNamespace
+
+    cfg, iters = r["config"], r["iters"]
+    utd, upi = cfg["utd_ratio"], cfg["updates_per_iter"]
+    if name == "fwbw":
+        n = 2 * cfg["envs_per_task"]
+        m = r["metrics"]
+        gates = [int((m[f"{t}/critic_loss"][:, 0] != 0).nonzero()[0]) for t in ("fw", "bw")]
+        updates = sum(iters - gate for gate in gates)
+        acting = sum(1 for i in range(iters) if i * n >= cfg["random_steps"])
+        per = _fwbw_per_update(SimpleNamespace(pixels=False, bc_weight=0.3 if r["bc"] else 0.0),
+                               SimpleNamespace(utd_ratio=utd, updates_per_iter=upi))
+        launches = {"control_step": 6 * iters, "render": 0, "random_crop": 0,
+                    "replay_gather": updates * per["replay_gather"],
+                    "dense_layer_norm_tanh_fwd": 2 * 2 * acting
+                    + updates * per["dense_layer_norm_tanh_fwd"],
+                    "dense_layer_norm_tanh_bwd": updates * per["dense_layer_norm_tanh_bwd"]}
+        reduces = iters + updates * upi * (utd + 2 + int(r["bc"]))
+        return launches, {"all_reduce": reduces, "all_to_all": updates * upi,
+                          "all_gather": len(r["segments"])}
+    n = cfg["num_envs"]
+    updating = iters - r["gate_iter"]
+    acting = sum(1 for i in range(iters) if i * n >= cfg["random_steps"])
+    if name == "state":
+        per = learner_launches_per_iter(utd, upi)
+        fwd_policy, render = 2, 0
+    else:
+        per = pixel_launches_per_iter(utd, upi)
+        fwd_policy, render = 5, 2
+    launches = {"control_step": iters, "render": render * iters,
+                "random_crop": updating * per["random_crop"],
+                "replay_gather": updating * per["replay_gather"],
+                "dense_layer_norm_tanh_fwd": updating * (per["dense_layer_norm_tanh_fwd"]
+                                                         - fwd_policy) + fwd_policy * acting,
+                "dense_layer_norm_tanh_bwd": updating * per["dense_layer_norm_tanh_bwd"]}
+    return launches, {"all_reduce": iters + updating * upi * (utd + 2),
+                      "all_to_all": updating * upi, "all_gather": len(r["segments"])}
+
+
+def _dp_check_counts(label: str, name: str, r: dict) -> None:
+    launches, collectives = _dp_expected(name, r)
+    got = {k: v["calls"] for k, v in r["collectives"].items()}
+    if r["launches"] != launches or got != collectives:
+        raise AssertionError(f"{label} {name} rank {r['rank']}: launches {r['launches']} (want "
+                             f"{launches}), collectives {got} (want {collectives})")
+
+
+def dp_state_main() -> int:
+    """--dp-state: the data-parallel state program on DP_RANKS gloo ranks
+    against the one-rank run and its witness (`dp_state_against_one`),
+    alone, for the readings that set DP_FIRST_UPDATE_ATOL and DP_DRIFT (a
+    copy of the repository with a planted fault gives the fault's); no
+    result lines."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    from serl_tpu_torch.examples import dryrun_multichip as dm
+    from serl_tpu_torch.native import build
+
+    print(f"card: {card_line()}")
+    build.build_all(build.KERNEL_SOURCES)
+    snap = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        task = dm.Programs(["state"], "cuda", True, state=dict(
+            segments=DP_SEGMENTS["state"], overrides=DP_STATE, snapshot_dir=snap))
+        ranks = [r[0] for r in dm.launch(task, DP_RANKS, "cuda", "gloo", timeout_s=600)]
+        dp_state_against_one(torch, device, dm, load_checks("torch_dp"), ranks, snap)
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    return 0
+
+
+def phase_dp_path(torch, device, card):
+    """The data-parallel phase (see DP_SEGMENTS): the three programs on
+    DP_RANKS gloo ranks, the 1-rank state run, and the state program on one
+    NCCL rank. Each rank checks its layout after every segment (env rows and
+    ring streams of its share, an equal digest of the replicated state on
+    every rank, env_steps, routed rows, every learner stepped); here: equal
+    digests, exact launches and collectives per rank, every K5 shape held in
+    phase 2, and the two-rank state run against the one-rank run
+    (`dp_state_against_one`)."""
+    from serl_tpu_torch.examples import dryrun_multichip as dm
+
+    dpc = load_checks("torch_dp")
+    t0 = time.perf_counter()
+    snap = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        kwargs = {name: dict(segments=DP_SEGMENTS[name], trace=True,
+                             profile_iters=DP_PROFILE_ITERS[name]) for name in dm.PROGRAMS}
+        kwargs["state"].update(overrides=DP_STATE, snapshot_dir=snap)
+        kwargs["fwbw"].update(overrides=DP_FWBW)
+        results = dm.launch(dm.Programs(dm.PROGRAMS, "cuda", True, **kwargs), DP_RANKS, "cuda",
+                            "gloo", timeout_s=600)
+        gloo_s = time.perf_counter() - t0
+        shapes = set()
+        by_program = {}
+        for i, name in enumerate(dm.PROGRAMS):
+            ranks = [rank[i] for rank in results]
+            digests = {r["digest"] for r in ranks}
+            if len(digests) != 1:
+                raise AssertionError(f"dp {name}: the ranks' digests differ: {digests}")
+            for r in ranks:
+                _dp_check_counts("dp gloo", name, r)
+                shapes |= set(r["k5_shapes"])
+            by_program[name] = ranks
+            print(f"dp {name}: {dm.ok_line(ranks[0])}; digest {ranks[0]['digest'][:16]} on every "
+                  f"rank; launches per rank {json.dumps(ranks[0]['launches'])} and collectives "
+                  f"{json.dumps({k: v['calls'] for k, v in ranks[0]['collectives'].items()})} as "
+                  "derived")
+        compared = dp_state_against_one(torch, device, dm, dpc, by_program["state"], snap)
+        shapes |= set(compared["one"]["k5_shapes"])
+        check_k5_shapes(shapes)
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    t1 = time.perf_counter()
+    nccl = dm.launch(dm.Programs(["state"], "cuda", True, state=dict(
+        overrides=DP_STATE, segments=DP_NCCL_SEGMENTS,
+        sync_free_from=len(DP_NCCL_SEGMENTS) - 1)), 1, "cuda", "nccl", timeout_s=300)[0][0]
+    nccl_s = time.perf_counter() - t1
+    _dp_check_counts("dp nccl", "state", nccl)
+    check_k5_shapes(set(nccl["k5_shapes"]))
+    print(f"dp state on one NCCL rank: {dm.ok_line(nccl)}; the learner's steps of its last "
+          f"{DP_NCCL_SEGMENTS[-1]} iterations (each sample, each update_high_utd with "
+          "its exchange and all-reduces) ran under "
+          "torch.cuda.set_sync_debug_mode('error'); launches and collectives as derived")
+    for name, ranks in by_program.items():
+        for r in ranks:
+            print(f"dp {name} rank {r['rank']} times [{card}, 2 gloo ranks sharing it]: "
+                  f"{json.dumps({k: round(v, 3) for k, v in r['split_ms'].items()})} ms per "
+                  f"timed iteration ({r['split_note']}); device busy "
+                  f"{r.get('device_busy_ms_per_iter', 'not measured')} ms per iteration "
+                  "(torch.profiler, this "
+                  f"rank's kernels); collectives {json.dumps(r['collectives'])} (bytes that left "
+                  f"the rank), host seconds {json.dumps({k: round(v, 4) for k, v in r['collective_s'].items()})}")
+    print(f"dp phase seconds (host clock): gloo ranks {gloo_s:.1f} (spawn, build, run), 1-rank "
+          f"state runs {compared['seconds']:.1f}, NCCL rank {nccl_s:.1f}")
+    launches = {f"dp_{name}": ranks[0]["launches"] for name, ranks in by_program.items()}
+    launches["dp_state_nccl"] = nccl["launches"]
+    return launches, {"gloo": by_program, "nccl": nccl, **compared}
+
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -3671,7 +4105,8 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
             **{k: k5rows[(direction, K5_MAIN)][k] for k in timed},
             "shape": k5_label(K5_MAIN),
             "errors": errs["K5"],
-            "by_shape": {k5_label(shape): k5rows[(direction, shape)] for shape in K5_SHAPES},
+            "by_shape": {k5_label(shape): k5rows[(direction, shape)] for shape in K5_SHAPES
+                         if shape not in K5_DP_SHAPES},
         })
     return kernels
 
@@ -3685,7 +4120,8 @@ def main(kernels_only: bool = False) -> int:
         return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     for part in ("serl_tpu_torch", os.path.join("tests", "torch_k1.py"),
                  os.path.join("tests", "torch_k2.py"), os.path.join("tests", "torch_k5.py"),
-                 os.path.join("tests", "torch_resnet.py"), "resnet10_params.pkl"):
+                 os.path.join("tests", "torch_resnet.py"), os.path.join("tests", "torch_dp.py"),
+                 "resnet10_params.pkl"):
         if not os.path.exists(os.path.join(HERE, part)):
             return fail(f"{part} is not beside chip_smoke.py: run it from the repository")
     sys.path.insert(0, HERE)
@@ -3825,6 +4261,9 @@ def main(kernels_only: bool = False) -> int:
             new_s[f"async_{mode}"] = time.perf_counter() - t_new
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
+    t_new = time.perf_counter()
+    dp_launches, dp_info = phase_dp_path(torch, device, card)
+    new_s["data_parallel"] = time.perf_counter() - t_new
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -3858,7 +4297,9 @@ def main(kernels_only: bool = False) -> int:
                 **{f"fwbw_{m}": fwbw[m][1] for m in fwbw},
                 # the two-process paths: per actor step, per learner update
                 **{f"async_{m}_actor": a["per_step_actor"] for m, a in asyncs.items()},
-                **{f"async_{m}_learner": a["per_update_learner"] for m, a in asyncs.items()}}
+                **{f"async_{m}_learner": a["per_update_learner"] for m, a in asyncs.items()},
+                # the data-parallel paths: a rank's whole path (rank 0's; every rank's equal)
+                **dp_launches}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
@@ -3869,7 +4310,7 @@ def main(kernels_only: bool = False) -> int:
                             **{f"fwbw_{m}": fwbw[m][0] for m in fwbw},
                             **{f"async_{m}_actor": a["launches_actor"] for m, a in asyncs.items()},
                             **{f"async_{m}_learner": a["launches_learner"]
-                               for m, a in asyncs.items()}},
+                               for m, a in asyncs.items()}, **dp_launches},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
@@ -3920,8 +4361,8 @@ def main(kernels_only: bool = False) -> int:
                  f"pinned staging {1e3 * a['learner']['times']['stage']:.2f} ms and "
                  f"host-to-device {a['learner']['h2d_ms']} ms per update"
                  if mode == "pixels" else "") + f" [{card}]")
-    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, fwbw, two-process and "
-          "timing phases' "
+    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, fwbw, two-process, "
+          "data-parallel and timing phases' "
           "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
@@ -3939,7 +4380,10 @@ def main(kernels_only: bool = False) -> int:
 
 if __name__ == "__main__":
     try:
-        code = main(kernels_only=sys.argv[1:] == ["--kernels"])
+        if sys.argv[1:] == ["--dp-state"]:
+            code = dp_state_main()
+        else:
+            code = main(kernels_only=sys.argv[1:] == ["--kernels"])
     except Exception as exc:  # every phase failure ends the run with no result line
         import traceback
 

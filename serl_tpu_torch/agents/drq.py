@@ -30,6 +30,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
+from serl_tpu_torch.distributed.sharding import local, num_ranks
 from serl_tpu_torch.utils.pretrained import load_resnet10_params
 from serl_tpu_torch.vision.augmentations import crop_images, crop_offsets
 from serl_tpu_torch.vision.encoders import PreTrainedResNetEncoder, SmallEncoder, resnetv1_configs
@@ -82,15 +83,19 @@ def _images(observations: Dict) -> Dict:
 
 
 class DrQAgent(SACAgent):
-    def augment_draws(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict:
-        """Crop offsets for `batch`: {"observations" | "next_observations":
-        {image key: (B * T, 2) int64}}, uniform in [0, 2 * CROP_PADDING]."""
+    def augment_draws(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                      batch_size: Optional[int] = None) -> Dict:
+        """Crop offsets for `batch`, or for a batch of `batch_size` rows like
+        it: {"observations" | "next_observations": {image key: (B * T, 2)
+        int64}}, uniform in [0, 2 * CROP_PADDING]."""
         out = {}
         for part in ("observations", "next_observations"):
             images = _images(batch[part])
-            out[part] = {k: crop_offsets(math.prod(images[k].shape[:-3]), CROP_PADDING, generator,
-                                         images[k].device)
-                         for k in self.config.image_keys}
+            out[part] = {}
+            for k in self.config.image_keys:
+                rows, stack = images[k].shape[0], math.prod(images[k].shape[1:-3])
+                out[part][k] = crop_offsets((batch_size or rows) * stack, CROP_PADDING, generator,
+                                            images[k].device)
         return out
 
     def data_augmentation_fn(self, observations: Dict, offsets: Dict) -> Dict:
@@ -130,21 +135,33 @@ class DrQAgent(SACAgent):
         return {**batch, **cropped}
 
     def drq_draws(self, batch: Dict, utd_ratio: int,
-                  generator: Optional[torch.Generator] = None) -> Dict:
-        """The draws of one `update_high_utd` of `batch`: {"augment": crop
-        offsets (see `augment_draws`), "updates": SAC's per-update draws}."""
-        return {"augment": self.augment_draws(batch, generator) if self.config.augment else {},
-                "updates": self.high_utd_draws(batch["rewards"].shape[0], utd_ratio, generator)}
+                  generator: Optional[torch.Generator] = None,
+                  batch_size: Optional[int] = None) -> Dict:
+        """The draws of one `update_high_utd` of `batch` (or of a batch of
+        `batch_size` rows like it): {"augment": crop offsets (see
+        `augment_draws`), "updates": SAC's per-update draws}."""
+        batch_size = batch_size or batch["rewards"].shape[0]
+        return {"augment": (self.augment_draws(batch, generator, batch_size)
+                            if self.config.augment else {}),
+                "updates": self.high_utd_draws(batch_size, utd_ratio, generator)}
 
     def update_high_utd(self, batch: Dict, *, utd_ratio: int, draws: Optional[Dict] = None,
                         generator: Optional[torch.Generator] = None):
         """Augment the whole batch once, then SAC's `update_high_utd` on it
         (`utd_ratio` critic updates on contiguous minibatches, then one
         actor+temperature update); returns (self, info). `draws` as
-        `drq_draws` gives them."""
+        `drq_draws` gives them. Under data parallelism `batch` is the rank's
+        block of the global batch and the draws are the global batch's: the
+        rank crops its rows with their own offsets, and SAC's update hands
+        the cropped rows on (`distributed/sharding.py`)."""
+        dp = self.state.dp
+        batch_size = batch["rewards"].shape[0] * num_ranks(dp)
         if draws is None:
-            draws = self.drq_draws(batch, utd_ratio, generator)
-        batch = self._augment_batch(batch, draws["augment"])
+            draws = self.drq_draws(batch, utd_ratio, generator, batch_size)
+        offsets = {part: {k: local(v.reshape(batch_size, -1, 2), dp).reshape(-1, 2)
+                          for k, v in by_key.items()}
+                   for part, by_key in draws["augment"].items()}
+        batch = self._augment_batch(batch, offsets)
         return SACAgent.update_high_utd(self, batch, utd_ratio=utd_ratio, draws=draws["updates"])
 
     @classmethod

@@ -49,6 +49,7 @@ from torch.func import functional_call
 from serl_tpu_torch import resolve_device
 from serl_tpu_torch.common.optimizers import make_optimizer, optimizer_lr
 from serl_tpu_torch.common.train_state import TrainState
+from serl_tpu_torch.distributed.sharding import exchange_minibatches, num_ranks, share_draws
 from serl_tpu_torch.networks.actor_critic import CriticNet, PolicyNet, subsample_ensemble
 from serl_tpu_torch.networks.lagrange import (
     init_lagrange_params,
@@ -233,7 +234,14 @@ class SACAgent(nn.Module):
             batch_a = torch.clamp(batch["actions"], -0.999, 0.999)
             with torch.no_grad():
                 better = (critic(batch_a).mean(0) > predicted_q).to(torch.float32)
-            bc_loss = (better * -dist.log_prob(batch_a)).sum() / torch.clamp(better.sum(), min=1.0)
+            # a mean over the rows the critic rates better, of the global batch
+            # under data parallelism: the count is summed over the ranks, and
+            # the rank's sum scaled by their number, so that the gradients'
+            # average over the ranks is the global batch's gradient
+            count, scale = better.sum(), 1.0
+            if self.state.dp is not None:
+                count, scale = self.state.dp.all_reduce_sum_(count), self.state.dp.world_size
+            bc_loss = scale * (better * -dist.log_prob(batch_a)).sum() / torch.clamp(count, min=1.0)
             actor_loss = actor_loss + self.config.bc_regularization * bc_loss
             info.update(actor_loss=actor_loss.detach(), bc_loss=bc_loss.detach(),
                         bc_active_frac=better.mean())
@@ -316,6 +324,9 @@ class SACAgent(nn.Module):
         networks_to_update = frozenset(networks_to_update)
         if not networks_to_update <= NETWORKS:
             raise ValueError(f"unknown networks {sorted(networks_to_update - NETWORKS)}")
+        if draws is None and self.state.dp is not None:
+            raise ValueError("under data parallelism `update` takes the rank's draws "
+                             "(update_high_utd cuts them from the global batch's)")
         if draws is None:
             draws = self.update_draws(batch_size, networks_to_update, generator)
         loss_fns = self.loss_fns(batch, draws)
@@ -332,13 +343,23 @@ class SACAgent(nn.Module):
                         draws: Optional[List[Dict]] = None,
                         generator: Optional[torch.Generator] = None):
         """`utd_ratio` critic updates on contiguous minibatches, then one
-        actor+temperature update on the full batch; returns (self, info)."""
-        batch_size = batch["rewards"].shape[0]
+        actor+temperature update on the full batch; returns (self, info).
+
+        Under data parallelism (a handle in `self.state.dp`) `batch` is this
+        rank's contiguous block of the global batch (the replay buffers'
+        `sample(dp=)`): one all-to-all hands the rank its share of every
+        minibatch (`distributed/sharding.py::exchange_minibatches`), and
+        `draws`, given or drawn, are the global batch's, cut to those rows."""
+        dp = self.state.dp
+        batch_size = batch["rewards"].shape[0] * num_ranks(dp)
         if batch_size % utd_ratio != 0:
             raise ValueError(f"batch size {batch_size} does not divide by utd_ratio {utd_ratio}")
-        minibatch_size = batch_size // utd_ratio
         if draws is None:
             draws = self.high_utd_draws(batch_size, utd_ratio, generator)
+        if dp is not None:
+            batch = exchange_minibatches(batch, utd_ratio, dp)
+            draws = share_draws(draws, batch_size, utd_ratio, dp)
+        minibatch_size = batch["rewards"].shape[0] // utd_ratio
         critic_infos = []
         for i in range(utd_ratio):
             rows = slice(i * minibatch_size, (i + 1) * minibatch_size)

@@ -10,6 +10,15 @@ tensors in place.
 differentiates each with `torch.autograd.grad` w.r.t. its own group only
 (never `.backward()`, which would also fill the grads of every other group
 that a loss passes through), and only then steps all groups.
+
+Data parallelism (`distributed/sharding.py`): with a handle in `dp`, each
+rank's losses are local means over its rows, and each group's gradients,
+with its loss infos, are averaged over the ranks (one all-reduce of one
+flat buffer per group per step) before any group steps. That is the
+all-reduce GSPMD inserts in the JAX package (the `pmean_axis` hook of its
+train state): the optimizer then steps on equal gradients everywhere, so
+params and optimizer state stay equal bit for bit across the ranks. A group
+with no loss (None: zero gradients) has nothing to average.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ class TrainState:
         self.txs = dict(txs)
         self.opt_states: Dict[str, OptState] = {g: tx.init(self.params[g]) for g, tx in txs.items()}
         self.target_params = {g: [p.detach().clone() for p in self.params[g]] for g in target_groups}
+        self.dp = None  # a distributed.sharding.DataParallel: average gradients over its ranks
 
     @torch.no_grad()
     def target_update(self, tau: float) -> None:
@@ -67,5 +77,10 @@ class TrainState:
             grads[g] = list(torch.autograd.grad(loss, self.params[g], allow_unused=True,
                                                 materialize_grads=True))
             infos[g] = info
+            if self.dp is not None:
+                keys = [k for k, v in info.items() if isinstance(v, torch.Tensor)]
+                mean = self.dp.all_reduce_mean(grads[g] + [info[k] for k in keys])
+                grads[g] = mean[:len(grads[g])]
+                infos[g] = {**info, **dict(zip(keys, mean[len(grads[g]):]))}
         self.apply_gradients(grads)
         return infos

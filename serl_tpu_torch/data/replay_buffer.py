@@ -44,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from serl_tpu_torch import resolve_device
+from serl_tpu_torch.distributed.sharding import local, num_ranks
 
 
 @dataclass
@@ -175,22 +176,23 @@ class ReplayBuffer:
 
     def sample(self, state: ReplayBufferState, batch_size: int, *,
                generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
-               e: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               e: Optional[torch.Tensor] = None, dp=None) -> Dict[str, torch.Tensor]:
         """A uniform batch of `batch_size` transitions. The slot offsets `u`
         ((R, streams) when aligned, (batch,) otherwise) and the unaligned
-        stream indices `e` are drawn from `generator` unless given."""
+        stream indices `e` are drawn from `generator` unless given.
+
+        Under data parallelism (`dp`, a `distributed.sharding.DataParallel`)
+        `state` holds the rank's streams of the ring and `batch_size` is the
+        global batch, which must divide over all ranks' streams: `u` is
+        drawn (or given) at its global shape and the rank gathers its own
+        columns through K4, its block of the global stream-major batch."""
         if self.image_keys and self.store_next_obs:
             raise NotImplementedError("image keys with stored next_observations are not ported")
         slots, streams = state.ep_id.shape
+        if dp is not None or batch_size % streams == 0:
+            return self._sample_aligned(state, batch_size, generator, u, dp)
         n_valid = max(state.size if self.store_next_obs else state.size - 1, 1)
         device = state.ep_id.device
-        if batch_size % streams == 0:
-            if u is None:
-                u = torch.randint(0, n_valid, (batch_size // streams, streams),
-                                  generator=generator, device=device)
-            s2 = (state.insert_slot - state.size + u) % slots
-            return gather_batch_aligned(state.data, state.ep_id, s2, self.store_next_obs,
-                                        self.image_keys, self.num_stack)
         if u is None:
             u = torch.randint(0, n_valid, (batch_size,), generator=generator, device=device)
         if e is None:
@@ -214,22 +216,48 @@ class ReplayBuffer:
                      buffer_b: Optional["ReplayBuffer"] = None,
                      u_a: Optional[torch.Tensor] = None, e_a: Optional[torch.Tensor] = None,
                      u_b: Optional[torch.Tensor] = None,
-                     e_b: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                     e_b: Optional[torch.Tensor] = None, dp=None) -> Dict[str, torch.Tensor]:
         """RLPD's 50/50 batch: batch_size // 2 rows from `state_a` (this
         buffer), the rest from `state_b` (of `buffer_b`, this buffer unless
         given), each half drawn as `sample` draws it (`u_a`, `e_a`, `u_b`,
         `e_b` are each half's `u` and `e`). For an even batch the rows are
         interleaved, a0, b0, a1, b1, ..., so that every contiguous minibatch
         `update_high_utd` cuts from it is itself half and half; an odd batch
-        is the two halves concatenated."""
+        is the two halves concatenated.
+
+        Under data parallelism (`dp`) `state_a` holds the rank's streams and
+        `state_b`, a demo ring, is replicated: the rank's block of the online
+        half interleaved with the same rows of the demo half is its block of
+        the global interleave."""
         buffer_b = buffer_b or self
         half = batch_size // 2
-        a = self.sample(state_a, half, generator=generator, u=u_a, e=e_a)
+        if dp is not None and batch_size % 2 != 0:
+            raise ValueError(f"under data parallelism the mixed batch ({batch_size}) must be even")
+        a = self.sample(state_a, half, generator=generator, u=u_a, e=e_a, dp=dp)
         b = buffer_b.sample(state_b, batch_size - half, generator=generator, u=u_b, e=e_b)
         if batch_size % 2 == 0:
-            return _map2(lambda x, y: torch.stack([x, y], 1).reshape((batch_size,) + tuple(x.shape[1:])),
-                         a, b)
+            return _map2(lambda x, y: torch.stack([x, local(y, dp)], 1).reshape(
+                (2 * x.shape[0],) + tuple(x.shape[1:])), a, b)
         return _map2(lambda x, y: torch.cat([x, y], 0), a, b)
+
+    def _sample_aligned(self, state: ReplayBufferState, batch_size: int, generator, u,
+                        dp) -> Dict:
+        """The stream-aligned batch, stream-major, or under data parallelism
+        the rank's block of the global one: `u` drawn (or given) at the
+        global (R, all ranks' streams) shape, the rank's columns gathered
+        through K4."""
+        slots, streams = state.ep_id.shape
+        total = streams * num_ranks(dp)
+        if batch_size % total != 0:
+            raise ValueError(f"the stream-aligned batch ({batch_size}) must divide over the "
+                             f"ring's {total} streams")
+        if u is None:
+            n_valid = max(state.size if self.store_next_obs else state.size - 1, 1)
+            u = torch.randint(0, n_valid, (batch_size // total, total), generator=generator,
+                              device=state.ep_id.device)
+        s2 = ((state.insert_slot - state.size + local(u, dp, 1)) % slots).contiguous()
+        return gather_batch_aligned(state.data, state.ep_id, s2, self.store_next_obs,
+                                    self.image_keys, self.num_stack)
 
     def load_transitions(self, state: ReplayBufferState, transitions: Dict) -> ReplayBufferState:
         """Preload into an existing state: `transitions` holds (n, ...)

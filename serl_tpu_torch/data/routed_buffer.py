@@ -29,6 +29,7 @@ from typing import Dict, Optional
 import torch
 
 from serl_tpu_torch.data.replay_buffer import ReplayBuffer, _map2, gather_batch_aligned
+from serl_tpu_torch.distributed.sharding import local, num_ranks
 
 
 @dataclass
@@ -79,24 +80,31 @@ class RoutedReplayBuffer(ReplayBuffer):
 
     def sample(self, state: RoutedBufferState, batch_size: int, *,
                generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
-               e: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               e: Optional[torch.Tensor] = None, dp=None) -> Dict[str, torch.Tensor]:
         """batch_size / streams rows per stream over each stream's own window
         (see the module docstring), stream-major. `u` ((R, streams) int
         offsets, each below its stream's max(size - sub, 1)) is drawn from
         `generator` unless given, as floor(uniform * n_valid) as the JAX
-        package draws it; `e` is unused (every sample is stream-aligned)."""
+        package draws it; `e` is unused (every sample is stream-aligned).
+        Under data parallelism (`dp`) `state` holds the rank's streams and
+        their cursors: the uniform (or `u`) is taken at the global (R, all
+        ranks' streams) shape, the rank's columns are scaled by its streams'
+        sizes, and the rank gathers its block of the global batch."""
         if self.image_keys and self.store_next_obs:
             raise NotImplementedError("image keys with stored next_observations are not ported")
         slots, streams = state.ep_id.shape
-        if batch_size % streams != 0:
+        total = streams * num_ranks(dp)
+        if batch_size % total != 0:
             raise ValueError(f"RoutedReplayBuffer needs batch_size ({batch_size}) divisible by "
-                             f"the streams ({streams})")
-        rows = batch_size // streams
+                             f"the streams ({total})")
+        rows = batch_size // total
         n_valid = torch.clamp(state.size - (0 if self.store_next_obs else 1), min=1)
         if u is None:
-            uniform = torch.rand((rows, streams), generator=generator, device=n_valid.device)
+            uniform = local(torch.rand((rows, total), generator=generator, device=n_valid.device),
+                            dp, 1)
             u = torch.floor(uniform * n_valid.to(torch.float32)).to(torch.int64)
+        else:
+            u = local(u, dp, 1)
         s2 = ((state.insert_slot - state.size + u.to(n_valid.device)) % slots).contiguous()
         return gather_batch_aligned(state.data, state.ep_id, s2, self.store_next_obs,
                                     self.image_keys, self.num_stack)
-

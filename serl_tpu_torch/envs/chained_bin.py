@@ -28,6 +28,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from serl_tpu_torch.distributed.sharding import local, num_ranks
 from serl_tpu_torch.envs.panda_pick import EnvState, _where, where_state
 from serl_tpu_torch.envs.physics import engine
 from serl_tpu_torch.envs.rendering import render_cameras
@@ -209,13 +210,16 @@ class ChainedBinEnv:
 
     def step_auto_reset(self, state: ChainedState, action: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
-                        draws: Optional[ChainDraws] = None, final_obs: bool = True):
+                        draws: Optional[ChainDraws] = None, final_obs: bool = True, dp=None):
         """One chained control step with the task graph and the reset.
         Returns (state, obs, reward, done, info); info holds "success" (the
         driving success of the task that owned the step), "success_gt",
         "task" (that task: it routes the transition), "switched" (the
         episode ended with a task flip) and, when `final_obs`, "final_obs"
-        (the pre-reset observation)."""
+        (the pre-reset observation). Under data parallelism (`dp`, a
+        `distributed.sharding.DataParallel`) `state` holds the rank's envs:
+        the reset's draws are taken for every rank's envs and the rank keeps
+        its own rows."""
         es, task = state.env, state.task
         new_es, gripper_moved = self.fw._apply_action(es, action)
         d_fw, d_bw, gt_fw, gt_bw = self._success_pair(new_es)
@@ -235,7 +239,8 @@ class ChainedBinEnv:
         # the task graph: flip on success, else retry
         next_task = torch.where(success > 0.5, 1 - task, task).to(torch.int32)
         if draws is None:
-            draws = self.sample_chain_draws(task.shape[0], generator)
+            draws = ChainDraws(*(local(x, dp) for x in
+                                 self.sample_chain_draws(task.shape[0] * num_ranks(dp), generator)))
         reset_es, reset_task = self._chain_or_fresh_reset(new_es, next_task, draws)
         is_done = done > 0.5
         out = ChainedState(where_state(is_done, new_es, reset_es),

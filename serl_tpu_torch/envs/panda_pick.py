@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from serl_tpu_torch import resolve_device
+from serl_tpu_torch.distributed.sharding import local, num_ranks
 from serl_tpu_torch.envs.physics import engine
 from serl_tpu_torch.envs.rendering import render_cameras
 
@@ -137,6 +138,7 @@ class PandaPickCubeEnv:
         generator: Optional[torch.Generator] = None,
         reset_xy: Optional[torch.Tensor] = None,
         final_obs: bool = True,
+        dp=None,
     ):
         """Step; where an episode ends, swap in a freshly reset env.
 
@@ -146,11 +148,14 @@ class PandaPickCubeEnv:
         (with images, a second render). Every state field is swapped and the
         ep_id of a reset env is the old one + 1. Reset positions are drawn
         for all envs every step from `generator` (no host sync on `done`),
-        unless `reset_xy` gives them."""
+        unless `reset_xy` gives them. Under data parallelism (`dp`, a
+        `distributed.sharding.DataParallel`) `state` holds the rank's envs:
+        the positions are drawn for every rank's envs, as one rank would
+        draw them for all, and the rank keeps its own."""
         stepped, reward, done, info = self._step_state(state, action)
         n = action.shape[0]
         if reset_xy is None:
-            reset_xy = self.sample_reset_xy(n, generator)
+            reset_xy = local(self.sample_reset_xy(n * num_ranks(dp), generator), dp)
         fresh = self._fresh(reset_xy.to(self.device, torch.float32), state.ep_id + 1)
         new_state = where_state(done > 0.5, stepped, fresh)
         out_obs = self._obs(new_state)

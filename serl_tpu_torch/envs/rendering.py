@@ -327,16 +327,22 @@ def _render_plane(best, rays):
     return _merge(best, t, shaded)
 
 
-def render_scene_plain(scene: Scene, cam_pos: torch.Tensor, cam_R: torch.Tensor,
-                       grid: torch.Tensor, size: int) -> torch.Tensor:
-    """(N, size, size, 3) uint8 frames of one camera per env: cam_pos (N, 3),
-    cam_R (N, 3, 3), grid (2, size * size) = the camera's (gx, gy)."""
+def camera_rays(cam_pos: torch.Tensor, cam_R: torch.Tensor, grid: torch.Tensor):
+    """(ox, oy, oz, dx, dy, dz) of every pixel's ray, each (N, 1) or (N, P):
+    the camera's position and its world-frame unit directions."""
     gx, gy = grid[0], grid[1]
     # world-frame directions: cam_R @ (gx, gy, -1), normalized; (N, P)
     d = [cam_R[:, i, 0:1] * gx + cam_R[:, i, 1:2] * gy - cam_R[:, i, 2:3] for i in range(3)]
     inv = 1.0 / torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    dx, dy, dz = d[0] * inv, d[1] * inv, d[2] * inv
-    rays = (cam_pos[:, 0:1], cam_pos[:, 1:2], cam_pos[:, 2:3], dx, dy, dz)
+    return (cam_pos[:, 0:1], cam_pos[:, 1:2], cam_pos[:, 2:3], d[0] * inv, d[1] * inv, d[2] * inv)
+
+
+def render_scene_plain(scene: Scene, cam_pos: torch.Tensor, cam_R: torch.Tensor,
+                       grid: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, size, size, 3) uint8 frames of one camera per env: cam_pos (N, 3),
+    cam_R (N, 3, 3), grid (2, size * size) = the camera's (gx, gy)."""
+    rays = camera_rays(cam_pos, cam_R, grid)
+    dx, dz = rays[3], rays[5]
 
     # sky background (framebuffer init), gradient on ray elevation
     tsky = torch.clamp(dz * 0.5 + 0.5, 0.0, 1.0)

@@ -288,13 +288,15 @@ def make_agents(args, device):
     return one(args.seed), one(args.seed + 1)
 
 
-def build(args, out=sys.stdout, classifiers=None):
+def build(args, out=sys.stdout, classifiers=None, dp=None):
     """(env, eval_env, rb, config, fw_agent, bw_agent, init_fn, run_chunk,
     demos, info): the classifiers with --classifier_reward (trained here
     unless `classifiers`, (fw_fn, bw_fn), are given), the training env, the
     ground-truth evaluation env, the online ring spec, both agents, the
     loop and the demo rings (fw_demo, bw_demo, demo_rb); info holds the
-    demo statistics and the classifiers' report."""
+    demo statistics and the classifiers' report. `dp` (a
+    `distributed.sharding.DataParallel`) splits the loop over its ranks
+    (`make_chained_loop`)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card: pass --device cpu to run on the CPU")
@@ -325,7 +327,7 @@ def build(args, out=sys.stdout, classifiers=None):
     eval_env = ChainedBinEnv(dense_shaping=args.dense, image_obs=args.pixels,
                              render_size=args.image_size, fresh_reset_prob=0.0,
                              device=env.device)
-    init_fn, run_chunk = make_chained_loop(env, rb, config)
+    init_fn, run_chunk = make_chained_loop(env, rb, config, dp=dp)
     return env, eval_env, rb, config, fw_agent, bw_agent, init_fn, run_chunk, demos, info
 
 

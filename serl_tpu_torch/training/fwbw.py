@@ -20,6 +20,16 @@ and from then on an iteration waits for nothing. With demos (demo_fraction
 half from the online ring, half from the task's routed demo ring, whose
 buffer is given to `init_fn`.
 
+Data parallelism (`dp`, a `distributed.sharding.DataParallel`; the carry
+cut by `shard_chained_carry`): as in `training/loop.py`, each rank steps its
+share of the chained envs and keeps their streams of both routed rings,
+draws at the global shapes and keeps its rows, and both learners average
+their gradients over the ranks. The episode statistics and both rings'
+row counts are summed over the ranks in one all-reduce an iteration, and
+each learner's gate reads the summed count, so every rank opens it on the
+same iteration (a rank-local gate would send one rank alone into the
+gradient all-reduce).
+
 Not ported: `make_fwbw_loop` and `evaluate_chained`, the isolated
 two-policy program that only the JAX package's tests call.
 """
@@ -32,6 +42,7 @@ import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
 from serl_tpu_torch.data.replay_buffer import _map2
+from serl_tpu_torch.distributed.sharding import local
 from serl_tpu_torch.envs.chained_bin import ChainedBinEnv, ChainedState, where_chained
 from serl_tpu_torch.envs.panda_pick import _where, flatten_obs
 from serl_tpu_torch.envs.scripted_expert import relocation_expert_action
@@ -95,8 +106,9 @@ def _per_task(values: torch.Tensor, task: torch.Tensor, done: torch.Tensor) -> t
     return torch.stack([torch.where(task == t, sel, torch.zeros_like(sel)).sum() for t in (0, 1)])
 
 
-def make_chained_loop(env: ChainedBinEnv, rb, config: FwBwConfig):
-    """Returns (init_fn, run_chunk).
+def make_chained_loop(env: ChainedBinEnv, rb, config: FwBwConfig, dp=None):
+    """Returns (init_fn, run_chunk); with `dp`, run_chunk takes this rank's
+    share (`shard_chained_carry`) of init_fn's global carry.
 
     init_fn(fw_agent, bw_agent, rng, fw_demo=None, bw_demo=None, demo_rb=None)
     -> ChainedCarry, where `rng` is a torch.Generator on the env's device or
@@ -120,6 +132,7 @@ def make_chained_loop(env: ChainedBinEnv, rb, config: FwBwConfig):
     rows = config.batch_size * config.utd_ratio
     env_index = torch.arange(n, dtype=torch.int32, device=device)
     demo = {"rb": None}  # the demo rings' buffer, taken at init_fn
+    step_kw = {} if dp is None else {"dp": dp}
 
     def to_agent_obs(obs):
         return add_stack_axis(obs, pixel_keys) if pixel_keys else obs
@@ -150,9 +163,9 @@ def make_chained_loop(env: ChainedBinEnv, rb, config: FwBwConfig):
         for _ in range(config.updates_per_iter):
             if config.demo_fraction > 0.0 and demo_state is not None:
                 batch = rb.sample_mixed(rb_state, demo_state, rows, generator=g,
-                                        buffer_b=demo["rb"])
+                                        buffer_b=demo["rb"], dp=dp)
             else:
-                batch = rb.sample(rb_state, rows, generator=g)
+                batch = rb.sample(rb_state, rows, generator=g, dp=dp)
             _, info = agent.update_high_utd(batch, utd_ratio=config.utd_ratio, generator=g)
             infos.append(info)
         return {"critic_loss": torch.stack([i["critic"]["critic_loss"] for i in infos]).mean(),
@@ -165,55 +178,74 @@ def make_chained_loop(env: ChainedBinEnv, rb, config: FwBwConfig):
 
         # ---- actor: one step for every env, by its task's policy ----
         if carry.env_steps < config.random_steps:
-            actions = torch.rand((n, env.ACTION_DIM), generator=g, device=device) * 2.0 - 1.0
+            actions = local(torch.rand((n, env.ACTION_DIM), generator=g, device=device),
+                            dp) * 2.0 - 1.0
         else:
             agent_obs = to_agent_obs(carry.obs)
-            actions = torch.where(is_fw, carry.fw_agent.sample_actions(agent_obs, generator=g),
-                                  carry.bw_agent.sample_actions(agent_obs, generator=g))
+            noise = [local(torch.randn((n, env.ACTION_DIM), generator=g, device=device), dp)
+                     for _ in TASKS]
+            actions = torch.where(is_fw, carry.fw_agent.sample_actions(agent_obs, noise=noise[0]),
+                                  carry.bw_agent.sample_actions(agent_obs, noise=noise[1]))
         intervening = carry.intervening
         if intervenes:
             p = intervention_probability(config, carry.env_steps)
             if mode == "episode":
                 intervene = intervening
             elif mode == "rescue":
-                intervene = intervening = intervening | draw(g, p)
+                intervene = intervening = intervening | local(draw(g, p), dp)
             else:
-                intervene = draw(g, p)
+                intervene = local(draw(g, p), dp)
             actions = torch.where(intervene[:, None], chained_expert_action(env, carry.env_states),
                                   actions)
         env_states, next_obs_d, rewards, dones, info = env.step_auto_reset(
-            carry.env_states, actions, generator=g, final_obs=rb.store_next_obs)
+            carry.env_states, actions, generator=g, final_obs=rb.store_next_obs, **step_kw)
         next_obs = _to_obs(next_obs_d, bool(pixel_keys))
 
         transitions = {"observations": carry.obs, "actions": actions, "rewards": rewards,
                        "masks": 1.0 - dones, "dones": dones}
         if rb.store_next_obs:
             transitions["next_observations"] = _to_obs(info["final_obs"], bool(pixel_keys))
-        ep_ids = carry.env_states.env.ep_id * n + env_index
+        ep_ids = carry.env_states.env.ep_id * n + local(env_index, dp)
         fw_rb = rb.insert(carry.fw_rb, transitions, ep_ids, mask=task == 0)
         bw_rb = rb.insert(carry.bw_rb, transitions, ep_ids, mask=task == 1)
 
-        # ---- episode statistics, per task ----
+        # ---- episode statistics, per task (summed over the ranks) ----
         done_mask = dones > 0.5
         ep_return = carry.ep_return + rewards
-        ep_count = carry.ep_count + torch.stack(
-            [((task == t) & done_mask).sum() for t in (0, 1)]).to(torch.int32)
-        ret_sum = carry.ret_sum + _per_task(ep_return, task, done_mask)
-        succ_sum = carry.succ_sum + _per_task(info["success"], task, done_mask)
-        succ_gt_sum = carry.succ_gt_sum + _per_task(info["success_gt"], task, done_mask)
-        switch_sum = carry.switch_sum + info["switched"].sum()
+        done_count = torch.stack([((task == t) & done_mask).sum() for t in (0, 1)])
+        ret_done = _per_task(ep_return, task, done_mask)
+        succ_done = _per_task(info["success"], task, done_mask)
+        succ_gt_done = _per_task(info["success_gt"], task, done_mask)
+        switched = info["switched"].sum()
+        ring_rows = torch.stack([fw_rb.size.sum(), bw_rb.size.sum()])
+        if dp is None:
+            reward_mean = rewards.mean()
+        else:
+            f32 = torch.float32
+            sums = dp.all_reduce_sum_(torch.cat([
+                rewards.sum()[None], done_count.to(f32), ret_done, succ_done, succ_gt_done,
+                switched.to(f32)[None], ring_rows.to(f32)]))
+            reward_mean = sums[0] / n
+            done_count, ret_done, succ_done, succ_gt_done = sums[1:3], sums[3:5], sums[5:7], sums[7:9]
+            switched, ring_rows = sums[9], sums[10:12].to(torch.int64)
+        ep_count = carry.ep_count + done_count.to(torch.int32)
+        ret_sum = carry.ret_sum + ret_done
+        succ_sum = carry.succ_sum + succ_done
+        succ_gt_sum = carry.succ_gt_sum + succ_gt_done
+        switch_sum = carry.switch_sum + switched
         ep_return = torch.where(done_mask, 0.0, ep_return)
         if intervenes and mode == "episode":
-            intervening = torch.where(done_mask, draw(g, p), intervening)
+            intervening = torch.where(done_mask, local(draw(g, p), dp), intervening)
         elif mode == "rescue":
             intervening = intervening & ~done_mask
         env_steps = carry.env_steps + n
 
-        # ---- learners: each on its own ring once its gate has opened ----
-        training = tuple(open_ or int(r.size.sum()) >= threshold
-                         for open_, r in zip(carry.training, (fw_rb, bw_rb)))
+        # ---- learners: each on its own ring once its gate has opened (on
+        # the rows of all ranks' streams, read on the host until it opens) ----
+        training = tuple(open_ or int(rows_) >= threshold
+                         for open_, rows_ in zip(carry.training, ring_rows))
         metrics = {"env_steps": torch.tensor(env_steps, dtype=torch.int32),
-                   "reward_mean": rewards.mean()}
+                   "reward_mean": reward_mean}
         for name, on, agent, rb_state, demo_state in zip(
                 TASKS, training, (carry.fw_agent, carry.bw_agent), (fw_rb, bw_rb),
                 (carry.fw_demo, carry.bw_demo)):
@@ -224,7 +256,7 @@ def make_chained_loop(env: ChainedBinEnv, rb, config: FwBwConfig):
             metrics.update({f"{name}/{k}": v for k, v in out.items()})
         metrics.update(ep_count=ep_count, ret_sum=ret_sum, succ_sum=succ_sum,
                        succ_gt_sum=succ_gt_sum, switch_sum=switch_sum,
-                       fw_rows=fw_rb.size.sum(), bw_rows=bw_rb.size.sum())
+                       fw_rows=ring_rows[0], bw_rows=ring_rows[1])
         new_carry = carry._replace(
             env_states=env_states, obs=next_obs, fw_rb=fw_rb, bw_rb=bw_rb, env_steps=env_steps,
             ep_return=ep_return, ep_count=ep_count, ret_sum=ret_sum, succ_sum=succ_sum,

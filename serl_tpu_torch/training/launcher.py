@@ -111,14 +111,17 @@ def make_pixel_replay_buffer(capacity: int = 200_000, image_keys=("front", "wris
 
 
 def make_drq_sim_experiment(seed: int = 0, encoder_type: str = "small", image_size: int = 128,
-                            shared_encoder: bool = False, device=None, **loop_overrides):
+                            shared_encoder: bool = False, device=None, dp=None,
+                            **loop_overrides):
     """The async_drq_sim-equivalent workload, pixel PandaPickCube + DrQ:
     (env, agent, rb, config, init_fn, run_chunk). The agent is built from a
     sample observation of the loop's shapes: the 7-dim state and one
-    (1, 1, H, W, 3) uint8 frame per camera."""
+    (1, 1, H, W, 3) uint8 frame per camera. `dp` (a
+    `distributed.sharding.DataParallel`) splits the loop over its ranks,
+    on the rank's device unless `device` says otherwise."""
     from serl_tpu_torch.training.loop import LoopConfig, make_fused_loop
 
-    device = resolve_device(device)
+    device = resolve_device(dp.device if device is None and dp is not None else device)
     env = PandaPickCubeEnv(image_obs=True, render_size=image_size, device=device)
     defaults = dict(utd_ratio=4, buffer_capacity=50_000)
     defaults.update(loop_overrides)
@@ -134,16 +137,17 @@ def make_drq_sim_experiment(seed: int = 0, encoder_type: str = "small", image_si
     agent = make_drq_agent(seed, sample, torch.zeros((1, ACTION_DIM)), image_keys=rb.image_keys,
                            encoder_type=encoder_type, shared_encoder=shared_encoder,
                            device=device)
-    init_fn, run_chunk = make_fused_loop(env, rb, config)
+    init_fn, run_chunk = make_fused_loop(env, rb, config, dp=dp)
     return env, agent, rb, config, init_fn, run_chunk
 
 
-def make_state_sim_experiment(seed: int = 0, device=None, **loop_overrides):
+def make_state_sim_experiment(seed: int = 0, device=None, dp=None, **loop_overrides):
     """Everything needed for the async_sac_state_sim-equivalent workload:
-    (env, agent, rb, config, init_fn, run_chunk)."""
+    (env, agent, rb, config, init_fn, run_chunk); `dp` as
+    `make_drq_sim_experiment`'s."""
     from serl_tpu_torch.training.loop import LoopConfig, make_fused_loop
 
-    device = resolve_device(device)
+    device = resolve_device(dp.device if device is None and dp is not None else device)
     env = PandaPickCubeEnv(device=device)
     config = LoopConfig(**loop_overrides)
     config = config._replace(
@@ -151,5 +155,5 @@ def make_state_sim_experiment(seed: int = 0, device=None, **loop_overrides):
     )
     rb = make_state_replay_buffer(capacity=config.buffer_capacity, device=device)
     agent = make_sac_agent(seed, device=device)
-    init_fn, run_chunk = make_fused_loop(env, rb, config)
+    init_fn, run_chunk = make_fused_loop(env, rb, config, dp=dp)
     return env, agent, rb, config, init_fn, run_chunk

@@ -21,6 +21,16 @@ policy's action, and the expert's action is the one stored, per step
 end ("rescue"), with a probability that may decay linearly to a floor over
 the env steps (computed on the host from the host-integer step count).
 
+Data parallelism (`dp`, a `distributed.sharding.DataParallel`; the carry
+cut by `shard_carry`): each rank steps its share of the envs and keeps
+their ring streams, and every iteration draws what the 1-rank loop draws,
+at the global shapes (random actions, the policy's noise, interventions,
+resets, replay offsets), keeping the rank's rows. Env indices, the env
+count of the learner's gate and `env_steps` are global; the episode
+statistics and `reward_mean` are summed over the ranks (one all-reduce an
+iteration); each sample hands the rank its share of every minibatch, and
+the optimizer steps average the gradients over the ranks.
+
 Not ported yet, and raising rather than passing silently: the loop's
 frame-stack history (`num_stack > 1`) and pixel buffers that store next
 observations.
@@ -34,6 +44,7 @@ import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
 from serl_tpu_torch.data.replay_buffer import ReplayBuffer, ReplayBufferState
+from serl_tpu_torch.distributed.sharding import local
 from serl_tpu_torch.envs.panda_pick import ACTION_DIM, PandaPickCubeEnv, flatten_obs
 from serl_tpu_torch.envs.scripted_expert import expert_action
 from serl_tpu_torch.envs.wrappers import add_stack_axis, serl_obs
@@ -93,10 +104,13 @@ def _generator(rng: Union[int, torch.Generator, None], device) -> torch.Generato
 
 
 def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
-                    expert_fn=None):
+                    expert_fn=None, dp=None):
     """Returns (init_fn, run_chunk).
 
-    init_fn(agent, rng, demo_state=None) -> LoopCarry, where `rng` is a
+    `dp` (a `distributed.sharding.DataParallel`, the pick env only): run_chunk
+    takes this rank's share of the carry (`shard_carry` of init_fn's).
+
+    init_fn(agent, rng, demo_state=None) -> LoopCarry (at the global size), where `rng` is a
     torch.Generator on the env's device or an int seed, and `demo_state` a
     demo ring (`data/demos.py::demos_to_buffer`) for RLPD;
     run_chunk(carry, num_iters) -> (carry, metrics dict of (num_iters,) tensors)
@@ -116,14 +130,17 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         raise NotImplementedError("pixel buffers that store next_observations are not ported")
     if expert_fn is None:
         expert_fn = expert_action
+    if dp is not None and type(env) is not PandaPickCubeEnv:
+        raise NotImplementedError(f"data parallelism runs the pick env, not {type(env).__name__}")
     action_dim = getattr(env, "ACTION_DIM", ACTION_DIM)
-    num_envs = config.num_envs
+    num_envs = config.num_envs  # all ranks' envs
     device = env.device
     intervenes = config.intervention_prob > 0.0
     mode = config.intervention_mode
     # rb_state.size counts SLOTS; each slot holds num_envs transitions
     train_threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
     env_index = torch.arange(num_envs, dtype=torch.int32, device=device)
+    step_kw = {} if dp is None else {"dp": dp}  # only the pick env takes it
 
     def to_buffer_obs(obs_dict):
         return serl_obs(obs_dict) if pixel_keys else flatten_obs(obs_dict)
@@ -160,23 +177,25 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
 
         # ---- actor: one step for every env ----
         if carry.env_steps < config.random_steps:
-            actions = torch.rand((num_envs, action_dim), generator=g, device=device) * 2.0 - 1.0
+            actions = local(torch.rand((num_envs, action_dim), generator=g, device=device),
+                            dp) * 2.0 - 1.0
         else:
-            actions = carry.agent.sample_actions(to_agent_obs(carry.obs), generator=g)
+            noise = local(torch.randn((num_envs, action_dim), generator=g, device=device), dp)
+            actions = carry.agent.sample_actions(to_agent_obs(carry.obs), noise=noise)
         intervening = carry.intervening
         if intervenes:
             p = intervention_probability(config, carry.env_steps)
             if mode == "episode":
                 intervene = intervening
             elif mode == "rescue":
-                intervene = intervening = intervening | draw(g, p)
+                intervene = intervening = intervening | local(draw(g, p), dp)
             else:
-                intervene = draw(g, p)
+                intervene = local(draw(g, p), dp)
             actions = torch.where(intervene[:, None], expert_fn(carry.env_states), actions)
         # the pre-reset observation is a second render with pixels: ask for
         # it only where the buffer stores it
         env_states, next_obs_d, rewards, dones, info = env.step_auto_reset(
-            carry.env_states, actions, generator=g, final_obs=rb.store_next_obs
+            carry.env_states, actions, generator=g, final_obs=rb.store_next_obs, **step_kw
         )
         next_obs = to_buffer_obs(next_obs_d)
 
@@ -191,19 +210,28 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         if rb.store_next_obs:
             # the pre-reset terminal obs is the true successor
             transitions["next_observations"] = to_buffer_obs(info["final_obs"])
-        ep_ids = carry.env_states.ep_id * num_envs + env_index
+        ep_ids = carry.env_states.ep_id * num_envs + local(env_index, dp)
         rb_state = rb.insert(carry.rb_state, transitions, ep_ids)
 
-        # ---- episode stats ----
+        # ---- episode stats (summed over the ranks) ----
         ep_return = carry.ep_return + rewards
         done_mask = dones > 0.5
-        ep_count = carry.ep_count + done_mask.sum().to(torch.int32)
-        ret_sum = carry.ret_sum + torch.where(done_mask, ep_return, 0.0).sum()
-        succ_sum = carry.succ_sum + torch.where(done_mask, info["success"], 0.0).sum()
+        done_count = done_mask.sum()
+        ret_done = torch.where(done_mask, ep_return, 0.0).sum()
+        succ_done = torch.where(done_mask, info["success"], 0.0).sum()
+        if dp is None:
+            reward_mean = rewards.mean()
+        else:
+            sums = dp.all_reduce_sum_(torch.stack([rewards.sum(), done_count.to(torch.float32),
+                                                   ret_done, succ_done]))
+            reward_mean, done_count, ret_done, succ_done = sums[0] / num_envs, *sums[1:]
+        ep_count = carry.ep_count + done_count.to(torch.int32)
+        ret_sum = carry.ret_sum + ret_done
+        succ_sum = carry.succ_sum + succ_done
         ep_return = torch.where(done_mask, 0.0, ep_return)
         if intervenes and mode == "episode":
             # the expert's ownership of each new episode is drawn as it starts
-            intervening = torch.where(done_mask, draw(g, p), intervening)
+            intervening = torch.where(done_mask, local(draw(g, p), dp), intervening)
         elif mode == "rescue":
             # a rescue never carries across an episode boundary
             intervening = intervening & ~done_mask
@@ -215,9 +243,10 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
             infos = []
             for _ in range(config.updates_per_iter):
                 if config.demo_fraction > 0.0 and carry.demo_state is not None:
-                    batch = rb.sample_mixed(rb_state, carry.demo_state, rows, generator=g)
+                    batch = rb.sample_mixed(rb_state, carry.demo_state, rows, generator=g,
+                                            dp=dp)
                 else:
-                    batch = rb.sample(rb_state, rows, generator=g)
+                    batch = rb.sample(rb_state, rows, generator=g, dp=dp)
                 _, update_info = carry.agent.update_high_utd(batch, utd_ratio=config.utd_ratio,
                                                              generator=g)
                 infos.append(update_info)
@@ -231,7 +260,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
             learner = dict.fromkeys(("critic_loss", "actor_loss", "temperature", "entropy"), zero)
 
         metrics = {
-            "reward_mean": rewards.mean(),
+            "reward_mean": reward_mean,
             "env_steps": torch.tensor(env_steps, dtype=torch.int32),
             "buffer_size": torch.tensor(rb_state.size * num_envs, dtype=torch.int32),
             **learner,

@@ -1,5 +1,5 @@
 """The port stands alone: no file under serl_tpu_torch/ (nor chip_smoke.py,
-nor tests/torch_k1.py, tests/torch_k2.py and tests/torch_k5.py, which it loads) imports jax, flax or serl_tpu, it keeps its own copy of the model
+nor tests/torch_k1.py, tests/torch_k2.py, tests/torch_k5.py and tests/torch_dp.py, which it loads) imports jax, flax or serl_tpu, it keeps its own copy of the model
 constants, and its entry points default to the CUDA device."""
 
 import ast
@@ -28,7 +28,7 @@ def _imported_modules(path: Path):
 def test_torch_port_never_imports_jax_or_serl_tpu():
     files = sorted((ROOT / "serl_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_k1.py", ROOT / "tests" / "torch_k2.py",
-        ROOT / "tests" / "torch_k5.py"]
+        ROOT / "tests" / "torch_k5.py", ROOT / "tests" / "torch_dp.py"]
     assert len(files) > 15
     scanned = {str(path.relative_to(ROOT)) for path in files}
     for module in ("data/demos.py", "envs/scripted_expert.py", "training/runner.py",
@@ -41,7 +41,8 @@ def test_torch_port_never_imports_jax_or_serl_tpu():
                    "envs/chained_bin.py", "data/routed_buffer.py", "training/fwbw.py",
                    "examples/fused_fwbw_bin_relocation.py", "distributed/serialization.py",
                    "distributed/transport.py", "data/host_buffer.py",
-                   "examples/async_sac_state_sim.py", "examples/async_drq_sim.py"):
+                   "examples/async_sac_state_sim.py", "examples/async_drq_sim.py",
+                   "distributed/sharding.py", "examples/dryrun_multichip.py"):
         assert f"serl_tpu_torch/{module}" in scanned, module
     for path in files:
         for mod in _imported_modules(path):

@@ -1,8 +1,11 @@
 """Checks of K2, the render kernel, shared by the CPU tests and chip_smoke.py.
 
-  * `pixel_rule(got, want)`: how two renders of the same states are held to
-    each other (kernel against its plain version on the card, the port
-    against the JAX package on the CPU).
+  * `pixel_rule(got, want, ids=None)`: how two renders of the same states
+    are held to each other (kernel against its plain version on the card,
+    the port against the JAX package on the CPU).
+  * `surface_ids(state, size)`: the primitive each pixel of the plain
+    render shows, for the rule's surface clause; `ray_hits(...)`: one
+    pixel's ray against every primitive, in float32 or float64.
   * `host_scene(state)`: the kernel's scene rows (serl_tpu_torch/csrc/
     render.cuh's first stage) built for the CPU with g++ from
     tests/k2_host.cpp, over CPU states; `SCENE_ATOL` is how far they may be
@@ -29,9 +32,20 @@ crosses the pixel's centre, ~1e-4: well under one pixel per frame. So:
     real fault (a wrong primitive, a lost refinement, a wrong light) breaks
     it, since those move whole regions;
   * every such pixel must lie on an edge of the reference frame: its 3x3
-    neighbourhood spans more than EDGE_LEVELS (8) levels in some channel.
-    Smooth shading moves at most a few levels per pixel, and the smallest
-    colour step between two surfaces, the floor's checker, is ~16 levels.
+    neighbourhood spans more than EDGE_LEVELS (8) levels in some channel,
+    or, where the caller gives the reference's surface ids (`surface_ids`),
+    holds more than one surface. Smooth shading moves at most a few levels
+    per pixel. Most surfaces meet with a step of 16 levels or more (the
+    floor's checker), but two of one colour may not: the last arm capsule
+    and the hand box are both dark grey (0.25), and where one occludes the
+    other only their shading differs. chip_smoke.py's K2_GRAZE_STATE holds
+    such a pixel: its ray grazes the capsule's end sphere at the capsule
+    test's first sphere hit (`ray_hits`: in float64 the capsule at 1.0221
+    m, the hand box behind at 1.0380; in the plain float32 arithmetic only
+    the box), the kernel hits the capsule as float64 does (51 levels), the
+    plain version shows the box (48 levels): 3 levels apart, an edge that
+    the contrast alone does not mark. The surface clause marks it from the
+    geometry.
 """
 
 from __future__ import annotations
@@ -72,21 +86,97 @@ def edge_mask(img: torch.Tensor) -> torch.Tensor:
     return ((hi - lo) > EDGE_LEVELS).any(1).reshape(lead + tuple(x.shape[-2:]))
 
 
-def pixel_rule(got: torch.Tensor, want: torch.Tensor) -> Tuple[List[str], Dict]:
-    """Hold `got` to `want` ((N, H, W, 3) uint8 each) by the rule above.
-    Returns (failures, summary)."""
+def surface_edge_mask(ids: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) bool: pixels whose 3x3 neighbourhood in `ids` (..., H, W)
+    holds more than one surface."""
+    x = ids.to(torch.float32).reshape((-1, 1) + tuple(ids.shape[-2:]))
+    hi = torch.nn.functional.max_pool2d(x, 3, stride=1, padding=1)
+    lo = -torch.nn.functional.max_pool2d(-x, 3, stride=1, padding=1)
+    return (hi != lo).reshape(ids.shape)
+
+
+# the primitives in the plain version's render order (surface ids 0..12)
+PRIMITIVES = (("floor",) + tuple(f"sphere {i}" for i in range(rendering.N_SPH))
+              + tuple(f"capsule {i}" for i in range(rendering.N_CAP))
+              + tuple(f"box {i}" for i in range(rendering.N_BOX)))
+
+
+def _hit_distances(scene, rays) -> torch.Tensor:
+    """(primitives, N, P) distance to each primitive along each ray (BIG
+    where it misses), by the plain version's per-primitive code."""
+    big = torch.full_like(rays[3], rendering.BIG)
+    zero = torch.zeros_like(rays[3])
+    fresh = (big, zero, zero, zero)
+    ts = [rendering._render_plane(fresh, rays)[0]]
+    ts += [rendering._render_sphere(fresh, rays, scene.sph_c[:, i], scene.sph_r[i],
+                                    scene.sph_col[i])[0] for i in range(rendering.N_SPH)]
+    ts += [rendering._render_capsule(fresh, rays, scene.cap_a[:, i], scene.cap_b[:, i],
+                                     scene.cap_r[i], scene.cap_col[i])[0]
+           for i in range(rendering.N_CAP)]
+    ts += [rendering._render_box(fresh, rays, scene.box_c[:, i], scene.box_R[:, i],
+                                 scene.box_h[i], scene.box_col[i])[0]
+           for i in range(rendering.N_BOX)]
+    return torch.stack(ts)
+
+
+def surface_ids(state, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(front, wrist) (N, size, size) int64: the primitive (an index of
+    PRIMITIVES) each pixel's ray meets first in the plain version's float32
+    arithmetic, -1 for the sky. Ties go to the first in render order, as the
+    render's strict running minimum keeps the first."""
+    scene = rendering.build_scene(state)
+    pos, rot = rendering.camera_poses(state)
+    grid = rendering.pixel_grid(size, state.qpos.device)
+    out = []
+    for c in (0, 1):
+        t = _hit_distances(scene, rendering.camera_rays(pos[:, c], rot[:, c], grid[c]))
+        ids = torch.where(t.amin(0) < rendering.BIG, t.argmin(0), -1)
+        out.append(ids.reshape(-1, size, size))
+    return tuple(out)
+
+
+def ray_hits(state, cam: int, row: int, col: int, size: int, dtype) -> Dict[str, float]:
+    """Distance along one pixel's ray to every primitive it meets (misses
+    left out), env 0 of `state`, the intersections computed in `dtype`
+    from the float32 scene: float64 shows what the float32 versions round."""
+    scene = rendering.Scene(*(x.to(dtype) for x in rendering.build_scene(state)))
+    pos, rot = rendering.camera_poses(state)
+    p = row * size + col
+    grid = rendering.pixel_grid(size, state.qpos.device)[cam][:, p:p + 1].to(dtype)
+    rays = rendering.camera_rays(pos[:1, cam].to(dtype), rot[:1, cam].to(dtype), grid)
+    t = _hit_distances(scene, rays)[:, 0, 0].tolist()
+    return {name: v for name, v in zip(PRIMITIVES, t) if v < rendering.BIG}
+
+
+def pixel_rule(got: torch.Tensor, want: torch.Tensor,
+               ids: torch.Tensor = None) -> Tuple[List[str], Dict]:
+    """Hold `got` to `want` ((N, H, W, 3) uint8 each) by the rule above;
+    `ids` ((N, H, W), `surface_ids` of the states `want` shows) adds the
+    surface clause. Returns (failures, summary)."""
     if got.shape != want.shape or got.dtype != torch.uint8 or want.dtype != torch.uint8:
         return [f"shapes/dtypes {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
                 f"{want.dtype}"], {}
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs().amax(-1)  # (N, H, W)
     beyond = diff > 1
     edges = edge_mask(want)
+    surface_only = torch.zeros_like(beyond)
+    if ids is not None:
+        surface = surface_edge_mask(ids)
+        surface_only = beyond & surface & ~edges
+        edges = edges | surface
     n_beyond = int(beyond.sum())
     off_edge = int((beyond & ~edges).sum())
     share = n_beyond / diff.numel()
     summary = {"pixels": diff.numel(), "beyond_1": n_beyond, "share_beyond_1": share,
                "beyond_1_off_edge": off_edge, "max_level_diff": int(diff.max()),
                "edge_share": float(edges.float().mean())}
+    if ids is not None:
+        summary["beyond_1_on_surface_edge_only"] = [
+            {"env": e, "row": r, "col": c, "got": got[e, r, c].tolist(),
+             "want": want[e, r, c].tolist(),
+             "surfaces": sorted(PRIMITIVES[i] if i >= 0 else "sky" for i in
+                                ids[e, max(r - 1, 0):r + 2, max(c - 1, 0):c + 2].unique().tolist())}
+            for e, r, c in surface_only.nonzero().tolist()]
     failures = []
     if share > FLIP_SHARE:
         failures.append(f"{n_beyond} of {diff.numel()} pixels differ by more than 1 level "
