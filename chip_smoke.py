@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, and the result lines
     python3 chip_smoke.py --kernels    # phases 1 and 2 and K5's times only
+    python3 chip_smoke.py --gc         # phase 1, K5 at the GC shapes, the GC phase
 
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. device: the card's name and power limit; build the CUDA kernels from the
@@ -190,7 +191,35 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      state program on one NCCL rank with its learner steps under
      torch.cuda.set_sync_debug_mode("error"), and each rank's iteration
      split (env step, sample, exchange, update compute, all-reduces; host
-     clock), collective bytes and device busy ms. Around each path
+     clock), collective bytes and device busy ms; the GC phase
+     (phase_gc_path; `--gc` runs it alone, after the builds and K5 held and
+     timed at K5_GC_SHAPES): (a) the goal-conditioned env over the pick env
+     at 128 envs with a 64-goal bank from the seed and the sparse 0.05
+     goal-distance reward, 250 steps of random actions (two time limits in
+     every env): goals kept where an episode runs and the bank entry of the
+     step's draw where it ended, final_obs paired with the old goal, the
+     reward against the old goal (from the terminal observation where
+     done), K1 once a step, and a GC step's host ms beside the bare env's;
+     (b) GC SAC from the front camera's 128 px frames (K2) of that rollout,
+     the goal frame the same env's 40 steps later: the early-fusion
+     GCObsEncoder (the default SmallEncoder on 6 channels, raw proprio),
+     3 update_high_utd calls at batch 256 x UTD 8 and sample_actions on 128
+     pairs, then the late-fusion form (a second tower), one call; (c) LC SAC
+     through LCObsEncoder over resnetv1-34-bridge-film (64 filters, a
+     512-wide conditioning from the seed, FiLM's Dense layers set nonzero),
+     3 updates at batch 256; (d) the frozen MobileNetV1 (width 1.0, a
+     4 x 4 x 1,024 map, weights by load_tf_slim_params from a seeded
+     synthetic TF-slim dict) under a learned-embedding head with dropout
+     and the 256 bottleneck (K5 at K = 8,192), 3 updates at batch 256, the
+     backbone bit for bit unchanged, without grad or optimizer state; (e)
+     DistributionalCriticNet, ContrastiveCritic, ValueCritic and MLPResNet
+     at full width on 256 rows, forward and backward (the C51 expectation
+     in [-1, 1], the contrastive logits (256, 256, 2)); (f)
+     record_eval_episode of the state agent, 100 steps, saved as npz and
+     read back equal; the learners' steps under
+     torch.cuda.set_sync_debug_mode("error"), each part's launches exact and
+     its host-clock seconds printed, and one update call per learner timed
+     warm. Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -506,7 +535,32 @@ K5_DP_SHAPES = {
     ("linear", 1, 128, 13, 256): (True, False),
     ("linear", 1, 512, 13, 256): (True, False),
 }
+# the GC phase's shapes (phase_gc_path): the critic's first layer on a
+# minibatch (it trains, and the encoder below it needs dx) and in the actor
+# update's pass, the policy's first layer on next actions, the actor update
+# and acting, at the early-fusion GC features (256 + 7 proprio), the late
+# fusion's (2 x 256 + 7), the LC encoder's (512, batch 256) and the frozen
+# MobileNet's (256, batch 256), whose bottleneck over the learned
+# embeddings (1,024 channels x 8) is K5 at K = 8,192; the SmallEncoders'
+# bottlenecks and the critics' second layers are held above
+K5_GC_SHAPES = {
+    ("shared", 10, 256, 267, 256): (True, True),
+    ("shared", 10, 2048, 267, 256): (False, True),
+    ("linear", 1, 256, 263, 256): (True, False),
+    ("linear", 1, 2048, 263, 256): (True, False),
+    ("linear", 1, 128, 263, 256): (True, False),
+    ("shared", 10, 256, 523, 256): (True, True),
+    ("shared", 10, 2048, 523, 256): (False, True),
+    ("linear", 1, 256, 519, 256): (True, False),
+    ("linear", 1, 2048, 519, 256): (True, False),
+    ("linear", 1, 128, 519, 256): (True, False),
+    ("shared", 10, 256, 516, 256): (True, True),
+    ("linear", 1, 256, 512, 256): (True, False),
+    ("shared", 10, 256, 260, 256): (True, True),
+    ("linear", 1, 256, 8192, 256): (True, True),
+}
 K5_SHAPES.update(K5_DP_SHAPES)
+K5_SHAPES.update(K5_GC_SHAPES)
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
 # its kernels' code (the per-row divisions and square root left out):
@@ -923,8 +977,9 @@ def k5_label(shape) -> str:
     return f"{form} (E, M, K, D) = ({e}, {m}, {k}, {d})"
 
 
-def phase_k5_vs_plain(torch, k5_checks, device):
-    """K5 forward and backward against the plain versions at K5_SHAPES, under
+def phase_k5_vs_plain(torch, k5_checks, device, shapes=None):
+    """K5 forward and backward against the plain versions at `shapes`
+    (default K5_SHAPES), under
     the rule of tests/torch_k5.py: the forward that stores what autograd
     needs and the one that does not; the backward with and without weight
     grads, its dgamma, dbeta and dbias repeating bit for bit."""
@@ -932,7 +987,7 @@ def phase_k5_vs_plain(torch, k5_checks, device):
 
     g = torch.Generator(device=device).manual_seed(5)
     worst = {}
-    for shape in K5_SHAPES:
+    for shape in (K5_SHAPES if shapes is None else shapes):
         form, e, m, k, d = shape
         x, kernel, bias, gamma, beta, dy = k5_checks.inputs(form, e, m, k, d, g, device)
         x3, w3, b2, _ = k5.member_views(x, kernel, bias, form == "member")
@@ -1223,8 +1278,8 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
     return rows
 
 
-def phase_k5_times(torch, k5_checks, device, card):
-    """K5 at each of K5_SHAPES but the data-parallel ones: the kernels' wrappers, the plain versions,
+def phase_k5_times(torch, k5_checks, device, card, shapes=None):
+    """K5 at each of `shapes` (default K5_SHAPES but the data-parallel ones): the kernels' wrappers, the plain versions,
     the op end to end (the forward through autograd; the backward with its
     two products), and the torch sequence the op replaced (the Dense as
     F.linear or matmul/bmm plus the bias, then tanh(F.layer_norm); its
@@ -1237,8 +1292,8 @@ def phase_k5_times(torch, k5_checks, device, card):
 
     g = torch.Generator(device=device).manual_seed(8)
     rows = {}
-    for shape, (wg, need_dx) in K5_SHAPES.items():
-        if shape in K5_DP_SHAPES:
+    for shape, (wg, need_dx) in (K5_SHAPES if shapes is None else shapes).items():
+        if shapes is None and shape in K5_DP_SHAPES:
             continue
         form, e, m, k, d = shape
         member = form == "member"
@@ -3187,6 +3242,528 @@ def phase_bc_path(torch, device, card):
 
 
 
+# ---------------------------------------------------------------- goal- and language-conditioned
+
+# The GC phase (phase_gc_path): the GC env at the pick env's 128 envs with a
+# 64-goal bank, 250 steps (two time limits crossed in every env); the GC
+# SAC learners on 128 px frames rendered from that rollout at the state
+# learner's batch (256 x UTD 8); the LC learner (FiLM ResNet-34, width 64,
+# a 512-wide conditioning) and the frozen MobileNetV1 (width 1.0) at batch
+# 256; the critic families at full width on 256 rows; one recorded
+# evaluation episode.
+GC_ENVS = 128
+GC_BANK = 64
+GC_STEPS = 250
+GC_OBS_FIRST = 110  # the step after which the first observation frame is taken (episode 2)
+GC_TRANSITIONS = 16  # frames after steps GC_OBS_FIRST .. + 16: 16 x 128 = 2,048 transitions
+GC_GOAL_STEP = 150  # the goal frame: the same env later in the same episode
+GC_SIZE = 128
+GC_BATCH, GC_UTD, GC_UPDATES, GC_ACT_ROWS = 256, 8, 3, 128
+GC_STEP_TIMING = 50  # steps of each env timed for the host ms per step
+LC_FILTERS, LC_COND, LC_UPDATES = 64, 512, 3
+MOBILENET_WIDTH, MOBILENET_UPDATES = 1.0, 3
+FAMILY_ROWS, FAMILY_FEATURES = 256, 512
+GC_OPT = {"learning_rate": 3e-4}  # no warm-up: the params move in the first update
+GC_PROPRIO = ("panda/gripper_pos", "panda/tcp_pos", "panda/tcp_vel")  # sorted
+GC_PROPRIO_DIM = 7
+
+
+def _zero_launches() -> dict:
+    return {name: 0 for name in launch_counters()}
+
+
+def _sac_launches(enc: int, high_utd_calls: int = 0, utd: int = 0, updates: int = 0,
+                  acting: int = 0) -> dict:
+    """K5 launches of SAC learners whose encoder pass runs `enc` K5 forwards
+    (its bottlenecks; each has a backward in the critic loss), with the
+    critic and the policy's two LayerNorm-tanh layers (agents/sac.py):
+      critic update: next actions (enc + 2), target (enc + 2), critic (enc
+        + 2) and its backward (2 + enc);
+      actor+temperature update: policy (enc + 2), critic pass (enc + 2),
+        backward through both (4: the critic's without weight grads), the
+        temperature's next actions (enc + 2);
+    `high_utd_calls` update_high_utd calls at `utd`, `updates` updates of
+    all three networks, `acting` sample_actions calls (enc + 2)."""
+    fwd, bwd = 3 * enc + 6, 2 + enc
+    out = _zero_launches()
+    out["dense_layer_norm_tanh_fwd"] = (high_utd_calls * (utd + 1) * fwd + updates * 2 * fwd
+                                        + acting * (enc + 2))
+    out["dense_layer_norm_tanh_bwd"] = (high_utd_calls * (utd * bwd + 4)
+                                        + updates * (bwd + 4))
+    return out
+
+
+def synthetic_tf_slim_ckpt(rng, width: float = 1.0) -> dict:
+    """Seeded weights in TF-slim's MobileNetV1 names and shapes (no ImageNet
+    checkpoint is in the repository): conv kernels N(0, 0.1^2), BatchNorm
+    gamma in [0.5, 1.5), beta and moving mean N(0, 1), moving variance in
+    [0.1, 1.1)."""
+    from serl_tpu_torch.vision.mobilenet_v1 import BLOCKS, channels
+
+    w = {}
+
+    def bn(prefix, ch):
+        w[f"{prefix}/BatchNorm/gamma"] = rng.rand(ch).astype("float32") + 0.5
+        w[f"{prefix}/BatchNorm/beta"] = rng.randn(ch).astype("float32")
+        w[f"{prefix}/BatchNorm/moving_mean"] = rng.randn(ch).astype("float32")
+        w[f"{prefix}/BatchNorm/moving_variance"] = rng.rand(ch).astype("float32") + 0.1
+
+    c = channels(32, width)
+    w["MobilenetV1/Conv2d_0/weights"] = (rng.randn(3, 3, 3, c) * 0.1).astype("float32")
+    bn("MobilenetV1/Conv2d_0", c)
+    for i, (ch, _) in enumerate(BLOCKS, start=1):
+        out = channels(ch, width)
+        w[f"MobilenetV1/Conv2d_{i}_depthwise/depthwise_weights"] = (
+            rng.randn(3, 3, c, 1) * 0.1).astype("float32")
+        bn(f"MobilenetV1/Conv2d_{i}_depthwise", c)
+        w[f"MobilenetV1/Conv2d_{i}_pointwise/weights"] = (
+            rng.randn(1, 1, c, out) * 0.1).astype("float32")
+        bn(f"MobilenetV1/Conv2d_{i}_pointwise", out)
+        c = out
+    return w
+
+
+def _gc_env_part(torch, device, card):
+    """(a): the GC env over PandaPickCubeEnv at GC_ENVS envs, a GC_BANK-entry
+    bank of block positions drawn from the seed, the sparse goal-distance
+    reward at 0.05; GC_STEPS steps of random actions with explicit goal
+    draws. Gates on every step (device-side counts, read once): goals kept
+    where not done and equal to bank[draw] where done, final_obs paired with
+    the old goal, the reward against the old goal (from the terminal
+    observation where done); every env done GC_STEPS // 100 times; K1
+    exactly once a step. Returns what (b) renders."""
+    from serl_tpu_torch.envs.goal_conditioned import goal_distance_reward, make_gc_env
+    from serl_tpu_torch.envs.panda_pick import SAMPLING_BOUNDS, PandaPickCubeEnv
+    from serl_tpu_torch.envs.physics.engine import CUBE_HALF
+
+    cpu = torch.Generator().manual_seed(40)
+    lo, hi = torch.tensor(SAMPLING_BOUNDS[0]), torch.tensor(SAMPLING_BOUNDS[1])
+    xy = lo + (hi - lo) * torch.rand((GC_BANK, 2), generator=cpu)
+    # half of the goals on the table (the block's resting height), half lifted
+    z = torch.full((GC_BANK, 1), float(CUBE_HALF[2]))
+    z[GC_BANK // 2:] += 0.05 + 0.15 * torch.rand((GC_BANK - GC_BANK // 2, 1), generator=cpu)
+    bank = {"block_pos": torch.cat([xy, z], -1).to(device)}
+    reward_fn = goal_distance_reward("state/block_pos", 0.05)
+    base = PandaPickCubeEnv(device=device)
+    env = make_gc_env(base, bank, reward_fn)
+    g = torch.Generator(device=device).manual_seed(41)
+    state, obs = env.reset(GC_ENVS, g)
+    n = GC_ENVS
+    bad = {k: torch.zeros((), dtype=torch.int64, device=device)
+           for k in ("goal", "final_obs_goal", "reward")}
+    dones = torch.zeros((), dtype=torch.int64, device=device)
+    rewarded = torch.zeros((), dtype=torch.int64, device=device)
+    keep = {"physics": {}, "proprio": {}, "actions": {}, "rewards": {}, "dones": {}}
+    record = set(range(GC_OBS_FIRST, GC_OBS_FIRST + GC_TRANSITIONS + 1)) | {GC_GOAL_STEP}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for step in range(GC_STEPS):
+        a = torch.rand((n, 4), generator=g, device=device) * 2 - 1
+        draws = env.sample_goal_draws(n, g)
+        old = state.goal["block_pos"]
+        state, obs, r, d, info = env.step_auto_reset(state, a, generator=g, goal_draws=draws)
+        done = d > 0.5
+        want_goal = torch.where(done[:, None], bank["block_pos"][draws], old)
+        bad["goal"] += (state.goal["block_pos"] != want_goal).any(-1).sum()
+        bad["final_obs_goal"] += (info["final_obs"]["goal"]["block_pos"] != old).any(-1).sum()
+        want_r = torch.where(done, reward_fn(info["final_obs"]["observation"], {"block_pos": old}),
+                             reward_fn(obs["observation"], {"block_pos": old}))
+        bad["reward"] += (r != want_r).sum()
+        dones += done.sum()
+        rewarded += (r > 0).sum()
+        if step in record:
+            keep["physics"][step] = state.inner.physics
+            keep["proprio"][step] = torch.cat([obs["observation"]["state"][k] for k in GC_PROPRIO], -1)
+            keep["actions"][step], keep["rewards"][step], keep["dones"][step] = a, r, d
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    counts = {k: int(v) for k, v in bad.items()}
+    want_dones = n * (GC_STEPS // base.time_limit_steps)
+    want = {**_zero_launches(), "control_step": GC_STEPS}
+    checks = {"goals kept where running, bank[draw] where done": counts["goal"] == 0,
+              "final_obs paired with the old goal": counts["final_obs_goal"] == 0,
+              "reward against the old goal (terminal observation where done)":
+                  counts["reward"] == 0,
+              f"{want_dones} episode ends": int(dones) == want_dones,
+              "K1 once a step": launches == want}
+
+    def per_step_ms(step_fn, s0):
+        box = [s0]
+        step_fn(box)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(GC_STEP_TIMING):
+            step_fn(box)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / GC_STEP_TIMING * 1e3
+
+    zeros = torch.zeros((n, 4), device=device)
+
+    def gc_step(box):
+        box[0] = env.step_auto_reset(box[0], zeros, generator=g)[0]
+
+    def bare_step(box):
+        box[0] = base.step_auto_reset(box[0], zeros, generator=g)[0]
+
+    gc_ms = per_step_ms(gc_step, state)
+    bare_ms = per_step_ms(bare_step, state.inner)
+    print(f"GC env (a): {n} envs, a {GC_BANK}-goal bank, {GC_STEPS} steps of random actions in "
+          f"{seconds:.3f} s with the gates' device-side counts; {int(dones)} episode ends "
+          f"(goals redrawn there), {int(rewarded)} rewarded env-steps; mismatches "
+          f"{json.dumps(counts)}; launches {json.dumps(launches)}; a GC step_auto_reset "
+          f"{gc_ms:.3f} ms against the bare env's {bare_ms:.3f} ms (host clock, {GC_STEP_TIMING} "
+          f"steps ending in a sync) [{card}]")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"GC env gates failed: {failed}; {counts}, launches {launches}")
+    return launches, want, keep, dict(seconds=seconds, gc_step_ms=gc_ms, bare_step_ms=bare_ms,
+                                      episode_ends=int(dones), rewarded=int(rewarded))
+
+
+def _gc_frames(torch, device, keep):
+    """(b)'s data: the front camera's GC_SIZE px frames (K2) of the kept
+    states; GC_TRANSITIONS x GC_ENVS transitions whose goal frame is the same
+    env's at GC_GOAL_STEP, rows ordered step-major."""
+    from serl_tpu_torch.envs.rendering import render_cameras
+
+    frames = {s: render_cameras(p, GC_SIZE)[0] for s, p in keep["physics"].items()}
+    steps = list(range(GC_OBS_FIRST, GC_OBS_FIRST + GC_TRANSITIONS))
+    goal = frames[GC_GOAL_STEP].repeat(GC_TRANSITIONS, 1, 1, 1)
+
+    def cat(src, shift):
+        return torch.cat([src[s + shift] for s in steps], 0)
+
+    obs = {"image": cat(frames, 0), "proprio": cat(keep["proprio"], 0)}
+    next_obs = {"image": cat(frames, 1), "proprio": cat(keep["proprio"], 1)}
+    batch = {"observations": (obs, {"image": goal}), "next_observations": (next_obs, {"image": goal}),
+             "actions": cat(keep["actions"], 1), "rewards": cat(keep["rewards"], 1),
+             "masks": 1.0 - cat(keep["dones"], 1), "dones": cat(keep["dones"], 1)}
+    return batch, len(frames)
+
+
+def _gc_agent(torch, device, encoder, example, seed):
+    from serl_tpu_torch.agents.sac import SACAgent
+    from serl_tpu_torch.training.launcher import _NET_KWARGS, _POLICY_KWARGS
+
+    agent = SACAgent.create_pixels(example, torch.zeros((1, 4)), encoder=encoder,
+                                   generator=torch.Generator().manual_seed(seed),
+                                   policy_kwargs=dict(_POLICY_KWARGS),
+                                   critic_network_kwargs=dict(_NET_KWARGS),
+                                   policy_network_kwargs=dict(_NET_KWARGS),
+                                   temperature_init=1e-2, discount=0.99,
+                                   critic_ensemble_size=10, critic_subsample_size=2,
+                                   device=device)
+    return agent.init_train_state(GC_OPT, GC_OPT, GC_OPT)
+
+
+def _learner_run(torch, agent, run, label, card, want, step):
+    """Run `run(agent)` -> infos under set_sync_debug_mode("error") between
+    reset_launches and read_launches; gates: launches == want, finite
+    non-zero losses, finite params, every parameter moved. Then `step()` (one
+    update call) is timed warm, outside the counted window. Returns the
+    launches, the run's seconds (its first calls set up cuDNN and cuBLAS)
+    and the warm step's ms."""
+    before = [p.detach().clone() for p in agent.parameters()]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        infos = run(agent)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    losses = {k: torch.stack([i[group][k] for i in infos]) for group, k in
+              (("critic", "critic_loss"), ("actor", "actor_loss"), ("actor", "entropy"))}
+    params = list(agent.parameters())
+    moved = [not torch.equal(p, q) for p, q in zip(params, before)]
+    checks = {"launches as the learners' count": launches == want,
+              "losses finite": all(bool(torch.isfinite(v).all()) for v in losses.values()),
+              "losses non-zero": all(bool((v != 0).all()) for v in losses.values()),
+              "params finite": all(bool(torch.isfinite(p).all()) for p in params),
+              "params moved": all(moved)}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{label} checks failed: {failed}; launches {launches}, "
+                             f"expected {want}")
+    warm_ms = per_call_ms(step, calls=1, repeats=3)
+    print(f"{label}: {seconds:.3f} s under torch.cuda.set_sync_debug_mode('error') (no host "
+          f"sync), then one call warm {warm_ms:.2f} ms (median of 3, CUDA events); critic_loss "
+          f"{[round(float(v), 5) for v in losses['critic_loss']]}, actor_loss "
+          f"{[round(float(v), 5) for v in losses['actor_loss']]}; {sum(moved)} of {len(params)} "
+          f"parameters moved; launches {json.dumps(launches)} [{card}]")
+    return launches, seconds, warm_ms
+
+
+def _gc_sac_part(torch, device, card, keep):
+    """(b): render the kept states' frames (K2), then a GC SAC learner through
+    the early-fusion GCObsEncoder (the default SmallEncoder on the 6-channel
+    obs + goal frames, raw proprio): GC_UPDATES update_high_utd calls at
+    GC_BATCH x GC_UTD and sample_actions on GC_ACT_ROWS pairs; then the
+    late-fusion form (a second SmallEncoder tower for the goal frame): one
+    update_high_utd call and sample_actions."""
+    from serl_tpu_torch.vision.encoders import SmallEncoder
+    from serl_tpu_torch.vision.encoding import GCObsEncoder
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    batch, n_frames = _gc_frames(torch, device, keep)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = {"frames": read_launches()}
+    want = {"frames": {**_zero_launches(), "render": 2 * n_frames}}
+    if launches["frames"] != want["frames"]:
+        raise AssertionError(f"GC frames: expected {want['frames']}, got {launches['frames']}")
+    rows = batch["rewards"].shape[0]
+    cpu = torch.Generator().manual_seed(42)
+    g = torch.Generator(device=device).manual_seed(43)
+    obs, goal = batch["observations"]
+    example = ({k: v[:1].cpu() for k, v in obs.items()}, {"image": goal["image"][:1].cpu()})
+    acting = ({k: v[:GC_ACT_ROWS] for k, v in obs.items()}, {"image": goal["image"][:GC_ACT_ROWS]})
+    forms = {"early": (GCObsEncoder(SmallEncoder(6, generator=cpu), use_proprio=True,
+                                    proprio_dim=GC_PROPRIO_DIM), GC_UPDATES, 1),
+             "late": (GCObsEncoder(SmallEncoder(3, generator=cpu), SmallEncoder(3, generator=cpu),
+                                   use_proprio=True, proprio_dim=GC_PROPRIO_DIM), 1, 2)}
+    info = {"rows": rows, "render_s": render_s}
+    for form, (encoder, calls, enc) in forms.items():
+        agent = _gc_agent(torch, device, encoder, example, 44)
+        actions = []
+
+        def run(agent, calls=calls, actions=actions):
+            infos = [agent.update_high_utd(batch, utd_ratio=GC_UTD, generator=g)[1]
+                     for _ in range(calls)]
+            actions.append(agent.sample_actions(acting, generator=g))
+            return infos
+
+        want[form] = _sac_launches(enc, calls, GC_UTD, acting=1)
+        launches[form], info[f"{form}_s"], info[f"{form}_update_high_utd_ms"] = _learner_run(
+            torch, agent, run, f"GC SAC (b, {form} fusion: {calls} update_high_utd at batch "
+            f"{GC_BATCH} x UTD {GC_UTD} of {rows} rows, sample_actions on {GC_ACT_ROWS} pairs)",
+            card, want[form], lambda: agent.update_high_utd(batch, utd_ratio=GC_UTD, generator=g))
+        if tuple(actions[0].shape) != (GC_ACT_ROWS, 4) or not bool(
+                (actions[0].abs() <= 1).all()):
+            raise AssertionError(f"GC SAC ({form}): actions {tuple(actions[0].shape)} not in "
+                                 "[-1, 1]")
+    return launches, want, info, batch
+
+
+def _lc_part(torch, device, card, batch):
+    """(c): an LC SAC learner through LCObsEncoder over resnetv1-34-bridge-film
+    (num_filters LC_FILTERS, 128 px, the seed's LC_COND-wide conditioning
+    vectors) with FiLM's Dense layers set to seeded nonzero weights (zero at
+    init: a wrong wiring would not show), LC_UPDATES updates at GC_BATCH."""
+    from serl_tpu_torch.vision.encoders import resnetv1_configs
+    from serl_tpu_torch.vision.encoding import LCObsEncoder
+
+    cpu = torch.Generator().manual_seed(45)
+    resnet = resnetv1_configs["resnetv1-34-bridge-film"](num_filters=LC_FILTERS, cond_dim=LC_COND,
+                                                         image_size=GC_SIZE, generator=cpu)
+    with torch.no_grad():
+        for film in resnet.films:
+            for layer in (film.add, film.mult):
+                layer.weight.normal_(0.0, 0.01, generator=cpu)
+                layer.bias.normal_(0.0, 0.01, generator=cpu)
+    obs = {"image": batch["observations"][0]["image"][:GC_BATCH]}
+    nxt = {"image": batch["next_observations"][0]["image"][:GC_BATCH]}
+    lang = {"language": torch.randn((GC_BATCH, LC_COND), generator=cpu).to(device)}
+    lc_batch = {"observations": (obs, lang), "next_observations": (nxt, lang),
+                **{k: batch[k][:GC_BATCH] for k in ("actions", "rewards", "masks", "dones")}}
+    example = ({"image": obs["image"][:1].cpu()}, {"language": lang["language"][:1].cpu()})
+    agent = _gc_agent(torch, device, LCObsEncoder(resnet), example, 46)
+    g = torch.Generator(device=device).manual_seed(47)
+    want = _sac_launches(0, updates=LC_UPDATES)
+    launches, seconds, warm_ms = _learner_run(
+        torch, agent, lambda a: [a.update(lc_batch, generator=g)[1] for _ in range(LC_UPDATES)],
+        f"LC SAC (c, resnetv1-34-bridge-film, {LC_UPDATES} updates at batch {GC_BATCH}, FiLM's "
+        f"{len(resnet.films)} layers from nonzero weights)", card, want,
+        lambda: agent.update(lc_batch, generator=g))
+    return launches, want, dict(seconds=seconds, update_ms=warm_ms)
+
+
+def _mobilenet_part(torch, device, card, batch):
+    """(d): a SAC learner through the frozen MobileNetV1 (width
+    MOBILENET_WIDTH, 128 px: a 4 x 4 x 1,024 map, weights by
+    load_tf_slim_params from a seeded synthetic dict) under a learned-
+    embedding head (8 blocks, dropout masks drawn) and the 256 bottleneck:
+    MOBILENET_UPDATES updates at GC_BATCH. Gates: the backbone bit for bit
+    unchanged, no grad and no optimizer state for it, the head moved."""
+    import numpy as np
+
+    from serl_tpu_torch.vision.mobilenet_v1 import load_tf_slim_params, make_mobilenet_encoder
+
+    params = load_tf_slim_params(synthetic_tf_slim_ckpt(np.random.RandomState(48),
+                                                        MOBILENET_WIDTH), MOBILENET_WIDTH)
+    enc = make_mobilenet_encoder(params, MOBILENET_WIDTH, GC_SIZE,
+                                 generator=torch.Generator().manual_seed(49))
+    frames = batch["observations"][0]["image"][:GC_BATCH]
+    nxt = batch["next_observations"][0]["image"][:GC_BATCH]
+    mb_batch = {"observations": frames, "next_observations": nxt,
+                **{k: batch[k][:GC_BATCH] for k in ("actions", "rewards", "masks", "dones")}}
+    agent = _gc_agent(torch, device, enc, frames[:1].cpu(), 50)
+    backbone = {n: b.detach().clone() for n, b in agent.encoder.backbone.named_buffers()}
+    g = torch.Generator(device=device).manual_seed(51)
+    want = _sac_launches(1, updates=MOBILENET_UPDATES)
+    launches, seconds, warm_ms = _learner_run(
+        torch, agent,
+        lambda a: [a.update(mb_batch, generator=g)[1] for _ in range(MOBILENET_UPDATES)],
+        f"frozen MobileNetV1 SAC (d, width {MOBILENET_WIDTH}, feature map "
+        f"{agent.encoder.backbone.feature_shape}, {MOBILENET_UPDATES} updates at batch "
+        f"{GC_BATCH})", card, want, lambda: agent.update(mb_batch, generator=g))
+    critic = {id(p) for p in agent.state.params["critic"]}
+    bufs = dict(agent.encoder.backbone.named_buffers())
+    checks = {"backbone bit for bit unchanged": all(torch.equal(bufs[n], b)
+                                                    for n, b in backbone.items()),
+              "backbone takes no grad": not any(b.requires_grad or b.grad is not None
+                                                for b in bufs.values()),
+              "backbone not in the optimizer": not any(id(b) in critic for b in bufs.values()),
+              "backbone tensors": len(bufs) == 81}
+    print(f"frozen MobileNetV1: {len(bufs)} backbone tensors, "
+          + ", ".join(f"{k}: {ok}" for k, ok in checks.items()) + f" [{card}]")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"frozen MobileNetV1 checks failed: {failed}")
+    return launches, want, dict(seconds=seconds, update_ms=warm_ms)
+
+
+def _families_part(torch, device, card):
+    """(e): DistributionalCriticNet(10, -1, 1, 51, (256, 256)),
+    ContrastiveCritic((256, 256), (256, 256), 16), ValueCritic((256, 256))
+    and MLPResNet(3 blocks, out 4, hidden 256) on FAMILY_ROWS rows of
+    FAMILY_FEATURES seeded features (the late-fusion encoder's width without
+    proprio) and 4-dim actions, forward and backward; no K5 (swish, no
+    LayerNorm: the JAX modules' defaults). Gates: finite outputs and grads,
+    the C51 expectation in [q_low, q_high], the contrastive logits (B, B, 2)."""
+    from serl_tpu_torch.networks.actor_critic import (ContrastiveCritic,
+                                                      DistributionalCriticNet, ValueCritic)
+    from serl_tpu_torch.networks.mlp import MLPResNet
+
+    cpu = torch.Generator().manual_seed(52)
+    feats = torch.randn((FAMILY_ROWS, FAMILY_FEATURES), generator=cpu).to(device)
+    acts = (torch.rand((FAMILY_ROWS, 4), generator=cpu) * 2 - 1).to(device)
+    nets = {"distributional": DistributionalCriticNet(FAMILY_FEATURES + 4, 10, -1.0, 1.0, 51,
+                                                      (256, 256), generator=cpu),
+            "contrastive": ContrastiveCritic(FAMILY_FEATURES, 4, (256, 256), (256, 256), 16,
+                                             generator=cpu),
+            "value": ValueCritic(FAMILY_FEATURES, (256, 256), generator=cpu),
+            "mlp_resnet": MLPResNet(FAMILY_FEATURES, 3, 4, hidden_dim=256, generator=cpu)}
+    calls = {"distributional": lambda n: n(feats, acts), "contrastive": lambda n: n(feats, acts),
+             "value": lambda n: n(feats), "mlp_resnet": lambda n: n(feats)}
+    torch.cuda.synchronize()
+    reset_launches()
+    out, ms = {}, {}
+    for name, net in nets.items():
+        net.to(device)
+        t0 = time.perf_counter()
+        y = calls[name](net)
+        logits = y[0] if name == "distributional" else y
+        logits.square().mean().backward()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        out[name] = y
+    launches = read_launches()
+    logits, atoms = out["distributional"]
+    q = (torch.softmax(logits.detach(), -1) * atoms).sum(-1)
+    grads = [p.grad for n in nets.values() for p in n.parameters()]
+    checks = {"no kernel launch": launches == _zero_launches(),
+              "outputs finite": all(bool(torch.isfinite(y[0] if isinstance(y, tuple) else y).all())
+                                    for y in out.values()),
+              "grads finite": all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+              "C51 expectation in [q_low, q_high]": bool((q >= -1.0).all() and (q <= 1.0).all()),
+              "C51 logits (10, B, 51)": tuple(logits.shape) == (10, FAMILY_ROWS, 51),
+              "contrastive (B, B, 2)": tuple(out["contrastive"].shape)
+              == (FAMILY_ROWS, FAMILY_ROWS, 2),
+              "value (B,)": tuple(out["value"].shape) == (FAMILY_ROWS,),
+              "MLPResNet (B, 4)": tuple(out["mlp_resnet"].shape) == (FAMILY_ROWS, 4)}
+    print(f"critic families (e) on {FAMILY_ROWS} rows, forward + backward, ms (host clock, the "
+          f"first call): {json.dumps({k: round(v, 3) for k, v in ms.items()})}; C51 expectation "
+          f"in [{float(q.min()):.4f}, {float(q.max()):.4f}] [{card}]")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"critic family checks failed: {failed}; launches {launches}")
+    return launches, _zero_launches(), ms
+
+
+def _video_part(torch, device, card):
+    """(f): record_eval_episode with the state agent (full width, random
+    weights from the seed) for one episode of up to 100 steps at 128 px,
+    saved by VideoRecorder(as_gif=False) and read back equal to the composed
+    (T, 128, 256, 3) frames. An episode step renders both cameras (K2, two
+    launches), acts (2 K5 forwards) and steps (K1)."""
+    import numpy as np
+
+    from serl_tpu_torch.envs.panda_pick import PandaPickCubeEnv
+    from serl_tpu_torch.training.launcher import make_sac_agent
+    from serl_tpu_torch.utils.video import VideoRecorder, record_eval_episode
+
+    agent = make_sac_agent(53, device=device)
+    env = PandaPickCubeEnv(device=device)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = record_eval_episode(env, agent, torch.Generator(device=device).manual_seed(54),
+                                 render_size=GC_SIZE)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = len(frames)
+    want = {**_zero_launches(), "control_step": steps, "render": 2 * steps,
+            "dense_layer_norm_tanh_fwd": 2 * steps}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as d:
+        rec = VideoRecorder(d)
+        for f in frames:
+            rec.record(f)
+        path = rec.save("episode", as_gif=False)
+        saved = np.load(path)["frames"]
+    stacked = np.stack(frames)
+    checks = {"launches": launches == want, "episode of 100 steps": steps == 100,
+              "frames (T, 128, 256, 3) uint8": stacked.shape == (steps, GC_SIZE, 2 * GC_SIZE, 3)
+              and stacked.dtype == np.uint8,
+              "npz read back equal": np.array_equal(saved, stacked),
+              "the arm moved": not np.array_equal(stacked[0], stacked[-1])}
+    print(f"record_eval_episode (f): {steps} steps in {seconds:.3f} s, frames {stacked.shape}, "
+          f"saved as npz and read back; launches {json.dumps(launches)} [{card}]")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"record_eval_episode checks failed: {failed}; launches {launches}")
+    return launches, want, seconds
+
+
+def phase_gc_path(torch, device, card):
+    """The goal- and language-conditioned stack and the remaining network
+    families, parts (a)-(f) of the module docstring. Returns (launches and
+    their expected counts by part, the whole path's sums, info)."""
+    t0 = time.perf_counter()
+    launches, want, info, seconds = {}, {}, {}, {}
+    launches["gc_env"], want["gc_env"], keep, info["gc_env"] = _gc_env_part(torch, device, card)
+    seconds["gc_env"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    sac_launches, sac_want, info["gc_sac"], batch = _gc_sac_part(torch, device, card, keep)
+    seconds["gc_sac"] = time.perf_counter() - t
+    launches.update({f"gc_sac_{k}": v for k, v in sac_launches.items()})
+    want.update({f"gc_sac_{k}": v for k, v in sac_want.items()})
+    for name, part in (("lc", _lc_part), ("mobilenet", _mobilenet_part)):
+        t = time.perf_counter()
+        launches[name], want[name], info[name] = part(torch, device, card, batch)
+        seconds[name] = time.perf_counter() - t
+    for name, part in (("families", _families_part), ("video", _video_part)):
+        t = time.perf_counter()
+        launches[name], want[name], info[name] = part(torch, device, card)
+        seconds[name] = time.perf_counter() - t
+    total = {k: sum(c[k] for c in launches.values()) for k in _zero_launches()}
+    total_want = {k: sum(c[k] for c in want.values()) for k in _zero_launches()}
+    if total != total_want:
+        raise AssertionError(f"GC path launches {total}, expected {total_want}")
+    print(f"GC phase: parts' seconds (host clock) "
+          f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}, "
+          f"{time.perf_counter() - t0:.1f} s in all; launches by part "
+          f"{json.dumps(launches)}, all as counted [{card}]")
+    return launches, total, dict(info, seconds=seconds)
+
+
 # ---------------------------------------------------------------- fwbw
 
 
@@ -4111,9 +4688,10 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
     return kernels
 
 
-def main(kernels_only: bool = False) -> int:
+def main(kernels_only: bool = False, gc_only: bool = False) -> int:
     """The whole run; with `kernels_only` (--kernels) phases 1 and 2 and K5's
-    times only, and no result lines."""
+    times only, with `gc_only` (--gc) phase 1, K5 held and timed at the GC
+    phase's shapes and the GC phase; neither prints the result lines."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4195,6 +4773,14 @@ def main(kernels_only: bool = False) -> int:
           f"with g++ after {built['transport_s']:.2f} s); ptxas {json.dumps(ptxas)}; "
           f"K1's and K2's op-counting host builds (g++) meanwhile, done after {host_s:.2f} s")
 
+    if gc_only:
+        phase_k5_vs_plain(torch, k5_checks, device, K5_GC_SHAPES)
+        phase_gc_path(torch, device, card)
+        phase_k5_times(torch, k5_checks, device, card, K5_GC_SHAPES)
+        print(f"--gc: the GC phase and K5 at its shapes; {time.perf_counter() - t0:.1f} s from "
+              "the first build")
+        return 0
+
     # phase 2: every kernel against its plain version
     errs = {"K1": max(phase_kernel_vs_plain(torch, engine, checks, device),
                       phase_k1_pose_vs_plain(torch, engine, checks, device),
@@ -4247,6 +4833,9 @@ def main(kernels_only: bool = False) -> int:
     t_new = time.perf_counter()
     bc_launches, bc_want, bc_info = phase_bc_path(torch, device, card)
     new_s["bc"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    _, gc_launches, gc_info = phase_gc_path(torch, device, card)
+    new_s["gc"] = time.perf_counter() - t_new
     fwbw = {}
     for mode in ("state", "pixels", "classifier"):
         t_new = time.perf_counter()
@@ -4293,6 +4882,7 @@ def main(kernels_only: bool = False) -> int:
                 "pcb": pcb_per_update, "peg_pixels": peg_per_update,  # per updating iteration
                 # the learned-reward paths: whole paths, as the actor's
                 "cable_route": cable_want, "vice": vice_want, "bc": bc_want,
+                "gc": gc_launches,  # the GC phase: the whole path
                 # the fwbw paths: whole paths
                 **{f"fwbw_{m}": fwbw[m][1] for m in fwbw},
                 # the two-process paths: per actor step, per learner update
@@ -4306,7 +4896,7 @@ def main(kernels_only: bool = False) -> int:
                             "pixel_rlpd": pixel_rlpd_launches_path, "resnet": resnet_launches,
                             "resnet_trained": trained_launches, "pcb": pcb_launches,
                             "peg_pixels": peg_launches, "cable_route": cable_launches,
-                            "vice": vice_launches, "bc": bc_launches,
+                            "vice": vice_launches, "bc": bc_launches, "gc": gc_launches,
                             **{f"fwbw_{m}": fwbw[m][0] for m in fwbw},
                             **{f"async_{m}_actor": a["launches_actor"] for m, a in asyncs.items()},
                             **{f"async_{m}_learner": a["launches_learner"]
@@ -4361,7 +4951,10 @@ def main(kernels_only: bool = False) -> int:
                  f"pinned staging {1e3 * a['learner']['times']['stage']:.2f} ms and "
                  f"host-to-device {a['learner']['h2d_ms']} ms per update"
                  if mode == "pixels" else "") + f" [{card}]")
-    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, fwbw, two-process, "
+    print(f"GC: a GC env step {gc_info['gc_env']['gc_step_ms']:.3f} ms against the bare env's "
+          f"{gc_info['gc_env']['bare_step_ms']:.3f} ms; parts' seconds "
+          f"{json.dumps({k: round(v, 2) for k, v in gc_info['seconds'].items()})} [{card}]")
+    print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, GC, fwbw, two-process, "
           "data-parallel and timing phases' "
           "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
@@ -4383,7 +4976,8 @@ if __name__ == "__main__":
         if sys.argv[1:] == ["--dp-state"]:
             code = dp_state_main()
         else:
-            code = main(kernels_only=sys.argv[1:] == ["--kernels"])
+            code = main(kernels_only=sys.argv[1:] == ["--kernels"],
+                        gc_only=sys.argv[1:] == ["--gc"])
     except Exception as exc:  # every phase failure ends the run with no result line
         import traceback
 

@@ -35,6 +35,14 @@ Every draw (next-action noise per loss, subsample indices, actor noise,
 dropout keep-masks) is taken from an explicit `draws` dict when one is
 given (the tests feed the JAX package's draws that way) and from a
 `torch.Generator` otherwise.
+
+Observations may be tensors, dicts, or tuples of them, as the goal- and
+language-conditioned encoders' (observations, goals) pairs: batches are
+cut and checked leaf by leaf through dicts, tuples and lists. The encoder
+is any module that takes the observations with `train` and `dropout`
+(vision/encoding.py's, or one camera encoder alone, such as
+vision/mobilenet.py's frozen backbone, whose one keep-mask is keyed
+"encoder").
 """
 
 from __future__ import annotations
@@ -81,13 +89,27 @@ class SACConfig(NamedTuple):
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def encoder_dropout_shapes(encoder: nn.Module, rows: int) -> Dict[str, tuple]:
+    """{mask key: shape} of the keep-masks an encoder pass draws in train
+    mode for `rows` observations; a camera encoder alone (it has
+    `dropout_features`) draws one, keyed "encoder"."""
+    if hasattr(encoder, "dropout_features"):
+        f = encoder.dropout_features
+        return {"encoder": (rows, f)} if f else {}
+    return encoder.dropout_shapes(rows)
 
 
 class SACAgent(nn.Module):
@@ -103,6 +125,8 @@ class SACAgent(nn.Module):
         self._critic_names = [name for name, _ in critic.named_parameters()]
         self._encoder_names = ([] if encoder is None
                                else [name for name, _ in encoder.named_parameters()])
+        # a camera encoder alone takes its one keep-mask, not a dict of them
+        self._bare_encoder = hasattr(encoder, "dropout_features")
 
     def critic_group(self) -> List[nn.Parameter]:
         """The "critic" group's tensors: the encoder's, then the head's."""
@@ -136,6 +160,8 @@ class SACAgent(nn.Module):
         `dropout` ({image key: mask}) where given."""
         if self.encoder is None:
             return obs
+        if dropout is not None and self._bare_encoder:  # one camera encoder: its one mask
+            dropout = dropout.get("encoder")
         kwargs = {"train": train, "dropout": dropout}
         if params is None:
             return self.encoder(obs, **kwargs)
@@ -288,7 +314,7 @@ class SACAgent(nn.Module):
         if "temperature" in networks_to_update:
             draws["temperature_next_eps"] = normal()
         # the encoder's dropout keep-masks, one set per encoder pass of the losses
-        shapes = {} if self.encoder is None else self.encoder.dropout_shapes(batch_size)
+        shapes = {} if self.encoder is None else encoder_dropout_shapes(self.encoder, batch_size)
         if shapes:
             passes = {"critic": ("critic_next", "target", "critic"),
                       "actor": ("actor", "actor_critic"), "temperature": ("temperature_next",)}

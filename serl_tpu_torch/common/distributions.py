@@ -57,28 +57,51 @@ def _tanh_log_det_jacobian(pre_tanh: torch.Tensor) -> torch.Tensor:
 
 
 class TanhNormal:
-    """tanh-squashed diagonal Gaussian on (-1, 1). `mode()` pushes the
-    Gaussian mean through the bijector: tanh(loc). (The JAX class's optional
-    [low, high] rescaling has no caller and is not ported.)"""
+    """tanh-squashed diagonal Gaussian on (-1, 1), or with bounds `low` and
+    `high` mapped affinely onto (low, high): y = (tanh(x) + 1) / 2 * (high -
+    low) + low, whose log-det adds sum(log((high - low) / 2)) to the tanh's.
+    `mode()` pushes the Gaussian mean through the bijector."""
 
-    def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor,
+                 low: Optional[torch.Tensor] = None, high: Optional[torch.Tensor] = None):
         self.loc = loc
         self.scale = scale
+        self.low = low
+        self.high = high
+
+    def _bounded(self) -> bool:
+        return self.low is not None and self.high is not None
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.tanh(x)
+        if self._bounded():
+            y = (y + 1.0) * 0.5 * (self.high - self.low) + self.low
+        return y
+
+    def _log_det(self, pre: torch.Tensor) -> torch.Tensor:
+        log_det = _tanh_log_det_jacobian(pre)
+        if self._bounded():
+            scale = torch.log(0.5 * (self.high - self.low))
+            log_det = log_det + torch.broadcast_to(scale, pre.shape).sum(-1)
+        return log_det
 
     def sample(self, generator: Optional[torch.Generator] = None, eps=None) -> torch.Tensor:
-        return torch.tanh(self.loc + self.scale * _noise(self.loc, eps, generator))
+        return self._forward(self.loc + self.scale * _noise(self.loc, eps, generator))
 
     def sample_and_log_prob(self, generator=None, eps=None) -> Tuple[torch.Tensor, torch.Tensor]:
         pre = self.loc + self.scale * _noise(self.loc, eps, generator)
         base = Normal(self.loc, self.scale).log_prob(pre)
-        return torch.tanh(pre), base - _tanh_log_det_jacobian(pre)
+        return self._forward(pre), base - self._log_det(pre)
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         """Log-density of a squashed sample (inverts the bijector; clipped for
         numerical safety near the boundary)."""
-        pre = torch.atanh(torch.clamp(value, -1.0 + 1e-6, 1.0 - 1e-6))
+        y = value
+        if self._bounded():
+            y = (y - self.low) / (0.5 * (self.high - self.low)) - 1.0
+        pre = torch.atanh(torch.clamp(y, -1.0 + 1e-6, 1.0 - 1e-6))
         base = Normal(self.loc, self.scale).log_prob(pre)
-        return base - _tanh_log_det_jacobian(pre)
+        return base - self._log_det(pre)
 
     def mode(self) -> torch.Tensor:
-        return torch.tanh(self.loc)
+        return self._forward(self.loc)

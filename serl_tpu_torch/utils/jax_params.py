@@ -23,6 +23,15 @@ names flax's `ObsEncoder.init` gives (`make_image_encoders` names each
 camera's encoder after its key; one encoder shared by several keys sits
 under the first key's name).
 
+A goal-conditioned encoder's towers sit under "encoder" and "goal_encoder",
+a language-conditioned one's under "encoder" (with FilmConditioning_i
+{"Dense_0": add, "Dense_1": mult} after each block, and with
+multiplicative conditioning Dense_i before the bottleneck's Dense, which
+takes the next index); a frozen-backbone encoder's tree is its head alone
+(the JAX module keeps the backbone's params in its closure; the port's
+MobileNetV1 loads them with `MobileNetV1.load_params`), and a ResNet-50's
+blocks are BottleneckResNetBlock_i with Conv_0..2.
+
 A VICE agent's "vice" group is the VICEClassifier's tree ({"encoders_<key>",
 "Dense_0", "LayerNorm_0", "Dense_1"}); a BinaryClassifier's is
 {"encoder_def": <ObsEncoder tree>, "Dense_0", "LayerNorm_0", "Dense_1"}
@@ -47,6 +56,8 @@ import torch
 
 from serl_tpu_torch.agents.sac import SACAgent
 from serl_tpu_torch.vision.encoders import PreTrainedResNetEncoder, ResNetEncoder
+from serl_tpu_torch.vision.encoding import GCObsEncoder, LCObsEncoder, ObsEncoder
+from serl_tpu_torch.vision.mobilenet import FrozenBackboneEncoder
 
 
 def _to_torch(value: torch.Tensor, layout) -> torch.Tensor:
@@ -73,8 +84,9 @@ def _norm(path, norm):
     return [(path + ("scale",), norm.weight, None), (path + ("bias",), norm.bias, None)]
 
 
-def _head_pairs(prefix, enc):
-    """The pooling head's and the bottleneck's parameters of an encoder."""
+def _head_pairs(prefix, enc, dense_index=0):
+    """The pooling head's and the bottleneck's parameters of an encoder (the
+    bottleneck is Dense_<dense_index> where Dense layers precede it)."""
     out = []
     pool = enc.pool
     if pool is not None and pool.embeddings is not None:
@@ -85,35 +97,44 @@ def _head_pairs(prefix, enc):
         out.append((prefix + ("SpatialSoftmax_0", "softmax_temperature"),
                     pool.softmax.softmax_temperature, None))
     if enc.bottleneck is not None:
-        out += _dense(prefix + ("Dense_0",), enc.bottleneck.dense)
+        out += _dense(prefix + (f"Dense_{dense_index}",), enc.bottleneck.dense)
         out += _norm(prefix + ("LayerNorm_0",), enc.bottleneck.norm)
     return out
 
 
 def resnet_pairs(enc, prefix=()):
     """(flax path, tensor, layout) of a `ResNetEncoder`'s parameters, under
-    flax's names: conv_init, norm_init, ResNetBlock_i with Conv_j,
-    GroupNorm_j (or LayerNorm_j), conv_proj, norm_proj; then the pooling
-    head and the bottleneck."""
+    flax's names: conv_init, norm_init, ResNetBlock_i (or
+    BottleneckResNetBlock_i) with Conv_j, GroupNorm_j (or LayerNorm_j),
+    conv_proj, norm_proj; FilmConditioning_i and the multiplicative
+    conditioning's Dense_i; then the pooling head and the bottleneck."""
     norm = "GroupNorm" if enc.norm_kind == "group" else "LayerNorm"
     out = [(prefix + ("conv_init", "kernel"), enc.conv_init.weight, "HWIO")]
     out += _norm(prefix + ("norm_init",), enc.norm_init)
     for i, block in enumerate(enc.blocks):
-        bp = prefix + (f"ResNetBlock_{i}",)
+        bp = prefix + (f"{type(block).__name__}_{i}",)
         for j, (conv, nrm) in enumerate(zip(block.convs, block.norms)):
             out += [(bp + (f"Conv_{j}", "kernel"), conv.weight, "HWIO")]
             out += _norm(bp + (f"{norm}_{j}",), nrm)
         if block.conv_proj is not None:
             out += [(bp + ("conv_proj", "kernel"), block.conv_proj.weight, "HWIO")]
             out += _norm(bp + ("norm_proj",), block.norm_proj)
-    return out + _head_pairs(prefix, enc)
+    for i, film in enumerate(enc.films or []):
+        out += _dense(prefix + (f"FilmConditioning_{i}", "Dense_0"), film.add)
+        out += _dense(prefix + (f"FilmConditioning_{i}", "Dense_1"), film.mult)
+    n_cond = len(enc.cond_dense or [])
+    for i, layer in enumerate(enc.cond_dense or []):
+        out += _dense(prefix + (f"Dense_{i}",), layer)
+    return out + _head_pairs(prefix, enc, dense_index=n_cond)
 
 
 def _camera_pairs(prefix, enc):
-    """One camera encoder's parameters: SmallEncoder, ResNetEncoder or
-    PreTrainedResNetEncoder."""
+    """One camera encoder's parameters: SmallEncoder, ResNetEncoder,
+    PreTrainedResNetEncoder or FrozenBackboneEncoder (its head)."""
     if isinstance(enc, ResNetEncoder):
         return resnet_pairs(enc, prefix)
+    if isinstance(enc, FrozenBackboneEncoder):
+        return _head_pairs(prefix, enc)
     if isinstance(enc, PreTrainedResNetEncoder):
         return (resnet_pairs(enc.pretrained_encoder, prefix + ("pretrained_encoder",))
                 + _head_pairs(prefix, enc))
@@ -125,7 +146,17 @@ def _camera_pairs(prefix, enc):
 
 
 def _encoder_pairs(encoder, root=("critic", "encoder")):
-    """(jax path, tensor, layout) of an ObsEncoder's parameters."""
+    """(jax path, tensor, layout) of an agent's encoder: an ObsEncoder, a
+    GCObsEncoder, an LCObsEncoder or one camera encoder alone."""
+    if isinstance(encoder, GCObsEncoder):
+        out = _camera_pairs(root + ("encoder",), encoder.encoder)
+        if encoder.goal_encoder is not None:
+            out += _camera_pairs(root + ("goal_encoder",), encoder.goal_encoder)
+        return out
+    if isinstance(encoder, LCObsEncoder):
+        return _camera_pairs(root + ("encoder",), encoder.encoder)
+    if not isinstance(encoder, ObsEncoder):
+        return _camera_pairs(root, encoder)
     out, seen = [], set()
     for key in encoder.image_keys:
         enc = encoder.encoders[key]
@@ -174,6 +205,60 @@ def vice_pairs(vice, root=()):
     for key in vice.image_keys:
         out += _camera_pairs(root + (f"encoders_{key}",), vice.encoders[key])
     return out + _classifier_head_pairs(vice.head, root)
+
+
+def mlp_pairs(mlp, root=()):
+    """(flax path, tensor, layout) of an MLP: Dense_i, LayerNorm_i."""
+    out = []
+    for i, layer in enumerate(mlp.dense):
+        out += _dense(root + (f"Dense_{i}",), layer)
+    for i, norm in enumerate(mlp.norms or []):
+        out += _norm(root + (f"LayerNorm_{i}",), norm)
+    return out
+
+
+def ensemble_mlp_pairs(mlp, root=()):
+    """(flax path, tensor, layout) of an EnsembleMLP: EnsembleDense_i
+    ((E, in, out) kernels as they are), LayerNorm_i."""
+    out = []
+    for i, layer in enumerate(mlp.dense):
+        out += [(root + (f"EnsembleDense_{i}", "kernel"), layer.kernel, None),
+                (root + (f"EnsembleDense_{i}", "bias"), layer.bias, None)]
+    for i, norm in enumerate(mlp.norms or []):
+        out += _norm(root + (f"LayerNorm_{i}",), norm)
+    return out
+
+
+def critic_family_pairs(net):
+    """(flax path, tensor, layout) of a ValueCritic, DistributionalCriticNet,
+    ContrastiveCritic or MLPResNet (networks/actor_critic.py, mlp.py)."""
+    from serl_tpu_torch.networks.actor_critic import (ContrastiveCritic,
+                                                      DistributionalCriticNet, ValueCritic)
+    from serl_tpu_torch.networks.mlp import MLPResNet
+
+    if isinstance(net, ValueCritic):
+        return mlp_pairs(net.trunk, ("MLP_0",)) + _dense(("Dense_0",), net.value)
+    if isinstance(net, DistributionalCriticNet):
+        return (ensemble_mlp_pairs(net.trunk, ("EnsembleMLP_0",))
+                + [(("EnsembleDense_0", "kernel"), net.logits.kernel, None),
+                   (("EnsembleDense_0", "bias"), net.logits.bias, None)])
+    if isinstance(net, ContrastiveCritic):
+        out = []
+        for name, tower in net.towers.items():
+            out += mlp_pairs(tower["mlp"], (f"{name}_mlp",))
+            out += _dense((f"{name}_proj",), tower["proj"])
+        return out
+    if isinstance(net, MLPResNet):
+        out = _dense(("Dense_0",), net.inp)
+        for i, block in enumerate(net.blocks):
+            bp = (f"MLPResNetBlock_{i}",)
+            out += _dense(bp + ("Dense_0",), block.up) + _dense(bp + ("Dense_1",), block.down)
+            if block.proj is not None:
+                out += _dense(bp + ("Dense_2",), block.proj)
+            if block.norm is not None:
+                out += _norm(bp + ("LayerNorm_0",), block.norm)
+        return out + _dense(("Dense_1",), net.out)
+    raise TypeError(f"no flax layout for {type(net).__name__}")
 
 
 def pairs_to_tree(pairs) -> Dict:

@@ -1,4 +1,4 @@
-"""Vision encoders: ResNet-v1 (GroupNorm), the DrQ SmallEncoder, pooling heads.
+"""Vision encoders: ResNet-v1 (GroupNorm), the SmallEncoder, pooling heads, FiLM.
 
 Port of `serl_tpu/vision/encoders.py`. The public functions keep the JAX
 package's NHWC layout: an encoder takes (B, H, W, C) images, and a
@@ -28,13 +28,21 @@ truncated normals scaled to variance scale / fan_in (lecun_normal 1,
 kaiming_normal 2) for conv, dense and spatial-embedding kernels, zero
 biases, GroupNorm scales one (zero for a bottleneck block's last).
 
-Not ported, as nothing on the port's paths builds them: the bottleneck
-block and the deeper registry entries (ResNet-18, -34, -50 and their
-"bridge" and FiLM variants), FiLM and multiplicative conditioning (the
-goal- and language-conditioned encoders' inputs), a head over given
-feature maps (`encode=False`), padding other than "VALID" and the
-learned-embedding and softmax pooling on the SmallEncoder, and its
-MXU-stem ablations `pad_input_channels` and `space_to_depth_stem`.
+Conditioning: a ResNet with `use_film` applies `FilmConditioning` (two
+zero-initialised Dense layers of the conditioning vector, so the identity
+at init: x * (1 + mult) + add per channel) after every block, and with
+`use_multiplicative_cond` multiplies every block's output by a Dense of it
+(xavier-normal); the `cond_var` comes with the call (the language-
+conditioned encoder passes its goal's embedding). The registry holds
+resnetv1-10, -18, -34 and -50 (bottleneck blocks, whose last GroupNorm's
+scale starts at zero) and their "-bridge" and "-bridge-film" forms. A head
+over a given pre-pooling map (`encode=False`) skips the backbone of
+`PreTrainedResNetEncoder`; the SmallEncoder accepts the flag and ignores
+it, as the JAX module does.
+
+Not ported: the SmallEncoder's MXU-stem ablations `pad_input_channels`
+and `space_to_depth_stem` (measurement switches of the JAX package's TPU
+experiments).
 """
 
 from __future__ import annotations
@@ -91,12 +99,23 @@ def _same_pad4(x: torch.Tensor, kernel: int, stride: int) -> Tuple[int, int, int
     return left, right, top, bottom
 
 
-def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int) -> torch.Tensor:
-    """A bias-free convolution of NCHW `x` with "SAME" padding."""
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int, groups: int = 1,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A convolution of NCHW `x` with "SAME" padding (`groups` as F.conv2d's)."""
     left, right, top, bottom = _same_pad4(x, weight.shape[-1], stride)
     if (left, top) == (right, bottom):
-        return F.conv2d(x, weight, stride=stride, padding=(top, left))
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, stride=stride)
+        return F.conv2d(x, weight, bias, stride=stride, padding=(top, left), groups=groups)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride=stride,
+                    groups=groups)
+
+
+def conv_out_size(size: int, kernel: int, stride: int, padding) -> int:
+    """One spatial axis after a convolution with flax's `padding`: "SAME",
+    "VALID" or an int p (p on both sides)."""
+    if padding == "SAME":
+        return -(-size // stride)
+    p = 0 if padding == "VALID" else int(padding)
+    return (size + 2 * p - kernel) // stride + 1
 
 
 def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
@@ -117,16 +136,17 @@ def _tf32_convs(device: torch.device, dtype: torch.dtype):
     return contextlib.nullcontext()
 
 
-def dropout(x: torch.Tensor, train: bool, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """flax's Dropout(DROPOUT_RATE): with `train`, x / keep where `mask`
-    (bool, x's shape) keeps it, else 0. Every draw is the caller's: in
-    train mode a missing mask raises."""
+def dropout(x: torch.Tensor, train: bool, mask: Optional[torch.Tensor] = None,
+            rate: float = DROPOUT_RATE) -> torch.Tensor:
+    """flax's Dropout(rate): with `train`, x / keep where `mask` (bool, x's
+    shape) keeps it, else 0. Every draw is the caller's: in train mode a
+    missing mask raises."""
     if not train:
         return x
     if mask is None:
         raise ValueError("dropout in train mode needs its keep-mask (SACAgent.update_draws "
                          "draws one per encoder pass)")
-    keep = 1.0 - DROPOUT_RATE
+    keep = 1.0 - rate
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -249,12 +269,12 @@ class Norm(nn.Module):
     channels are contiguous: no layout copy (torch's group_norm takes NCHW
     and would copy the map both ways)."""
 
-    def __init__(self, kind: str, channels: int):
+    def __init__(self, kind: str, channels: int, zero_scale: bool = False):
         super().__init__()
         if kind not in ("group", "layer"):
             raise ValueError(kind)
         self.groups = 4 if kind == "group" else 1
-        self.weight = nn.Parameter(torch.ones(channels))
+        self.weight = nn.Parameter(torch.zeros(channels) if zero_scale else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x (B, C, H, W), channels_last
@@ -285,32 +305,78 @@ class ResNetBlock(nn.Module):
     changes), then act; the convolutions in compute dtype. flax names:
     Conv_0, <Norm>_0, Conv_1, <Norm>_1, conv_proj, norm_proj."""
 
+    expansion = 1
+
     def __init__(self, in_channels: int, filters: int, in_size: Tuple[int, int], stride: int = 1,
                  norm: str = "group", act: str = "relu",
                  compute_dtype: torch.dtype = torch.float32, generator=None):
         super().__init__()
         self.filters, self.stride, self.compute_dtype = filters, stride, compute_dtype
+        self.out_channels = filters * self.expansion
         self.act = _ACTIVATIONS[act]
-        self.convs = nn.ModuleList([_conv(in_channels, filters, 3, generator),
-                                    _conv(filters, filters, 3, generator)])
-        self.norms = nn.ModuleList([Norm(norm, filters), Norm(norm, filters)])
+        self.convs, self.norms, self.strides = self._layers(in_channels, norm, generator)
         self.out_size = tuple(-(-s // stride) for s in in_size)
         self.conv_proj = self.norm_proj = None
-        if in_channels != filters or tuple(in_size) != self.out_size:
-            self.conv_proj = _conv(in_channels, filters, 1, generator)
-            self.norm_proj = Norm(norm, filters)
+        if in_channels != self.out_channels or tuple(in_size) != self.out_size:
+            self.conv_proj = _conv(in_channels, self.out_channels, 1, generator)
+            self.norm_proj = Norm(norm, self.out_channels)
+
+    def _layers(self, in_channels, norm, generator):
+        f = self.filters
+        return (nn.ModuleList([_conv(in_channels, f, 3, generator), _conv(f, f, 3, generator)]),
+                nn.ModuleList([Norm(norm, f), Norm(norm, f)]), (self.stride, 1))
 
     def _apply_conv(self, conv: nn.Conv2d, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         w = conv.weight.to(dtype=self.compute_dtype, memory_format=torch.channels_last)
         return conv2d_same(x.to(self.compute_dtype), w, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.act(self.norms[0](self._apply_conv(self.convs[0], x, self.stride)))
-        y = self.norms[1](self._apply_conv(self.convs[1], y))
+        y = x
+        last = len(self.convs) - 1
+        for i, (conv, norm, stride) in enumerate(zip(self.convs, self.norms, self.strides)):
+            y = norm(self._apply_conv(conv, y, stride))
+            if i < last:
+                y = self.act(y)
         residual = x
         if self.conv_proj is not None:
             residual = self.norm_proj(self._apply_conv(self.conv_proj, x, self.stride))
         return self.act(residual + y)
+
+
+class BottleneckResNetBlock(ResNetBlock):
+    """Bottleneck block: conv 1x1 -> norm -> act -> conv 3x3 (stride) -> norm
+    -> act -> conv 1x1 to 4 x filters -> norm whose scale starts at zero,
+    plus the residual (projected as the basic block's), then act. flax
+    names: Conv_0..2, <Norm>_0..2, conv_proj, norm_proj."""
+
+    expansion = 4
+
+    def _layers(self, in_channels, norm, generator):
+        f = self.filters
+        return (nn.ModuleList([_conv(in_channels, f, 1, generator), _conv(f, f, 3, generator),
+                               _conv(f, 4 * f, 1, generator)]),
+                nn.ModuleList([Norm(norm, f), Norm(norm, f), Norm(norm, 4 * f, zero_scale=True)]),
+                (1, self.stride, 1))
+
+
+class FilmConditioning(nn.Module):
+    """FiLM: x * (1 + mult(c)) + add(c) per channel of NCHW `x`, `add` and
+    `mult` Dense layers of the conditioning vector c, zero-initialised
+    (kernel and bias), so the identity at init. flax names: Dense_0 (add),
+    Dense_1 (mult)."""
+
+    def __init__(self, cond_dim: int, channels: int):
+        super().__init__()
+        self.add = nn.Linear(cond_dim, channels)
+        self.mult = nn.Linear(cond_dim, channels)
+        for layer in (self.add, self.mult):
+            nn.init.zeros_(layer.weight)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        add = self.add(cond)[:, :, None, None]
+        mult = self.mult(cond)[:, :, None, None]
+        return x * (1.0 + mult) + add
 
 
 def _pair(size: Union[int, Sequence[int]]) -> Tuple[int, int]:
@@ -330,12 +396,16 @@ class ResNetEncoder(nn.Module):
     def __init__(
         self,
         stage_sizes: Sequence[int],
+        block_cls: type = ResNetBlock,
         num_filters: int = 64,
         act: str = "relu",
         norm: str = "group",
         add_spatial_coordinates: bool = False,
         pooling_method: str = "avg",
         num_spatial_blocks: int = 8,
+        use_film: bool = False,
+        use_multiplicative_cond: bool = False,
+        cond_dim: Optional[int] = None,
         bottleneck_dim: Optional[int] = None,
         pre_pooling: bool = False,
         compute_dtype: torch.dtype = torch.float32,
@@ -344,6 +414,8 @@ class ResNetEncoder(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if (use_film or use_multiplicative_cond) and cond_dim is None:
+            raise ValueError("a conditioned ResNet needs cond_dim, the conditioning's width")
         self.stage_sizes = tuple(stage_sizes)
         self.norm_kind = norm
         self.act = _ACTIVATIONS[act]
@@ -360,12 +432,21 @@ class ResNetEncoder(nn.Module):
         size = tuple(-(-s // 2) for s in size)  # the max-pool: 3x3, stride 2, "SAME"
         c = num_filters
         self.blocks = nn.ModuleList()
+        self.films = nn.ModuleList() if use_film else None
+        self.cond_dense = nn.ModuleList() if use_multiplicative_cond else None
         for i, block_size in enumerate(self.stage_sizes):
             for j in range(block_size):
-                block = ResNetBlock(c, num_filters * 2 ** i, size, 2 if i > 0 and j == 0 else 1,
-                                    norm, act, compute_dtype, generator)
+                block = block_cls(c, num_filters * 2 ** i, size, 2 if i > 0 and j == 0 else 1,
+                                  norm, act, compute_dtype, generator)
                 self.blocks.append(block)
-                size, c = block.out_size, block.filters
+                size, c = block.out_size, block.out_channels
+                if use_film:
+                    self.films.append(FilmConditioning(cond_dim, c))
+                if use_multiplicative_cond:
+                    layer = nn.Linear(cond_dim, c)
+                    variance_scaling_(layer.weight, 1.0, (cond_dim + c) / 2, generator)  # xavier
+                    nn.init.zeros_(layer.bias)
+                    self.cond_dense.append(layer)
         self.feature_shape = (size[0], size[1], c)  # (h, w, c) of the map
         self.pool = self.bottleneck = None
         if pre_pooling:
@@ -379,8 +460,10 @@ class ResNetEncoder(nn.Module):
             self.bottleneck = Bottleneck(self.out_features, bottleneck_dim, generator)
             self.out_features = bottleneck_dim
 
-    def _backbone(self, observations: torch.Tensor) -> torch.Tensor:
+    def _backbone(self, observations: torch.Tensor, cond_var=None) -> torch.Tensor:
         """(B, H, W, C) uint8 -> the (B, c, h, w) fp32 map (channels_last)."""
+        if (self.films is not None or self.cond_dense is not None) and cond_var is None:
+            raise ValueError("this ResNet is conditioned: pass cond_var")
         cd = self.compute_dtype
         x = (observations.to(torch.float32) / 255.0 - self.mean) / self.std
         x = x.permute(0, 3, 1, 2)  # an NCHW view of the NHWC images
@@ -390,16 +473,20 @@ class ResNetEncoder(nn.Module):
             w = self.conv_init.weight.to(dtype=cd, memory_format=torch.channels_last)
             x = F.conv2d(x.to(cd), w, stride=2, padding=3)
             x = max_pool_same(self.act(self.norm_init(x)))
-            for block in self.blocks:
+            for i, block in enumerate(self.blocks):
                 x = block(x)
+                if self.films is not None:
+                    x = self.films[i](x, cond_var)
+                if self.cond_dense is not None:
+                    x = x * self.cond_dense[i](cond_var)[:, :, None, None]
         return x.to(torch.float32)
 
     def forward(self, observations: torch.Tensor, train: bool = False,
-                dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dropout: Optional[torch.Tensor] = None, cond_var=None) -> torch.Tensor:
         if self.pre_pooling:
             with torch.no_grad():  # frozen features: no gradient, no saved activations
-                return self._backbone(observations).permute(0, 2, 3, 1)
-        x = self.pool(self._backbone(observations), train, dropout)
+                return self._backbone(observations, cond_var).permute(0, 2, 3, 1)
+        x = self.pool(self._backbone(observations, cond_var), train, dropout)
         return x if self.bottleneck is None else self.bottleneck(x)
 
 
@@ -423,16 +510,27 @@ class PreTrainedResNetEncoder(nn.Module):
             self.out_features = bottleneck_dim
 
     def forward(self, observations: torch.Tensor, train: bool = False,
-                dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.pool(self.pretrained_encoder(observations).permute(0, 3, 1, 2), train, dropout)
+                dropout: Optional[torch.Tensor] = None, encode: bool = True) -> torch.Tensor:
+        """`encode=False`: `observations` are already the (B, h, w, c) map."""
+        x = self.pretrained_encoder(observations) if encode else observations
+        x = self.pool(x.permute(0, 3, 1, 2), train, dropout)
         return x if self.bottleneck is None else self.bottleneck(x)
 
 
-# the registry's entries that the DrQ encoders build (agents/drq.py)
+def _resnet(stage_sizes, block_cls=ResNetBlock, **kw):
+    return functools.partial(ResNetEncoder, stage_sizes=stage_sizes, block_cls=block_cls, **kw)
+
+
 resnetv1_configs = {
-    "resnetv1-10": functools.partial(ResNetEncoder, stage_sizes=(1, 1, 1, 1)),
-    "resnetv1-10-frozen": functools.partial(ResNetEncoder, stage_sizes=(1, 1, 1, 1),
-                                            pre_pooling=True),
+    "resnetv1-10": _resnet((1, 1, 1, 1)),
+    "resnetv1-10-frozen": _resnet((1, 1, 1, 1), pre_pooling=True),
+    "resnetv1-18": _resnet((2, 2, 2, 2)),
+    "resnetv1-34": _resnet((3, 4, 6, 3)),
+    "resnetv1-50": _resnet((3, 4, 6, 3), BottleneckResNetBlock),
+    "resnetv1-18-bridge": _resnet((2, 2, 2, 2), num_spatial_blocks=8),
+    "resnetv1-34-bridge": _resnet((3, 4, 6, 3), num_spatial_blocks=8),
+    "resnetv1-34-bridge-film": _resnet((3, 4, 6, 3), num_spatial_blocks=8, use_film=True),
+    "resnetv1-50-bridge": _resnet((3, 4, 6, 3), BottleneckResNetBlock, num_spatial_blocks=8),
 }
 
 
@@ -441,9 +539,14 @@ resnetv1_configs = {
 
 class SmallEncoder(nn.Module):
     """4-conv encoder: x / 255 in `compute_dtype`, Conv + relu per feature
-    size, then fp32 pooling and an optional Dense -> LayerNorm -> tanh
-    bottleneck. Input (B, H, W, in_channels); `in_channels` is the image's
-    channels times the frame stack. No dropout: its pooling has none."""
+    size (padding "VALID", "SAME" or an int per layer, as flax reads them),
+    then fp32 pooling (any of POOLING_METHODS; the learned-embedding head
+    has `spatial_block_size` features per channel and dropout in train mode)
+    and an optional Dense -> LayerNorm -> tanh bottleneck. Input (B, H, W,
+    in_channels) of `image_size`; `in_channels` is the image's channels times
+    the frame stack. `image_size` sizes the learned-embedding and softmax
+    heads; the others do not need it. `encode` is accepted and ignored, as
+    the JAX module does."""
 
     def __init__(
         self,
@@ -451,42 +554,53 @@ class SmallEncoder(nn.Module):
         features: Sequence[int] = (32, 64, 128, 256),
         kernel_sizes: Sequence[int] = (3, 3, 3, 3),
         strides: Sequence[int] = (2, 2, 2, 2),
-        padding: str = "VALID",
+        padding: Union[str, Sequence[Union[int, str]]] = "VALID",
         pool_method: str = "avg",
         bottleneck_dim: Optional[int] = 256,
         compute_dtype: torch.dtype = torch.float32,
+        spatial_block_size: int = 8,
+        image_size: Optional[Union[int, Sequence[int]]] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if padding != "VALID":
-            raise NotImplementedError(f"padding {padding!r} is not ported yet (only 'VALID')")
-        if pool_method in ("spatial_learned_embeddings", "spatial_softmax"):
-            raise NotImplementedError(f"{pool_method} pooling is not ported for the SmallEncoder")
+        spatial = pool_method in ("spatial_learned_embeddings", "spatial_softmax")
+        if spatial and image_size is None:
+            raise ValueError(f"{pool_method} pooling needs image_size to size its head")
         self.compute_dtype = compute_dtype
         self.strides = tuple(strides)
+        self.paddings = ((padding,) * len(features) if isinstance(padding, str)
+                         else tuple(padding))
+        h, w = _pair(image_size) if image_size is not None else (1, 1)
         sizes = [in_channels] + list(features)
         self.convs = nn.ModuleList()
-        for cin, cout, k in zip(sizes[:-1], sizes[1:], kernel_sizes):
+        for cin, cout, k, stride, pad in zip(sizes[:-1], sizes[1:], kernel_sizes, strides,
+                                             self.paddings):
             conv = nn.Conv2d(cin, cout, k, bias=True)
             lecun_normal_(conv.weight, cin * k * k, generator)
             with torch.no_grad():
                 conv.bias.zero_()
             self.convs.append(conv)
-        self.pool = Pool(pool_method, (features[-1], 1, 1))  # avg, max, none: no kernel to size
+            h, w = conv_out_size(h, k, stride, pad), conv_out_size(w, k, stride, pad)
+        self.pool = Pool(pool_method, (features[-1], h, w), spatial_block_size, generator)
+        self.dropout_features = self.pool.dropout_features
         self.bottleneck = (None if bottleneck_dim is None
                            else Bottleneck(self.pool.out_features, bottleneck_dim, generator))
         self.out_features = self.pool.out_features if bottleneck_dim is None else bottleneck_dim
 
     def forward(self, observations: torch.Tensor, train: bool = False,
-                dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
+                dropout: Optional[torch.Tensor] = None, encode: bool = True) -> torch.Tensor:
         cd = self.compute_dtype
         # NHWC -> an NCHW view with channels_last strides
         x = (observations.to(cd) / 255.0).permute(0, 3, 1, 2)
-        for conv, stride in zip(self.convs, self.strides):
+        for conv, stride, pad in zip(self.convs, self.strides, self.paddings):
             w = conv.weight.to(dtype=cd, memory_format=torch.channels_last)
-            x = F.relu(F.conv2d(x, w, conv.bias.to(cd), stride=stride))
+            b = conv.bias.to(cd)
+            if pad == "SAME":
+                x = conv2d_same(x, w, stride, bias=b)
+            else:
+                x = F.conv2d(x, w, b, stride=stride, padding=0 if pad == "VALID" else int(pad))
+            x = F.relu(x)
         x = self.pool(x.to(torch.float32), train, dropout)
         if self.bottleneck is not None:
             x = self.bottleneck(x)
         return x
-
