@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, and the result lines
     python3 chip_smoke.py --kernels    # phases 1 and 2 and K5's times only
     python3 chip_smoke.py --gc         # phase 1, K5 at the GC shapes, the GC phase
+    python3 chip_smoke.py --rest       # phases 1 and 2, the rest phase
 
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. device: the card's name and power limit; build the CUDA kernels from the
@@ -219,7 +220,20 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      read back equal; the learners' steps under
      torch.cuda.set_sync_debug_mode("error"), each part's launches exact and
      its host-clock seconds printed, and one update call per learner timed
-     warm. Around each path
+     warm; the rest phase (phase_rest_paths; `--rest` runs it alone, after
+     the builds and phase 2): (a) the frame stack at full width
+     (make_drq_sim_experiment's defaults with a 3-frame ring), the watched
+     envs' histories against a host replay of chunk_push across episode
+     ends, the ring's sampled stacks against K4's plain version, an
+     evaluate with the stack, and the data-parallel pixel program with the
+     stack on 2 gloo ranks bit for bit with one rank before its first
+     update; (b) the isolated fwbw program (make_fwbw_loop) at FwBwConfig's
+     defaults past both gates, evaluate_chained on 16 episodes, and its
+     layout (shard_fwbw_carry) on 2 gloo ranks bit for bit with one rank
+     while it acts at random; (c) examples/external_gym_actor.py's actor
+     (the gymnasium-free FrankaTaskGymBase, K1 at N = 1) and learner as two
+     processes, and one render through the pick env's gym base (K2 at
+     N = 1) under tests/torch_k2.py's rule. Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -286,13 +300,20 @@ K4_DP_STATE_SHAPE = dict(slots=782, streams=64, rows_per_stream=16)
 # the RLPD path's online half: 200,000 rows over 32 streams, 1,024 of a 2,048-row batch
 K4_RLPD_SHAPE = dict(slots=6250, streams=32, rows_per_stream=32)
 K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows, batch 1024
+# the isolated fwbw program's ring (100,000 rows over a task's 8 streams,
+# batch 1,024; 13-dim observations, 7-dim actions), whole and a rank's half
+K4_FWBW_ISOLATED_SHAPES = (dict(slots=12500, streams=8, rows_per_stream=128),
+                           dict(slots=12500, streams=4, rows_per_stream=128))
 # the pixel rings K4 gathers from: bench_pixels' (small encoder and ResNet),
 # the pixel RLPD path's online half (50,000 rows over 16 streams, 512 of a
 # 1,024-row batch), and that half on bench_pixels' ring
 K4_PIXEL_SHAPES = (K4_PIXEL_SHAPE, dict(slots=3125, streams=16, rows_per_stream=32),
                    dict(slots=625, streams=16, rows_per_stream=32),
                    # a rank's half of bench_pixels' ring on the data-parallel path
-                   dict(slots=625, streams=8, rows_per_stream=64))
+                   dict(slots=625, streams=8, rows_per_stream=64),
+                   # the frame-stack ring of the rest phase (make_drq_sim_experiment's
+                   # 50,048 rows over 128 streams, batch 1,024)
+                   dict(slots=391, streams=128, rows_per_stream=8))
 # the pose tasks' pixel rings (10-dim state, 7-dim actions): 20,000 rows over
 # 16 streams, sampled 512 rows (sample_mixed's online half on the peg and
 # cable-route paths) and 80 (VICE's classifier batches)
@@ -339,9 +360,9 @@ PIXEL_RLPD_PRESET = dict(demo_fraction=0.5)
 PIXEL_RLPD_CHUNK, PIXEL_RLPD_CHUNKS = 5, 2
 # bench.py::bench_pixels("resnet-pretrained"): the frozen ResNet-10 from
 # resnet10_params.pkl, timed in chunks of RESNET_CHUNK (bench.py's 25 cut to
-# 10 to keep the whole run short); RESNET_FRAMES frames for the feature check
+# 5 to keep the whole run short); RESNET_FRAMES frames for the feature check
 BENCH_RESNET = dict(BENCH_PIXELS, encoder_type="resnet-pretrained")
-RESNET_CHUNK = 10
+RESNET_CHUNK = 5
 RESNET_FRAMES = 32
 # the trained "resnet" encoder's update_high_utd calls on the ResNet path's ring
 RESNET_TRAINED_UPDATES = 3
@@ -389,6 +410,10 @@ FWBW_K4_DEMO = (600, 16, 512)
 FWBW_K4_DP = (6250, 16, 256)
 FWBW_K4_DP_DEMO = (100, 16, 512)
 FWBW_K1_DP_N = 16  # a rank's chained envs
+# launches on the first envs of a held set, equal bit for bit: a rank's
+# chained envs, the isolated fwbw program's task batch (8) and a rank's
+# share of it (4); evaluate_chained steps 16
+FWBW_K1_PREFIX_N = (FWBW_K1_DP_N, 8, 4)
 # K2 held at the 32 chained envs, after a reset and FWBW_K2_STEPS expert steps
 FWBW_K2_N = 32
 FWBW_K2_STEPS = (15, 40, 80)
@@ -559,8 +584,27 @@ K5_GC_SHAPES = {
     ("shared", 10, 256, 260, 256): (True, True),
     ("linear", 1, 256, 8192, 256): (True, True),
 }
+# the rest phase's shapes (phase_rest_paths): the isolated fwbw policies
+# acting on a task's 8 envs and, on a data-parallel rank, on 4; the external
+# actor's learner (16-dim observations, 7-dim actions: the critic's first
+# layer on a minibatch and in the actor update's pass, the policy's first
+# layer on next actions and in the actor update) and its actor on one env.
+# Phase 2 holds them; phase 4 does not time them (they are launch-bound, M of
+# 1 to 8, or beside timed neighbours), as with K5_DP_SHAPES
+K5_REST_SHAPES = {
+    ("linear", 1, 8, 13, 256): (True, False),
+    ("linear", 1, 4, 13, 256): (True, False),
+    ("linear", 1, 4, 256, 256): (True, True),
+    ("shared", 10, 256, 23, 256): (True, False),
+    ("shared", 10, 1024, 23, 256): (False, True),
+    ("linear", 1, 256, 16, 256): (True, False),
+    ("linear", 1, 1024, 16, 256): (True, False),
+    ("linear", 1, 1, 16, 256): (True, False),
+}
 K5_SHAPES.update(K5_DP_SHAPES)
 K5_SHAPES.update(K5_GC_SHAPES)
+K5_SHAPES.update(K5_REST_SHAPES)
+K5_UNTIMED = set(K5_DP_SHAPES) | set(K5_REST_SHAPES)  # held in phase 2, not timed in phase 4
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
 # its kernels' code (the per-row divisions and square root left out):
@@ -927,11 +971,14 @@ def phase_k4_vs_plain(torch, device):
     path's (K4_SHAPE), the RLPD path's online half (K4_RLPD_SHAPE) and a
     data-parallel rank's half of the learner's ring (K4_DP_STATE_SHAPE)."""
     g = torch.Generator(device=device).manual_seed(4)
-    return max(_k4_state_vs_plain(torch, device, g, **shape)
-               for shape in (K4_SHAPE, K4_RLPD_SHAPE, K4_DP_STATE_SHAPE))
+    return max([_k4_state_vs_plain(torch, device, g, **shape)
+                for shape in (K4_SHAPE, K4_RLPD_SHAPE, K4_DP_STATE_SHAPE)]
+               + [_k4_state_vs_plain(torch, device, g, **shape, obs_dim=13, action_dim=7)
+                  for shape in K4_FWBW_ISOLATED_SHAPES])
 
 
-def _k4_state_vs_plain(torch, device, g, slots, streams, rows_per_stream):
+def _k4_state_vs_plain(torch, device, g, slots, streams, rows_per_stream, obs_dim=10,
+                       action_dim=4):
     """K4 against its plain version on a full ring that has wrapped (cursor
     mid-ring), 100-step episodes that end at another slot in every stream,
     next_observations stored and not."""
@@ -939,8 +986,8 @@ def _k4_state_vs_plain(torch, device, g, slots, streams, rows_per_stream):
 
     r = rows_per_stream
     data = {k: torch.randn((slots, streams) + shape, generator=g, device=device)
-            for k, shape in (("observations", (10,)), ("actions", (4,)),
-                             ("next_observations", (10,)), ("rewards", ()), ("masks", ()),
+            for k, shape in (("observations", (obs_dim,)), ("actions", (action_dim,)),
+                             ("next_observations", (obs_dim,)), ("rewards", ()), ("masks", ()),
                              ("dones", ()))}
     insert_slot = 300  # slot 299 is the newest, 300 the oldest
     age = (torch.arange(slots, device=device) - insert_slot) % slots
@@ -967,8 +1014,8 @@ def _k4_state_vs_plain(torch, device, g, slots, streams, rows_per_stream):
             boundary_rows = int((ep_id[nxt, stream] != ep_id[s2, stream]).sum())
     if boundary_rows == 0:
         raise AssertionError("K4 check sampled no episode-boundary row")
-    print(f"K4 vs plain at {slots} slots x {streams} streams, {r * streams} rows, next_obs "
-          f"stored and not ({boundary_rows} rows at an episode boundary): exactly equal")
+    print(f"K4 vs plain at {slots} slots x {streams} streams ({obs_dim}-dim observations, "
+          f"{action_dim}-dim actions), {r * streams} rows, next_obs stored and not ({boundary_rows} rows at an episode boundary): exactly equal")
     return err
 
 
@@ -1189,7 +1236,7 @@ def phase_times(torch, engine, checks, device, card, env, agent, carry, run_chun
     return rows
 
 
-def print_busy_share(torch, what: str, run, card: str, path_kernels, iters: int = 10) -> None:
+def print_busy_share(torch, what: str, run, card: str, path_kernels, iters: int = 5) -> None:
     """The loop's device busy share over `iters` iterations; fails when the
     trace gives no device time to a kernel of `path_kernels` (K1 .. K5)."""
     wall_ms, busy_ms, by_name, by_op = busy_share(torch, run, iters)
@@ -1279,7 +1326,7 @@ def phase_learner_times(torch, device, card, agent, rb, config, carry, run_chunk
 
 
 def phase_k5_times(torch, k5_checks, device, card, shapes=None):
-    """K5 at each of `shapes` (default K5_SHAPES but the data-parallel ones): the kernels' wrappers, the plain versions,
+    """K5 at each of `shapes` (default K5_SHAPES but K5_UNTIMED): the kernels' wrappers, the plain versions,
     the op end to end (the forward through autograd; the backward with its
     two products), and the torch sequence the op replaced (the Dense as
     F.linear or matmul/bmm plus the bias, then tanh(F.layer_norm); its
@@ -1293,7 +1340,7 @@ def phase_k5_times(torch, k5_checks, device, card, shapes=None):
     g = torch.Generator(device=device).manual_seed(8)
     rows = {}
     for shape, (wg, need_dx) in (K5_SHAPES if shapes is None else shapes).items():
-        if shapes is None and shape in K5_DP_SHAPES:
+        if shapes is None and shape in K5_UNTIMED:
             continue
         form, e, m, k, d = shape
         member = form == "member"
@@ -1609,15 +1656,26 @@ def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream, state_
     s2 = (insert_slot - slots + u) % slots
     s2[0] = (insert_slot - 2) % slots  # the seam: the newest sampleable slot
     s2[1], s2[2], s2[3] = starts, (starts + 1) % slots, (starts - 1) % slots
+    # with next_observations stored, their cameras come from the observations
+    # ring (the JAX package's quirk): a ring whose stored next frames differ
+    stored = {**data, "next_observations": {
+        "state": data["observations"]["state"] + 1.0,
+        **{k: 255 - data["observations"][k] for k in IMAGE_KEYS}}}
     for num_stack in (1, 3):
-        got = rbm.gather_batch_aligned_cuda(data, ep_id, s2, False, IMAGE_KEYS, num_stack)
-        want = rbm.gather_batch_aligned_plain(data, ep_id, s2, False, IMAGE_KEYS, num_stack)
-        torch.cuda.synchronize()
-        for part in want:
-            for k, w in (want[part].items() if isinstance(want[part], dict) else [(None, want[part])]):
-                x = got[part] if k is None else got[part][k]
-                if x.shape != w.shape or x.dtype != w.dtype or not torch.equal(x, w):
-                    raise AssertionError(f"K4 pixel differs from plain in {part}/{k} (T={num_stack})")
+        for store_next_obs, fields in ((False, data), (True, stored)):
+            got = rbm.gather_batch_aligned_cuda(fields, ep_id, s2, store_next_obs, IMAGE_KEYS,
+                                                num_stack)
+            want = rbm.gather_batch_aligned_plain(fields, ep_id, s2, store_next_obs, IMAGE_KEYS,
+                                                  num_stack)
+            torch.cuda.synchronize()
+            for part in want:
+                for k, w in (want[part].items() if isinstance(want[part], dict)
+                             else [(None, want[part])]):
+                    x = got[part] if k is None else got[part][k]
+                    if x.shape != w.shape or x.dtype != w.dtype or not torch.equal(x, w):
+                        raise AssertionError(f"K4 pixel differs from plain in {part}/{k} "
+                                             f"(T={num_stack}, store_next_obs={store_next_obs})")
+        del got, want
     raw = (s2[:, :, None] - torch.arange(2, -1, -1, device=device)) % slots
     clamped = int((ep_id[raw, stream[None, :, None]] != ep_id[s2, stream][..., None]).sum())
     boundary = int((ep_id[(s2 + 1) % slots, stream] != ep_id[s2, stream]).sum())
@@ -1625,7 +1683,9 @@ def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream, state_
         raise AssertionError("K4 pixel check sampled no clamped stack or no episode end")
     print(f"K4 pixel vs plain at {slots} slots x {streams} streams ({state_dim}-dim state, "
           f"{action_dim}-dim actions), {r * streams} rows of "
-          f"{PIXEL_SIZE} px frames, T = 1 and 3 ({clamped} clamped stack frames at T = 3, "
+          f"{PIXEL_SIZE} px frames, T = 1 and 3, next_observations stored (the quirk: their "
+          f"cameras stacked from the observations ring) and not ({clamped} clamped stack frames "
+          f"at T = 3, "
           f"{boundary} rows at an episode end): exactly equal")
     return 0.0
 
@@ -2428,7 +2488,7 @@ def phase_resnet_path(torch, device, card, resnet_checks):
     print("ResNet iteration, ms per call (median of 5 single calls between CUDA events, host "
           "launch time included): " + json.dumps({k: round(v, 4) for k, v in split.items()})
           + f" [{card}]")
-    print_busy_share(torch, "ResNet loop", run, card, ("K1", "K2", "K3", "K4", "K5"), iters=5)
+    print_busy_share(torch, "ResNet loop", run, card, ("K1", "K2", "K3", "K4", "K5"))
     return launches, dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best,
                           features=summary, split=split, ring=(rb, carry.rb_state, config))
 
@@ -2608,10 +2668,10 @@ def phase_k1_bin_vs_plain(torch, engine, checks, device) -> float:
             first = engine.control_step_cuda(s, walls)
             again = engine.control_step_cuda(s, walls)
             repeats = all(torch.equal(a, b) for a, b in zip(first, again))
-            if n > FWBW_K1_DP_N:  # a data-parallel rank's envs alone
-                part = engine.control_step_cuda(type(s)(*(x[:FWBW_K1_DP_N] for x in s)), walls)
-                repeats = repeats and all(torch.equal(a, b[:FWBW_K1_DP_N])
-                                          for a, b in zip(part, first))
+            for m in FWBW_K1_PREFIX_N:  # the first m envs alone
+                if n > m:
+                    part = engine.control_step_cuda(type(s)(*(x[:m] for x in s)), walls)
+                    repeats = repeats and all(torch.equal(a, b[:m]) for a, b in zip(part, first))
             none = engine.control_step_cuda(s)
             m0 = engine.control_step_cuda(s, walls[:0])
             before = engine.control_step_cuda(s, lib=noobs)
@@ -4126,8 +4186,8 @@ def phase_fwbw_path(torch, device, card, mode: str):
 # actor ASYNC_ACTOR_STEPS steps.
 ASYNC_EXAMPLES = {"state": "serl_tpu_torch.examples.async_sac_state_sim",
                   "pixels": "serl_tpu_torch.examples.async_drq_sim"}
-ASYNC_UPDATES = {"state": 300, "pixels": 60}
-ASYNC_ACTOR_STEPS = {"state": 4000, "pixels": 2500}
+ASYNC_UPDATES = {"state": 150, "pixels": 60}
+ASYNC_ACTOR_STEPS = {"state": 2500, "pixels": 2500}
 ASYNC_LOG_PERIOD = {"state": 100, "pixels": 20}
 ASYNC_DEFAULTS = {"state": dict(utd_ratio=8, training_starts=1000, batch_size=256),
                   "pixels": dict(utd_ratio=4, training_starts=1000, batch_size=256)}
@@ -4588,6 +4648,528 @@ def phase_dp_path(torch, device, card):
 
 
 
+# ---------------------------------------------------------------- the rest of the surface
+# phase_rest_paths (--rest runs it alone, after the builds and phase 2):
+#   (a) the frame stack at full width: make_drq_sim_experiment's defaults
+#       (128 envs, two 128 px cameras, the SmallEncoder, batch 256 x UTD 4,
+#       a 50,048-row ring) with a ring of REST_STACK-frame stacks; envs 0-2
+#       start at REST_STACK_ENDS, so their episodes end in the warm-up, and
+#       their histories are held to a host replay of chunk_push; past the
+#       gate REST_STACK_ITERS timed iterations, the ring's sampled stacks
+#       against K4's plain version on the same draws, one evaluate with the
+#       stack; then the data-parallel pixel program with the stack on
+#       DP_RANKS gloo ranks against the 1-rank run acting on a rank's rows,
+#       bit for bit before the first update;
+#   (b) the isolated fwbw program at FwBwConfig's defaults (8 envs a task,
+#       batch 256 x UTD 4, gates at 1,024 rows): past both gates,
+#       REST_FWBW_ITERS timed iterations, evaluate_chained on REST_FWBW_EVAL
+#       episodes; its layout on DP_RANKS gloo ranks, bit for bit with one
+#       rank while the actions are random (REST_FWBW_DP_SEGMENTS[0]);
+#   (c) the external actor (the gymnasium-free FrankaTaskGymBase, K1 at
+#       N = 1) and its learner as two processes over the transport; one
+#       render through the pick env's gym base, K2 at N = 1 against its
+#       plain version under tests/torch_k2.py's rule.
+REST_STACK = 3
+REST_STACK_ENDS = (95, 96, 97)
+REST_STACK_ITERS = 4
+REST_STACK_EVAL = 16
+# the pixel program's first update is in iteration 63: the first segment is
+# compared with one rank, the second takes the program through its update
+REST_STACK_DP_SEGMENTS = [8, 56]
+REST_FWBW_ITERS = 5
+REST_FWBW_EVAL = 16
+REST_FWBW_DP_SEGMENTS = [62, 66, 3]  # random actions to iteration 62, the gates at 127
+REST_EXT_ACTOR_STEPS = 600
+REST_EXT_RANDOM = 300
+REST_EXT_UPDATES = 60
+REST_EXT_TIMEOUT_S = 300
+REST_GYM_STEPS = 5
+# a chained env reset settles in 5 K1 launches (envs/tasks.py::SETTLE_STEPS)
+SETTLE = 5
+
+
+def _rest_equal(torch, got: dict, want: dict, what: str) -> None:
+    bad = [k for k in want if got[k].shape != want[k].shape or not torch.equal(got[k], want[k])]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{what}: differ in {bad or sorted(set(got) ^ set(want))}")
+
+
+def _rest_stack_part(torch, device, card) -> dict:
+    from serl_tpu_torch.data import replay_buffer as rbm
+    from serl_tpu_torch.envs.wrappers import ChunkState, chunk_init, chunk_push
+    from serl_tpu_torch.examples import dryrun_multichip as dm
+    from serl_tpu_torch.training.launcher import make_drq_sim_experiment
+    from serl_tpu_torch.training.loop import evaluate
+
+    env, agent, rb, config, init_fn, run_chunk = make_drq_sim_experiment(
+        seed=0, device=device, num_stack=REST_STACK)
+    keys, n = rb.image_keys, config.num_envs
+    carry = init_fn(agent, torch.Generator(device=device).manual_seed(15))
+    t0 = torch.zeros((n,), dtype=torch.int32, device=device)
+    t0[:len(REST_STACK_ENDS)] = torch.tensor(REST_STACK_ENDS, dtype=torch.int32)
+    carry = carry._replace(env_states=carry.env_states._replace(t=t0))
+    watched = len(REST_STACK_ENDS)
+    hist = chunk_init({k: carry.obs[k][:watched].cpu() for k in keys}, REST_STACK)
+    threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
+    gate = -(-threshold // n) - 1  # the first updating iteration
+    ends = 0
+    t_warm = time.perf_counter()
+    for _ in range(gate + 1):
+        before = carry.env_states.ep_id[:watched].clone()
+        carry, m = run_chunk(carry, 1)
+        done = (carry.env_states.ep_id[:watched] != before).cpu()
+        frames = {k: carry.obs[k][:watched].cpu() for k in keys}
+        pushed, fresh = chunk_push(hist, frames).frames, chunk_init(frames, REST_STACK).frames
+        hist = ChunkState({k: torch.where(done.reshape(-1, 1, 1, 1, 1), fresh[k], pushed[k])
+                           for k in keys})
+        ends += int(done.sum())
+        _rest_equal(torch, {k: carry.chunk.frames[k][:watched].cpu() for k in keys}, hist.frames,
+                    "the loop's frame-stack history against the host replay of chunk_push")
+    warm_s = time.perf_counter() - t_warm
+    if ends != watched:
+        raise AssertionError(f"frame stack: {ends} of the watched envs' episodes ended")
+    if float(m["critic_loss"][-1]) == 0.0:
+        raise AssertionError("frame stack: the learner did not start at its gate")
+    before_params = [p.detach().clone() for p in agent.parameters()]
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    carry, m = run_chunk(carry, REST_STACK_ITERS)
+    float(m["reward_mean"][-1])
+    iter_ms = 1e3 * (time.perf_counter() - t1) / REST_STACK_ITERS
+    launches = read_launches()
+    per_iter = pixel_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    want = {k: v * REST_STACK_ITERS for k, v in per_iter.items()}
+    if launches != want:
+        raise AssertionError(f"frame stack: launches {launches}, want {want}")
+    learner = [m[k] for k in ("critic_loss", "actor_loss", "temperature", "entropy")]
+    if not all(bool(torch.isfinite(v).all()) and bool((v != 0).all()) for v in learner):
+        raise AssertionError("frame stack: a learner metric is zero or not finite")
+    if any(torch.equal(p, q) for p, q in zip(agent.parameters(), before_params)):
+        raise AssertionError("frame stack: a parameter did not move")
+
+    # the ring's stacks: K4 against its plain version on the same draws,
+    # rows at the watched envs' second episodes' starts among them
+    ring = carry.rb_state
+    slots, streams = ring.ep_id.shape
+    g = torch.Generator(device=device).manual_seed(16)
+    rows = config.batch_size * config.utd_ratio // streams
+    u = torch.randint(0, ring.size - 1, (rows, streams), generator=g, device=device)
+    s2 = (ring.insert_slot - ring.size + u) % slots
+    starts = (ring.ep_id[1:ring.size, :watched] != ring.ep_id[:ring.size - 1, :watched]).to(
+        torch.int32).argmax(0) + 1
+    s2[0, :watched] = starts + 1
+    s2 = s2.contiguous()
+    got = rbm.gather_batch_aligned_cuda(ring.data, ring.ep_id, s2, False, keys, REST_STACK)
+    ref = rbm.gather_batch_aligned_plain(ring.data, ring.ep_id, s2, False, keys, REST_STACK)
+    torch.cuda.synchronize()
+    for part in ("observations", "next_observations"):
+        _rest_equal(torch, got[part], ref[part], f"frame stack: K4's sampled {part}")
+    raw = (s2[:, :, None] - torch.arange(REST_STACK - 1, -1, -1, device=device)) % slots
+    cols = torch.arange(streams, device=device)
+    clamped = int((ring.ep_id[raw, cols[None, :, None]] != ring.ep_id[s2, cols][..., None]).sum())
+    if clamped == 0:
+        raise AssertionError("frame stack: no sampled stack crossed an episode start")
+    reset_launches()
+    ev = evaluate(env, agent, torch.Generator(device=device).manual_seed(17),
+                  num_episodes=REST_STACK_EVAL, pixel_keys=keys, num_stack=REST_STACK)
+    eval_launches = read_launches()
+    steps = env.time_limit_steps
+    want_eval = {"control_step": steps, "render": 2 * (steps + 1), "random_crop": 0,
+                 "replay_gather": 0, "dense_layer_norm_tanh_fwd": 5 * steps,
+                 "dense_layer_norm_tanh_bwd": 0}
+    if eval_launches != want_eval or not all(math.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"frame-stack evaluate: {ev}, launches {eval_launches} (want "
+                             f"{want_eval})")
+    print(f"rest (a) frame stack (make_drq_sim_experiment's defaults, {n} envs, T = "
+          f"{REST_STACK}): {gate + 1} warm-up iterations ({warm_s:.1f} s), the watched envs' "
+          f"histories equal the host replay of chunk_push across {ends} episode ends; "
+          f"{REST_STACK_ITERS} iterations at {iter_ms:.2f} ms each (host clock ending in a "
+          f"sync), launches {json.dumps(launches)} as derived; K4's {rows * streams} sampled "
+          f"stacks ({clamped} clamped frames) equal its plain version; evaluate "
+          f"({REST_STACK_EVAL} episodes) {json.dumps(ev)}, launches as derived [{card}]")
+    del carry, ring, got, ref
+    torch.cuda.empty_cache()
+
+    # the data-parallel pixel program with the stack, against one rank
+    # acting on a rank's rows
+    dpc = load_checks("torch_dp")
+    snaps = {k: tempfile.mkdtemp(prefix=f"chip_smoke_stack_{k}_") for k in ("two", "one")}
+    act_rows = dm.pixel_config(DP_RANKS, True)["num_envs"] // DP_RANKS
+    try:
+        kw = dict(segments=REST_STACK_DP_SEGMENTS, overrides=dict(num_stack=REST_STACK))
+        t2 = time.perf_counter()
+        ranks = [r[0] for r in dm.launch(dm.Programs(["pixels"], device.type, True, pixels=dict(
+            kw, snapshot_dir=snaps["two"])), DP_RANKS, device.type, "gloo", timeout_s=600)]
+        dp_s = time.perf_counter() - t2
+        one = dm.run_program("pixels", None, device, DP_RANKS, True, snapshot_dir=snaps["one"],
+                             act_rows=act_rows, **kw)
+        two = dpc.merge_snapshots([os.path.join(snaps["two"], f"pixels_r{r}_s0.pt")
+                                   for r in range(DP_RANKS)])
+        ref1 = torch.load(os.path.join(snaps["one"], "pixels_r0_s0.pt"), weights_only=False)
+    finally:
+        for d in snaps.values():
+            shutil.rmtree(d, ignore_errors=True)
+    diffs = {"env": dpc.max_abs_diff(two["env"], ref1["env"]),
+             "ring": dpc.max_abs_diff(two["rings"]["rb_state"], ref1["rings"]["rb_state"]),
+             "agent": dpc.max_abs_diff(two["agents"][0], ref1["agents"][0])}
+    iters = sum(REST_STACK_DP_SEGMENTS)
+    print(f"rest (a) frame stack on {DP_RANKS} gloo ranks (bench_pixels' program, T = "
+          f"{REST_STACK}, {iters} iterations, the first update in iteration "
+          f"{ranks[0]['gate_iter']}): chunks "
+          f"{[tuple(v.shape) for k, v in two['env'].items() if k.startswith('/chunk')]}; max abs "
+          f"differences against one rank acting on {act_rows} rows a call after "
+          f"{REST_STACK_DP_SEGMENTS[0]} iterations {json.dumps(diffs)}; digests equal "
+          f"{len({r['digest'] for r in ranks}) == 1}; launches per rank "
+          f"{json.dumps(ranks[0]['launches'])} ({dp_s:.1f} s for the ranks)")
+    if any(diffs.values()) or not two["agents_equal"] or len({r["digest"] for r in ranks}) != 1:
+        fields = {k: v for k, v in dpc.field_diffs(two["env"], ref1["env"]).items() if v}
+        raise AssertionError(f"frame stack on {DP_RANKS} ranks differs from one rank: {diffs}; "
+                             f"env fields {fields}")
+    if not any(k.startswith("/chunk") for k in two["env"]):
+        raise AssertionError("frame stack on the ranks: the carry holds no history")
+    for r in ranks:
+        _dp_check_counts("rest stack", "pixels", r)
+    check_k5_shapes({tuple(s) for r in ranks + [one] for s in r["k5_shapes"]})
+    return {"launches": launches, "per_iter": per_iter, "eval": eval_launches,
+            "dp_rank": ranks[0]["launches"], "iter_ms": iter_ms, "eval_result": ev,
+            "dp_diffs": diffs}
+
+
+# The isolated fwbw program on 2 ranks against one rank, while it acts at
+# random: the physics state, clocks, episode ids, the ring's actions, dones,
+# masks and ids, and both learners bit for bit; the observations (and the
+# rewards and returns read from them) within REST_FWBW_OBS_ATOL, their
+# Euler angles modulo 2 pi. The bin task's observation is the tcp pose by
+# plain-torch forward kinematics, rotation matrix to quaternion to Euler
+# angles at the roll's +-pi flip, and on the card its rounding depends on
+# the batch: with the physics equal bit for bit, a task's 4 rows on a rank
+# and its 8 rows on one differ by 5.2e-6 after one iteration and 2.4e-4
+# after 62 (NVIDIA H100 80GB HBM3, 700.00 W; on the CPU they are equal bit
+# for bit, tests/test_torch_fwbw_isolated.py).
+REST_FWBW_OBS_ATOL = 1e-3
+FWBW_ANGLES = slice(7, 10)  # the Euler angles in the bin task's flat observation
+FWBW_READ_FIELDS = ("/obs", "/observations", "/next_observations", "/rewards", "/ep_return")
+
+
+def _fwbw_dp_rule(torch, dpc, two: dict, one: dict):
+    """(the fields that differ, with their max abs difference; those beyond
+    the rule above)."""
+    def diff(a, b, key):
+        if a.shape != b.shape:
+            return float("inf")
+        if a.dtype.is_floating_point and a.shape[-1:] == (13,):
+            d = (a - b).abs()
+            ang = d[..., FWBW_ANGLES].double()
+            d[..., FWBW_ANGLES] = ((ang + math.pi) % (2 * math.pi) - math.pi).abs().float()
+            return float(d.max()) if d.numel() else 0.0
+        return dpc.field_diffs({key: a}, {key: b})[key]
+
+    diffs, bad = {}, []
+    parts = [("env", two["env"], one["env"])] + [(f"ring {t}", two["rings"][t], one["rings"][t])
+                                                 for t in ("fw", "bw")]
+    for where, a, b in parts:
+        for key in b:
+            d = diff(a[key], b[key], key)
+            if d:
+                diffs[f"{where}{key}"] = float(f"{d:.3g}")
+                read = key.endswith(FWBW_READ_FIELDS)
+                if not read or d > REST_FWBW_OBS_ATOL:
+                    bad.append(f"{where}{key}")
+    for i, (a, b) in enumerate(zip(two["agents"], one["agents"])):
+        if dpc.max_abs_diff(a, b):
+            bad.append(f"agent {i}")
+    return diffs, bad
+
+
+def _fwbw_iso_per_iter(config, acting: bool, updating: int) -> dict:
+    """An isolated fwbw iteration's launches: per task a step (K1) and
+    every env's settled candidate reset (5 K1), the policy's 2 K5 forwards
+    when acting; per updating task one sample (K4) and the state learner's
+    update_high_utd (learner_launches_per_iter without acting)."""
+    per = learner_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    return {"control_step": 2 * (1 + SETTLE), "render": 0, "random_crop": 0,
+            "replay_gather": updating * per["replay_gather"],
+            "dense_layer_norm_tanh_fwd": 2 * 2 * acting
+            + updating * (per["dense_layer_norm_tanh_fwd"] - 2),
+            "dense_layer_norm_tanh_bwd": updating * per["dense_layer_norm_tanh_bwd"]}
+
+
+def _rest_fwbw_part(torch, device, card) -> dict:
+    from serl_tpu_torch.training.fwbw import FwBwConfig, evaluate_chained
+
+    dpc = _torch_dp_importable()
+    config = FwBwConfig()
+    n = config.envs_per_task
+    fw_env, bw_env, rb, agents, carry, run_chunk = dpc.fwbw_isolated(device, config)
+    gate = -(-max(config.training_starts, config.batch_size * config.utd_ratio) // n) - 1
+    t0 = time.perf_counter()
+    carry, m = run_chunk(carry, gate)
+    warm_s = time.perf_counter() - t0
+    if float(m["fw/critic_loss"].abs().sum() + m["bw/critic_loss"].abs().sum()) != 0.0:
+        raise AssertionError("isolated fwbw: a learner updated before its gate")
+    before = [[p.detach().clone() for p in a.parameters()] for a in agents]
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    carry, m = run_chunk(carry, REST_FWBW_ITERS)
+    float(m["fw/reward_mean"][-1])
+    seconds = time.perf_counter() - t1
+    launches = read_launches()
+    per_iter = _fwbw_iso_per_iter(config, True, 2)
+    want = {k: v * REST_FWBW_ITERS for k, v in per_iter.items()}
+    if launches != want:
+        raise AssertionError(f"isolated fwbw: launches {launches}, want {want}")
+    losses = torch.cat([m[f"{t}/critic_loss"] for t in ("fw", "bw")])
+    if not bool(torch.isfinite(losses).all()) or not bool((losses != 0).all()):
+        raise AssertionError(f"isolated fwbw: critic losses {losses.tolist()}")
+    if any(torch.equal(p, q) for a, b in zip(agents, before) for p, q in zip(a.parameters(), b)):
+        raise AssertionError("isolated fwbw: a parameter did not move")
+    env_steps_s = REST_FWBW_ITERS * 2 * n / seconds
+    reset_launches()
+    t2 = time.perf_counter()
+    ev = evaluate_chained(fw_env, bw_env, *agents, torch.Generator(device=device).manual_seed(18),
+                          num_episodes=REST_FWBW_EVAL)
+    eval_s = time.perf_counter() - t2
+    eval_launches = read_launches()
+    steps = fw_env.time_limit_steps
+    want_eval = {"control_step": 2 * SETTLE + 3 * steps, "render": 0, "random_crop": 0,
+                 "replay_gather": 0, "dense_layer_norm_tanh_fwd": 2 * 3 * steps,
+                 "dense_layer_norm_tanh_bwd": 0}
+    if eval_launches != want_eval or not all(0.0 <= v <= 1.0 for v in ev.values()):
+        raise AssertionError(f"evaluate_chained: {ev}, launches {eval_launches} (want "
+                             f"{want_eval})")
+    print(f"rest (b) isolated fwbw (FwBwConfig's defaults: {n} envs a task, batch "
+          f"{config.batch_size} x UTD {config.utd_ratio}): {gate} warm-up iterations "
+          f"({warm_s:.1f} s), then {REST_FWBW_ITERS} updating iterations at "
+          f"{env_steps_s:.1f} env-steps/s (host clock ending in a sync), launches "
+          f"{json.dumps(launches)} as derived; critic losses fw "
+          f"{float(m['fw/critic_loss'][-1]):.4g}, bw {float(m['bw/critic_loss'][-1]):.4g}; "
+          f"evaluate_chained ({REST_FWBW_EVAL} episodes, {eval_s:.1f} s) {json.dumps(ev)}, "
+          f"launches as derived [{card}]")
+    del carry
+    torch.cuda.empty_cache()
+
+    # the layout on DP_RANKS gloo ranks against one rank
+    snaps = {k: tempfile.mkdtemp(prefix=f"chip_smoke_fwbw_iso_{k}_") for k in ("two", "one")}
+    try:
+        t3 = time.perf_counter()
+        ranks = dm_launch(dpc.FwbwIsolatedRun(config, REST_FWBW_DP_SEGMENTS, snaps["two"]),
+                          device.type)
+        dp_s = time.perf_counter() - t3
+        dpc.run_fwbw_isolated(None, device, config, REST_FWBW_DP_SEGMENTS[:1], snaps["one"])
+        two = dpc.merge_snapshots([os.path.join(snaps["two"], f"fwbw_isolated_r{r}_s0.pt")
+                                   for r in range(DP_RANKS)])
+        ref1 = torch.load(os.path.join(snaps["one"], "fwbw_isolated_r0_s0.pt"),
+                          weights_only=False)
+    finally:
+        for d in snaps.values():
+            shutil.rmtree(d, ignore_errors=True)
+    diffs, bad = _fwbw_dp_rule(torch, dpc, two, ref1)
+    iters = sum(REST_FWBW_DP_SEGMENTS)
+    acting = sum(1 for i in range(iters) if i * 2 * n >= config.random_steps)
+    updating = iters - gate
+    per = learner_launches_per_iter(config.utd_ratio, config.updates_per_iter)
+    want_rank = {"control_step": 2 * (1 + SETTLE) * iters, "render": 0, "random_crop": 0,
+                 "replay_gather": 2 * updating * per["replay_gather"],
+                 "dense_layer_norm_tanh_fwd": 2 * 2 * acting
+                 + 2 * updating * (per["dense_layer_norm_tanh_fwd"] - 2),
+                 "dense_layer_norm_tanh_bwd": 2 * updating * per["dense_layer_norm_tanh_bwd"]}
+    want_coll = {"all_reduce": 2 * iters + 2 * updating * (config.utd_ratio + 2),
+                 "all_to_all": 2 * updating, "all_gather": len(REST_FWBW_DP_SEGMENTS)}
+    print(f"rest (b) isolated fwbw on {DP_RANKS} gloo ranks ({iters} iterations, the gates at "
+          f"{gate}): against one rank after {REST_FWBW_DP_SEGMENTS[0]} iterations (random "
+          f"actions), the fields that differ (max abs; Euler angles modulo 2 pi) "
+          f"{json.dumps(diffs)}, beyond the rule {bad}; digests "
+          f"equal {len({r['digest'] for r in ranks}) == 1}; launches per rank "
+          f"{json.dumps(ranks[0]['launches'])}, collectives "
+          f"{json.dumps({k: v['calls'] for k, v in ranks[0]['collectives'].items()})} "
+          f"({dp_s:.1f} s for the ranks)")
+    if bad or not two["agents_equal"] or len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError(f"isolated fwbw on {DP_RANKS} ranks differs from one rank: {bad}")
+    for r in ranks:
+        coll = {k: v["calls"] for k, v in r["collectives"].items()}
+        if r["launches"] != want_rank or coll != want_coll:
+            raise AssertionError(f"isolated fwbw rank {r['rank']}: launches {r['launches']} "
+                                 f"(want {want_rank}), collectives {coll} (want {want_coll})")
+        if min(r["agent_steps"]) <= 0:
+            raise AssertionError("isolated fwbw on the ranks: a learner never stepped")
+    return {"launches": launches, "per_iter": per_iter, "eval": eval_launches,
+            "dp_rank": ranks[0]["launches"], "env_steps_s": env_steps_s, "eval_result": ev,
+            "dp_diffs": diffs}
+
+
+def _torch_dp_importable():
+    """tests/torch_dp.py imported as `torch_dp`, with tests/ on sys.path: the
+    spawned ranks unpickle its tasks by that name (spawn hands them the
+    parent's sys.path)."""
+    tests_dir = os.path.join(HERE, "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    return importlib.import_module("torch_dp")
+
+
+def dm_launch(task, device: str = "cuda"):
+    """`task` on DP_RANKS gloo ranks sharing the card; their results by rank."""
+    from serl_tpu_torch.examples import dryrun_multichip as dm
+
+    return dm.launch(task, DP_RANKS, device, "gloo", timeout_s=600)
+
+
+# the gymnasium-free actor of examples/external_gym_actor.py, as a process
+EXTERNAL_ACTOR = """
+import sys
+import numpy as np
+from serl_tpu_torch.envs.gym_adapter import FrankaTaskGymBase
+from serl_tpu_torch.examples import external_gym_actor
+rng = np.random.default_rng(0)
+external_gym_actor.main(sys.argv[1:], env=FrankaTaskGymBase(seed=0, device="cuda"),
+                        random_action=lambda: rng.uniform(-1, 1, 7).astype(np.float32))
+"""
+
+
+def _rest_external_part(torch, card, logdir: str) -> dict:
+    """The external actor and its learner as two processes on the card."""
+    module = "serl_tpu_torch.examples.external_gym_actor"
+    env = dict(os.environ)
+    procs, logs = {}, {role: os.path.join(logdir, f"external_{role}.log")
+                       for role in ("learner", "actor")}
+    try:
+        port = _free_port_pair(17488)
+        common = ["--port", str(port), "--diagnostics"]
+        t0 = time.perf_counter()
+        procs["learner"] = subprocess.Popen(
+            [sys.executable, "-m", module, "--learner", "--max_steps", str(REST_EXT_UPDATES),
+             *common], stdout=open(logs["learner"], "w"),
+            stderr=subprocess.STDOUT, cwd=HERE, env=env)
+        procs["actor"] = subprocess.Popen(
+            [sys.executable, "-c", EXTERNAL_ACTOR, "--actor", "--max_steps",
+             str(REST_EXT_ACTOR_STEPS), "--random_steps", str(REST_EXT_RANDOM), *common],
+            stdout=open(logs["actor"], "w"), stderr=subprocess.STDOUT,
+            cwd=HERE, env=env)
+        rcs = {}
+        for role in ("actor", "learner"):
+            try:
+                rcs[role] = procs[role].wait(
+                    timeout=max(1.0, t0 + REST_EXT_TIMEOUT_S - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"the external {role} did not end within "
+                                     f"{REST_EXT_TIMEOUT_S} s:\n" + open(logs[role]).read()[-3000:])
+        seconds = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {role: open(path).read() for role, path in logs.items()}
+    for role, rc in rcs.items():
+        if rc != 0:
+            raise AssertionError(f"the external {role} exited {rc}:\n{out[role][-4000:]}")
+    learner, actor = _summary_line(out["learner"], "learner"), _summary_line(out["actor"], "actor")
+    episodes = actor["episodes"]
+    want_actor = {"control_step": actor["steps"] + SETTLE * (1 + episodes), "render": 0,
+                  "random_crop": 0, "replay_gather": 0,
+                  "dense_layer_norm_tanh_fwd": 2 * (actor["steps"] - REST_EXT_RANDOM),
+                  "dense_layer_norm_tanh_bwd": 0}
+    per_update = async_learner_launches_per_update("state", learner["utd_ratio"])
+    want_learner = {k: v * learner["updates"] for k, v in per_update.items()}
+    print(f"rest (c) external actor (FrankaTaskGymBase on cuda, no gymnasium) and learner: "
+          f"actor {actor['steps']} steps at {actor['env_steps_s']:.1f} env-steps/s "
+          f"({actor['env_steps_s_policy']:.1f} over its policy steps), {episodes} episodes, "
+          f"{actor['versions_received']} versions received, {actor['versions_loaded']} loaded; "
+          f"learner {learner['updates']} updates (batch {learner['batch_size']} x UTD "
+          f"{learner['utd_ratio']}) at {learner['updates_s']:.2f} updates/s, ring "
+          f"{learner['ring_at_start']} at its first update, {learner['publishes']} publishes, "
+          f"critic loss {learner['critic_loss_first']:.4f} -> {learner['critic_loss_last']:.4f}; "
+          f"{seconds:.1f} s for the pair; launches: actor {json.dumps(actor['launches'])}, "
+          f"learner {json.dumps(learner['launches'])} [{card}]")
+    gates = {"ring reached training_starts":
+             learner["ring_at_start"] >= learner["training_starts"],
+             "critic losses finite": learner["critic_loss_finite"],
+             "actor loaded a published version": actor["versions_loaded"] >= 1,
+             "actor launches": actor["launches"] == want_actor,
+             "learner launches": learner["launches"] == want_learner}
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        raise AssertionError(f"external actor gates failed: {bad}; actor launches "
+                             f"{actor['launches']} (want {want_actor}), learner "
+                             f"{learner['launches']} (want {want_learner})")
+    check_k5_shapes({tuple(x) for x in actor["k5_shapes"] + learner["k5_shapes"]})
+    return {"actor": actor, "learner": learner, "launches_actor": actor["launches"],
+            "launches_learner": learner["launches"],
+            "per_step_actor": {k: v / actor["steps"] for k, v in want_actor.items()},
+            "per_update_learner": per_update}
+
+
+def _rest_gym_render(torch, device, card) -> dict:
+    """K2 at N = 1 through the pick env's gym base, against its plain version."""
+    import numpy as np
+
+    from serl_tpu_torch.envs import rendering
+    from serl_tpu_torch.envs.gym_adapter import PandaPickCubeGymBase
+
+    k2 = load_checks("torch_k2")
+    base = PandaPickCubeGymBase(seed=0, device=device)
+    base.reset(seed=0)
+    rng = np.random.default_rng(0)
+    for _ in range(REST_GYM_STEPS):
+        base.step(rng.uniform(-1, 1, 4).astype(np.float32))
+    reset_launches()
+    frames = base.render()
+    launches = read_launches()
+    want = rendering.render_cameras_plain(base._state.physics, base.render_size)
+    ids = k2.surface_ids(base._state.physics, base.render_size)
+    for cam, got, w, i in zip(IMAGE_KEYS, frames, want, ids):
+        failures, summary = k2.pixel_rule(torch.from_numpy(got)[None].to(device), w, i)
+        print(f"rest (c) the pick gym base's render (K2 at N = 1), {cam}, after "
+              f"{REST_GYM_STEPS} steps: {json.dumps(summary)}")
+        if failures:
+            raise AssertionError(f"the gym base's render, {cam}: " + "; ".join(failures))
+    if launches != {**_zero_launches(), "render": 2}:
+        raise AssertionError(f"the gym base's render launched {launches}")
+    return {"launches": launches}
+
+
+def phase_rest_paths(torch, device, card) -> dict:
+    """The frame stack, the isolated fwbw program, the external actor and the
+    gym base (see REST_STACK's comment); every part fatal on failure.
+    Returns each part's launches and readings."""
+    seconds, out = {}, {}
+    t = time.perf_counter()
+    out["stack"] = _rest_stack_part(torch, device, card)
+    seconds["stack"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["fwbw"] = _rest_fwbw_part(torch, device, card)
+    seconds["fwbw_isolated"] = time.perf_counter() - t
+    t = time.perf_counter()
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_external_")
+    try:
+        out["external"] = _rest_external_part(torch, card, logdir)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    out["render"] = _rest_gym_render(torch, device, card)
+    seconds["external_and_render"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    print(f"rest phase seconds (host clock): {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return out
+
+
+def rest_launches(rest: dict) -> tuple:
+    """(launches by path, per-iteration launches by path) of the rest phase,
+    for the kernel table."""
+    s, f, e = rest["stack"], rest["fwbw"], rest["external"]
+    launches = {"rest_stack": s["launches"], "rest_stack_eval": s["eval"],
+                "rest_dp_stack": s["dp_rank"], "rest_fwbw_isolated": f["launches"],
+                "rest_evaluate_chained": f["eval"], "rest_dp_fwbw_isolated": f["dp_rank"],
+                "rest_external_actor": e["launches_actor"],
+                "rest_external_learner": e["launches_learner"],
+                "rest_gym_render": rest["render"]["launches"]}
+    per_iter = {"rest_stack": s["per_iter"], "rest_fwbw_isolated": f["per_iter"],
+                "rest_external_actor": e["per_step_actor"],
+                "rest_external_learner": e["per_update_learner"]}
+    return launches, per_iter
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -4683,15 +5265,16 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
             "shape": k5_label(K5_MAIN),
             "errors": errs["K5"],
             "by_shape": {k5_label(shape): k5rows[(direction, shape)] for shape in K5_SHAPES
-                         if shape not in K5_DP_SHAPES},
+                         if shape not in K5_UNTIMED},
         })
     return kernels
 
 
-def main(kernels_only: bool = False, gc_only: bool = False) -> int:
+def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = False) -> int:
     """The whole run; with `kernels_only` (--kernels) phases 1 and 2 and K5's
     times only, with `gc_only` (--gc) phase 1, K5 held and timed at the GC
-    phase's shapes and the GC phase; neither prints the result lines."""
+    phase's shapes and the GC phase, with `rest_only` (--rest) phases 1 and 2
+    and the rest phase (phase_rest_paths); none prints the result lines."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4792,6 +5375,11 @@ def main(kernels_only: bool = False, gc_only: bool = False) -> int:
             "K4 pixel": max(phase_k4_pixel_vs_plain(torch, device),
                             phase_k4_copy_paths_vs_plain(torch, device)),
             "K5": phase_k5_vs_plain(torch, k5_checks, device)}
+    if rest_only:
+        phase_rest_paths(torch, device, card)
+        print(f"--rest: every kernel held against its plain version, then the rest phase; "
+              f"{time.perf_counter() - t0:.1f} s from the first build")
+        return 0
     if kernels_only:
         phase_k5_times(torch, k5_checks, device, card)
         print(f"--kernels: every kernel built and held against its plain version; "
@@ -4853,6 +5441,10 @@ def main(kernels_only: bool = False, gc_only: bool = False) -> int:
     t_new = time.perf_counter()
     dp_launches, dp_info = phase_dp_path(torch, device, card)
     new_s["data_parallel"] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    rest = phase_rest_paths(torch, device, card)
+    new_s["rest"] = time.perf_counter() - t_new
+    rest_by_path, rest_per_iter = rest_launches(rest)
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -4889,7 +5481,9 @@ def main(kernels_only: bool = False, gc_only: bool = False) -> int:
                 **{f"async_{m}_actor": a["per_step_actor"] for m, a in asyncs.items()},
                 **{f"async_{m}_learner": a["per_update_learner"] for m, a in asyncs.items()},
                 # the data-parallel paths: a rank's whole path (rank 0's; every rank's equal)
-                **dp_launches}
+                **dp_launches,
+                # the rest phase: per timed iteration, actor step, learner update
+                **rest_per_iter}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
@@ -4900,7 +5494,7 @@ def main(kernels_only: bool = False, gc_only: bool = False) -> int:
                             **{f"fwbw_{m}": fwbw[m][0] for m in fwbw},
                             **{f"async_{m}_actor": a["launches_actor"] for m, a in asyncs.items()},
                             **{f"async_{m}_learner": a["launches_learner"]
-                               for m, a in asyncs.items()}, **dp_launches},
+                               for m, a in asyncs.items()}, **dp_launches, **rest_by_path},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
@@ -4954,8 +5548,14 @@ def main(kernels_only: bool = False, gc_only: bool = False) -> int:
     print(f"GC: a GC env step {gc_info['gc_env']['gc_step_ms']:.3f} ms against the bare env's "
           f"{gc_info['gc_env']['bare_step_ms']:.3f} ms; parts' seconds "
           f"{json.dumps({k: round(v, 2) for k, v in gc_info['seconds'].items()})} [{card}]")
+    print(f"rest: frame stack {rest['stack']['iter_ms']:.2f} ms an iteration, evaluate "
+          f"{json.dumps(rest['stack']['eval_result'])}; isolated fwbw "
+          f"{rest['fwbw']['env_steps_s']:.1f} env-steps/s, evaluate_chained "
+          f"{json.dumps(rest['fwbw']['eval_result'])}; external actor "
+          f"{rest['external']['actor']['env_steps_s']:.1f} env-steps/s, learner "
+          f"{rest['external']['learner']['updates_s']:.2f} updates/s [{card}]")
     print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, GC, fwbw, two-process, "
-          "data-parallel and timing phases' "
+          "data-parallel, rest and timing phases' "
           "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
@@ -4977,7 +5577,7 @@ if __name__ == "__main__":
             code = dp_state_main()
         else:
             code = main(kernels_only=sys.argv[1:] == ["--kernels"],
-                        gc_only=sys.argv[1:] == ["--gc"])
+                        gc_only=sys.argv[1:] == ["--gc"], rest_only=sys.argv[1:] == ["--rest"])
     except Exception as exc:  # every phase failure ends the run with no result line
         import traceback
 

@@ -164,6 +164,30 @@ class DrQAgent(SACAgent):
         batch = self._augment_batch(batch, offsets)
         return SACAgent.update_high_utd(self, batch, utd_ratio=utd_ratio, draws=draws["updates"])
 
+    def critic_draws(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict:
+        """The draws of one `update_critics` of `batch`: {"augment": crop
+        offsets (see `augment_draws`), "update": SAC's critic update draws}."""
+        return {"augment": self.augment_draws(batch, generator) if self.config.augment else {},
+                "update": self.update_draws(batch["rewards"].shape[0], frozenset({"critic"}),
+                                            generator)}
+
+    def update_critics(self, batch: Dict, *, draws: Optional[Dict] = None,
+                       generator: Optional[torch.Generator] = None):
+        """A critic-only update of the augmented batch (the other groups step
+        with zero gradients, as in `update`); returns (self, info) without
+        the actor's and temperature's entries. `draws` as `critic_draws`."""
+        if draws is None:
+            draws = self.critic_draws(batch, generator)
+        batch = self._augment_batch(batch, draws["augment"])
+        return self._critic_update(batch, draws["update"])
+
+    def _critic_update(self, batch: Dict, draws: Dict):
+        _, info = SACAgent.update(self, batch, networks_to_update=frozenset({"critic"}),
+                                  draws=draws)
+        info.pop("actor", None)
+        info.pop("temperature", None)
+        return self, info
+
     @classmethod
     def create_drq(
         cls,

@@ -31,9 +31,8 @@ The JAX package's quirks, ported as they are:
 Draws are explicit: `vice_draws` makes them (crop offsets, the mixup weight
 `lam` (JAX's Beta(1, 1), a uniform), the permutation, the penalty's `eps`,
 and the head's two dropout masks, (n, 256) for the mixed pass and (n/2, 256)
-for the penalty pass), and the tests feed the JAX package's.
-
-Not ported yet, and raising: `update_critics` (nothing calls it).
+for the penalty pass), and the tests feed the JAX package's. `update_critics` is DrQ's
+critic-only update on the classifier's rewards.
 """
 
 from __future__ import annotations
@@ -200,8 +199,16 @@ class VICEAgent(DrQAgent):
         info["vice_rewards"] = rewards.mean()
         return self, info
 
-    def update_critics(self, *args, **kwargs):
-        raise NotImplementedError("VICEAgent.update_critics is not ported yet (nothing calls it)")
+    def update_critics(self, batch: Dict, *, draws: Optional[Dict] = None,
+                       generator: Optional[torch.Generator] = None):
+        """DrQ's critic-only update with the rewards replaced by the
+        classifier's sigmoid >= 0.5 on the cropped next_observations;
+        `draws` as `critic_draws`."""
+        if draws is None:
+            draws = self.critic_draws(batch, generator)
+        batch = dict(self._augment_batch(batch, draws["augment"]))
+        batch["rewards"] = self._vice_rewards_for(batch["next_observations"])
+        return self._critic_update(batch, draws["update"])
 
     # ------------------------------------------------------------------ #
 

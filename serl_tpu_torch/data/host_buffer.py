@@ -143,7 +143,9 @@ class ReplayBufferDataStore(HostReplayBuffer):
     """Thread-safe buffer implementing the server-side DataStore protocol:
     inserts under a lock with a monotonically increasing id (reference
     data_store.py:26-80). `rlds_logger`, if given, is any object with
-    `log_transition(transition)`."""
+    `log_transition(transition)`, such as `data/trajectory_log.py::
+    TrajectoryLogger`; `data/rlds.py::populate_from_rlds` preloads a store
+    from an RLDS file."""
 
     def __init__(self, example_transition: Dict, capacity: int, rlds_logger=None):
         super().__init__(example_transition, capacity)

@@ -29,9 +29,12 @@ counting its launches in `gather_batch_aligned.launches`.
 The demo path: `init_from_episodes` turns episode-major transitions into a
 full, write-once ring with one stream per episode; `sample_mixed` draws
 RLPD's half-demo batches with the two halves' rows interleaved;
-`load_transitions` preloads rows into an existing ring. Image keys with
-stored next_observations raise: the JAX package stacks those from the
-observations ring, a quirk nothing on the path reaches.
+`load_transitions` preloads rows into an existing ring.
+
+A ring that stores next_observations with image keys keeps the JAX
+package's quirk: a sample's next_observations take the stored "state" but
+their cameras are the observations ring's frame stack at the row's own
+slot (the stored next frames are never read), in both samplers and in K4.
 """
 
 from __future__ import annotations
@@ -186,8 +189,6 @@ class ReplayBuffer:
         global batch, which must divide over all ranks' streams: `u` is
         drawn (or given) at its global shape and the rank gathers its own
         columns through K4, its block of the global stream-major batch."""
-        if self.image_keys and self.store_next_obs:
-            raise NotImplementedError("image keys with stored next_observations are not ported")
         slots, streams = state.ep_id.shape
         if dp is not None or batch_size % streams == 0:
             return self._sample_aligned(state, batch_size, generator, u, dp)
@@ -207,6 +208,9 @@ class ReplayBuffer:
             out["next_observations"] = _map(lambda v: v[safe_nxt, e], state.data["observations"])
             if isinstance(out["next_observations"], dict):
                 out["next_observations"].update(self._stack_obs(state, safe_nxt, e))
+        elif isinstance(out["next_observations"], dict):
+            # the quirk: stacks from the observations ring at the row itself
+            out["next_observations"].update(self._stack_obs(state, s, e))
         if isinstance(out["observations"], dict):
             out["observations"].update(self._stack_obs(state, s, e))
         return out
@@ -301,7 +305,9 @@ def gather_batch_aligned_plain(data: Dict, ep_id: torch.Tensor, s2: torch.Tensor
     """Rows (s2[r, j], j) of every (slots, streams, ...) field, stream-major:
     out[j * R + r]. Without stored next_observations, next_observations is
     observations at the successor slot, or at s2 across an episode boundary.
-    Image keys of dict observations get (rows, T, ...) frame stacks."""
+    Image keys of dict observations get (rows, T, ...) frame stacks; with
+    stored next_observations their image keys are the observations' stacks
+    at s2 (the JAX package's quirk)."""
     slots, streams = ep_id.shape
     rows = s2.shape[0] * streams
     cols = torch.arange(streams, device=s2.device)
@@ -323,6 +329,8 @@ def gather_batch_aligned_plain(data: Dict, ep_id: torch.Tensor, s2: torch.Tensor
         out["next_observations"] = _map(lambda v: gather(v, safe_nxt), data["observations"])
         if isinstance(out["next_observations"], dict):
             out["next_observations"].update(stack(safe_nxt))
+    elif isinstance(out["next_observations"], dict):
+        out["next_observations"].update(stack(s2))
     if isinstance(out["observations"], dict):
         out["observations"].update(stack(s2))
     return out
@@ -374,6 +382,11 @@ def gather_batch_aligned_cuda(data: Dict, ep_id: torch.Tensor, s2: torch.Tensor,
         jobs.append((path, buf, successor, stacked))
 
     for k, v in data.items():
+        if k == "next_observations" and isinstance(v, dict):
+            # the quirk: stored next_observations' cameras are stacked from
+            # the observations ring at the row's own slot
+            v = {key: data["observations"][key] if key in image_keys else x
+                 for key, x in v.items()}
         add((k,), v, 0)
     if not store_next_obs:
         add(("next_observations",), data["observations"], 1)

@@ -90,8 +90,6 @@ class RoutedReplayBuffer(ReplayBuffer):
         their cursors: the uniform (or `u`) is taken at the global (R, all
         ranks' streams) shape, the rank's columns are scaled by its streams'
         sizes, and the rank gathers its block of the global batch."""
-        if self.image_keys and self.store_next_obs:
-            raise NotImplementedError("image keys with stored next_observations are not ported")
         slots, streams = state.ep_id.shape
         total = streams * num_ranks(dp)
         if batch_size % total != 0:

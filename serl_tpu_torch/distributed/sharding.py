@@ -39,9 +39,9 @@ all_gather, all_to_all_single) run on CUDA tensors under both backends
 hand. With gloo on CUDA tensors each collective waits for the device;
 under NCCL it is queued on the stream.
 
-Left out: the isolated fwbw program's layout (`fwbw_carry_shardings`,
-`shard_fwbw_carry`, `FWBW_CARRY_SPEC`, `TASK_CARRY_SPEC`), whose program
-the port does not have.
+The isolated fwbw program (`training/fwbw.py::make_fwbw_loop`) is laid out
+per task: each task's envs and ring streams split as the loop's are, both
+agents replicated (`fwbw_carry_layout`, `shard_fwbw_carry`).
 """
 
 from __future__ import annotations
@@ -91,6 +91,28 @@ BUFFER_STATE_SPEC = {
     "insert_slot": "rep",
     "size": "rep",
     "ep_id": "buffer_data",
+}
+
+# TaskCarry and FwBwCarry (training/fwbw.py::make_fwbw_loop): each task
+# group's envs and ring split over the ranks, both agents replicated.
+TASK_CARRY_SPEC = {
+    "agent": "rep",
+    "env_states": "env",
+    "obs": "env",
+    "rb_state": "buffer",
+    "demo_state": "rep",
+    "ep_return": "env",
+    "ep_count": "rep",
+    "ret_sum": "rep",
+    "succ_sum": "rep",
+    "intervening": "env",
+}
+
+FWBW_CARRY_SPEC = {
+    "fw": "task",
+    "bw": "task",
+    "rng": "rep",
+    "env_steps": "rep",
 }
 
 # RoutedBufferState: per-stream cursor and size ride the streams axis, so
@@ -320,6 +342,17 @@ def chained_carry_layout(carry, dp: DataParallel) -> Dict[str, str]:
     return _layout(carry, CHAINED_CARRY_SPEC, dp, ("fw_rb", "bw_rb"))
 
 
+def fwbw_carry_layout(carry, dp: DataParallel) -> Dict[str, Any]:
+    """A FwBwCarry's layout (`fwbw_carry_shardings`' counterpart): each
+    task's TaskCarry layout under its name, the rest by FWBW_CARRY_SPEC;
+    raises on an undeclared field or on a task whose envs or streams do not
+    divide over the ranks."""
+    _check_fields(carry._fields, FWBW_CARRY_SPEC, type(carry).__name__)
+    return {name: (_layout(getattr(carry, name), TASK_CARRY_SPEC, dp, ("rb_state",))
+                   if FWBW_CARRY_SPEC[name] == "task" else FWBW_CARRY_SPEC[name])
+            for name in carry._fields}
+
+
 def _shard_ring(ring, spec, dp: DataParallel):
     out = {}
     for f in dataclasses.fields(ring):
@@ -383,6 +416,16 @@ def shard_chained_carry(carry, dp: DataParallel):
     """This rank's share of a ChainedCarry built at the global size (both
     agents replicated, both routed rings and their cursors split)."""
     return _shard(carry, chained_carry_layout(carry, dp), dp)
+
+
+def shard_fwbw_carry(carry, dp: DataParallel):
+    """This rank's share of a FwBwCarry built at the global size: each
+    task's env rows and ring streams, both agents replicated."""
+    out = {}
+    for name, kind in fwbw_carry_layout(carry, dp).items():
+        value = getattr(carry, name)
+        out[name] = _shard(value, kind, dp) if isinstance(kind, dict) else value
+    return type(carry)(**out)
 
 
 def replicated_digests(dp: DataParallel, agents: Sequence, generator=None) -> List[str]:

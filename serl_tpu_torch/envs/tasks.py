@@ -43,6 +43,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from serl_tpu_torch.distributed.sharding import local, num_ranks
 from serl_tpu_torch.envs.panda_pick import EnvState, PandaPickCubeEnv, where_state
 from serl_tpu_torch.envs.physics import engine
 from serl_tpu_torch.envs.physics.arm import fk, pinch_velocity
@@ -288,15 +289,20 @@ class PandaPoseTaskEnv:
 
     def step_auto_reset(self, state: EnvState, action: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
-                        draws: Optional[ResetDraws] = None, final_obs: bool = True):
+                        draws: Optional[ResetDraws] = None, final_obs: bool = True, dp=None):
         """Step; where an episode ends, swap in a fresh reset (every field,
         ep_id + 1). Returns (state, obs, reward, done, info), `obs` the reset
         observation for ended envs and, when `final_obs`, info["final_obs"]
         the pre-reset one. The reset runs for every env (drawn from
-        `generator` unless `draws` gives them)."""
+        `generator` unless `draws` gives them). Under data parallelism (`dp`,
+        a `distributed.sharding.DataParallel`) `state` holds the rank's envs:
+        the reset's draws are taken for every rank's envs and the rank keeps
+        its own rows."""
         stepped, reward, done, info = self._step_state(state, action)
         if draws is None:
-            draws = self.sample_reset_draws(action.shape[0], generator)
+            draws = ResetDraws(*(None if x is None else local(x, dp) for x in
+                                 self.sample_reset_draws(action.shape[0] * num_ranks(dp),
+                                                         generator)))
         fresh = self._reset_state(draws)._replace(ep_id=state.ep_id + 1)
         new_state = where_state(done > 0.5, stepped, fresh)
         info = dict(info)

@@ -1,16 +1,18 @@
 """Observation wrappers for batched envs.
 
-Port of `serl_obs`, `add_stack_axis`, `quat_to_euler`, `euler_to_quat` and
-`ClassifierRewardEnv` from `serl_tpu/envs/wrappers.py`: pure functions over
-observation dicts and batched quaternions, and the learned-reward wrapper
-over a batched env. (`chunk_init`/`chunk_push`, the loop's frame-stack
-history, `act_exec_step`, `adjoint_matrix` and `pose_relative_to` are not
-ported yet.)
+Port of `serl_tpu/envs/wrappers.py`: pure functions over observation
+dicts, actions and batched poses (`serl_obs`, `add_stack_axis`, the
+frame-stack history `ChunkState` / `chunk_init` / `chunk_push`, the
+action and observation helpers, quat <-> euler, `adjoint_matrix`,
+`pose_relative_to`), `act_exec_step` over a batched env, and the
+learned-reward wrapper `ClassifierRewardEnv`.
 """
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from serl_tpu_torch.envs.physics.math3d import quat_conj, quat_mul, quat_to_mat, skew
 
 
 def serl_obs(obs: Dict) -> Dict:
@@ -30,6 +32,94 @@ def add_stack_axis(obs: Dict, image_keys: Tuple[str, ...]) -> Dict:
     for k in image_keys:
         img = out[k]
         out[k] = img.unsqueeze(img.dim() - 3)
+    return out
+
+
+class ChunkState(NamedTuple):
+    """The rolling observation history: `frames` holds each leaf with a
+    history axis T (before H, W, C for images, before the last axis
+    otherwise), oldest first."""
+
+    frames: Dict
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def chunk_init(obs: Dict, horizon: int) -> ChunkState:
+    """A history of `horizon` copies of `obs`: the axis goes before the last
+    three of a leaf with at least three axes (an image), else before the last."""
+    def init(x):
+        axis = x.dim() - (3 if x.dim() >= 3 else 1)
+        return x.unsqueeze(axis).repeat_interleave(horizon, dim=axis)
+
+    return ChunkState(frames=_map(init, obs))
+
+
+def chunk_push(state: ChunkState, obs: Dict) -> ChunkState:
+    """Drop the oldest entry of each history and append `obs`' leaf as the
+    newest (the history axis: before the last four axes of a leaf with at
+    least four, else before the last two)."""
+    def push(hist, x):
+        axis = hist.dim() - (4 if hist.dim() >= 4 else 2)
+        return torch.cat([hist.narrow(axis, 1, hist.shape[axis] - 1), x.unsqueeze(axis)], axis)
+
+    return ChunkState(frames=_map(push, state.frames, obs))
+
+
+def act_exec_step(env, state, action_chunk: torch.Tensor):
+    """Receding-horizon execution over a batched env: each env's chunk of
+    `action_chunk` (N, T, action_dim) runs its T sub-actions in turn
+    through `env.step`; returns (state, obs, reward, done, {"success"})
+    after the last one, with the last sub-step's reward, `done` the maximum
+    over the chunk and `success` the maximum of info["success"] over it (the
+    JAX function's `lax.scan` over one env's (T, action_dim) chunk, vmapped)."""
+    state, obs, reward, done, info = env.step(state, action_chunk[:, 0])
+    success = info["success"]
+    for t in range(1, action_chunk.shape[1]):
+        state, obs, reward, d, info = env.step(state, action_chunk[:, t])
+        done = torch.maximum(done, d)
+        success = torch.maximum(success, info["success"])
+    return state, obs, reward, done, {"success": success}
+
+
+def front_camera_obs(obs: Dict, front_key: str = "front") -> Dict:
+    """The state and one camera: the reward classifiers' view."""
+    return {"state": obs["state"], front_key: obs[front_key]}
+
+
+def gripper_close_action(action6: torch.Tensor) -> torch.Tensor:
+    """A 6-DoF action with the gripper pinned closed (a trailing 1)."""
+    return torch.cat([action6, torch.ones(action6.shape[:-1] + (1,), dtype=action6.dtype,
+                                          device=action6.device)], -1)
+
+
+def z_only_action(action_z_grip: torch.Tensor) -> torch.Tensor:
+    """(dz, grasp) -> (0, 0, dz, grasp)."""
+    zeros = torch.zeros(action_z_grip.shape[:-1] + (1,), dtype=action_z_grip.dtype,
+                        device=action_z_grip.device)
+    return torch.cat([zeros, zeros, action_z_grip[..., :1], action_z_grip[..., 1:2]], -1)
+
+
+def unnormalize_action(action, low, high):
+    """[-1, 1] -> [low, high]."""
+    return 0.5 * (action + 1.0) * (high - low) + low
+
+
+def normalize_proprio(proprio, low, high):
+    """[low, high] -> [-1, 1]."""
+    return 2.0 * (proprio - low) / (high - low) - 1.0
+
+
+def remap_obs(obs: dict, mapping: dict) -> dict:
+    """Rename or move observation keys: mapping new_key -> old_key, or
+    (old_key, index) for one entry of the last axis."""
+    out = {}
+    for new_key, src in mapping.items():
+        out[new_key] = obs[src[0]][..., src[1]] if isinstance(src, tuple) else obs[src]
     return out
 
 
@@ -59,6 +149,27 @@ def euler_to_quat(euler: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def adjoint_matrix(pos: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """The 6x6 adjoint of the (pos, quat) transform, [[R, 0], [skew(pos) R, R]]."""
+    R = quat_to_mat(quat)
+    top = torch.cat([R, torch.zeros_like(R)], -1)
+    bot = torch.cat([skew(pos) @ R, R], -1)
+    return torch.cat([top, bot], -2)
+
+
+def pose_relative_to(pose_pos, pose_quat, ref_pos, ref_quat):
+    """A world pose expressed in the reference frame: (R_ref^T (p - p_ref),
+    conj(q_ref) q). A batch of positions (more than one axis) takes one
+    reference pose, as the JAX function does."""
+    inv_q = quat_conj(ref_quat)
+    R_inv = quat_to_mat(inv_q)
+    if pose_pos.dim() > 1:
+        rel_pos = (pose_pos - ref_pos) @ R_inv.transpose(-1, -2)
+    else:
+        rel_pos = R_inv @ (pose_pos - ref_pos)
+    return rel_pos, quat_mul(inv_q, pose_quat)
 
 
 class ClassifierRewardEnv:
@@ -117,28 +228,37 @@ class ClassifierRewardEnv:
         info["success"] = succ
         return new_state, obs, succ, done, info
 
-    def _fresh(self, n: int, ep_id: torch.Tensor, generator, draws):
+    def _fresh(self, n: int, ep_id: torch.Tensor, generator, draws, dp=None):
         """Every env's fresh reset: a pose task's (`ResetDraws`, settled) or
-        the pick env's (`draws` its (N, 2) cube positions)."""
+        the pick env's (`draws` its (N, 2) cube positions). Under data
+        parallelism (`dp`) the draws are taken for every rank's envs and the
+        rank keeps its own rows."""
+        from serl_tpu_torch.distributed.sharding import local, num_ranks
+        from serl_tpu_torch.envs.tasks import ResetDraws
+
         env = self.env
         if hasattr(env, "sample_reset_draws"):
-            draws = env.sample_reset_draws(n, generator) if draws is None else draws
+            if draws is None:
+                draws = ResetDraws(*(None if x is None else local(x, dp)
+                                     for x in env.sample_reset_draws(n * num_ranks(dp),
+                                                                     generator)))
             return env._reset_state(draws)._replace(ep_id=ep_id)
-        xy = env.sample_reset_xy(n, generator) if draws is None else draws
+        xy = local(env.sample_reset_xy(n * num_ranks(dp), generator), dp) if draws is None else draws
         return env._fresh(xy.to(env.device, torch.float32), ep_id)
 
     def step_auto_reset(self, state, action: torch.Tensor,
                         generator: Optional[torch.Generator] = None, draws=None,
-                        final_obs: bool = True):
+                        final_obs: bool = True, dp=None):
         """Step; where an episode ends, swap in the inner env's fresh reset
         (every field, ep_id + 1; the reset is computed for every env from
-        `draws`, or drawn from `generator`). Returns (state, obs, reward,
-        done, info) with the observation after the reset, and with
-        `final_obs` info["final_obs"], the stepped one."""
+        `draws`, or drawn from `generator`, for every rank's envs under data
+        parallelism, `dp`). Returns (state, obs, reward, done, info) with the
+        observation after the reset, and with `final_obs` info["final_obs"],
+        the stepped one."""
         from serl_tpu_torch.envs.panda_pick import where_state
 
         stepped, obs, reward, done, info = self.step(state, action)
-        fresh = self._fresh(action.shape[0], state.ep_id + 1, generator, draws)
+        fresh = self._fresh(action.shape[0], state.ep_id + 1, generator, draws, dp)
         new_state = where_state(done > 0.5, stepped, fresh)
         # the second render: an env that did not end renders its stepped
         # state again, the same frame

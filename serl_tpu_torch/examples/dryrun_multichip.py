@@ -133,14 +133,14 @@ def build_program(name: str, dp, device, world: int, full_width: bool,
         fw_demo, bw_demo, demo_rb = demos
         carry = init_fn(fw, bw, args.seed, fw_demo=fw_demo, bw_demo=bw_demo, demo_rb=demo_rb)
     else:
-        n = 2 * world
+        config = FwBwConfig(**{**dict(envs_per_task=world, batch_size=2 * world, utd_ratio=2,
+                                      training_starts=0, random_steps=0,
+                                      buffer_capacity=2 * world * 32), **overrides})
         env = ChainedBinEnv(dense_shaping=False, fresh_reset_prob=0.3, device=device)
         example = {"observations": torch.zeros((13,)), "actions": torch.zeros((7,)),
                    "next_observations": torch.zeros((13,)), "rewards": torch.zeros(()),
                    "masks": torch.zeros(()), "dones": torch.zeros(())}
-        rb = RoutedReplayBuffer(example, capacity=n * 32, device=device)
-        config = FwBwConfig(**{**dict(envs_per_task=world, batch_size=n, utd_ratio=2,
-                                      training_starts=0, random_steps=0), **overrides})
+        rb = RoutedReplayBuffer(example, capacity=config.buffer_capacity, device=device)
         fw = make_sac_agent(0, obs_dim=13, action_dim=7, device=device)
         bw = make_sac_agent(1, obs_dim=13, action_dim=7, device=device)
         init_fn, run_chunk = make_chained_loop(env, rb, config, dp=dp)
@@ -322,8 +322,8 @@ def _named(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def _snapshot(carry, info: dict) -> dict:
-    """CPU copies of the rank's env rows and obs, its rings' fields, and its
-    agents' learner state (`agent_tensors`)."""
+    """CPU copies of the rank's env rows, obs and frame-stack history, its
+    rings' fields, and its agents' learner state (`agent_tensors`)."""
     from serl_tpu_torch.distributed.sharding import agent_tensors
 
     def cpu(named):
@@ -331,7 +331,8 @@ def _snapshot(carry, info: dict) -> dict:
 
     rings = {name: cpu({**_named(getattr(carry, name).data),
                         "/ep_id": getattr(carry, name).ep_id}) for name in info["rings"]}
-    return {"env": cpu({**_named(carry.env_states), **_named(carry.obs, "/obs")}),
+    return {"env": cpu({**_named(carry.env_states), **_named(carry.obs, "/obs"),
+                        **_named(getattr(carry, "chunk", None), "/chunk")}),
             "rings": rings,
             "agents": [[t.detach().cpu().clone() for t in agent_tensors(a)]
                        for a in info["agents"]]}

@@ -50,13 +50,13 @@ UNREAD_FIELDS = ("algo", "task", "image_obs", "discount", "critic_ensemble_size"
 
 def check_supported(cfg: WorkloadConfig) -> None:
     if cfg.name not in PRESETS:
-        raise NotImplementedError(f"the pixel example runs the {' or '.join(PRESETS)} preset; "
-                                  f"{cfg.name!r} is not ported here")
+        raise ValueError(f"the pixel example runs the {' or '.join(PRESETS)} preset; "
+                         f"{cfg.name!r} would be ignored here (refused, not ignored)")
     base = WorkloadConfig.preset(cfg.name)
     unread = {f: getattr(cfg, f) for f in UNREAD_FIELDS if getattr(cfg, f) != getattr(base, f)}
     if unread:
-        raise NotImplementedError(f"the pixel example runs the {cfg.name} preset's agent and "
-                                  f"task; these settings are not ported: {unread}")
+        raise ValueError(f"the pixel example runs the {cfg.name} preset's agent and task; "
+                         f"these settings would be ignored (refused, not ignored): {unread}")
 
 
 def scripted_pixel_demos(env, seed: int, num_demos: int, episode_len: int = 100):

@@ -75,8 +75,8 @@ def check_supported(cfg: WorkloadConfig) -> None:
     base = WorkloadConfig.preset("state_sim")
     unread = {f: getattr(cfg, f) for f in UNREAD_FIELDS if getattr(cfg, f) != getattr(base, f)}
     if unread:
-        raise NotImplementedError(f"the state example runs the state_sim preset's agent and "
-                                  f"task; these settings are not ported: {unread}")
+        raise ValueError(f"the state example runs the state_sim preset's agent and task; "
+                         f"these settings would be ignored (refused, not ignored): {unread}")
 
 
 def main(argv=None):

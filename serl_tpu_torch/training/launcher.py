@@ -112,11 +112,13 @@ def make_pixel_replay_buffer(capacity: int = 200_000, image_keys=("front", "wris
 
 def make_drq_sim_experiment(seed: int = 0, encoder_type: str = "small", image_size: int = 128,
                             shared_encoder: bool = False, device=None, dp=None,
-                            **loop_overrides):
+                            num_stack: int = 1, **loop_overrides):
     """The async_drq_sim-equivalent workload, pixel PandaPickCube + DrQ:
     (env, agent, rb, config, init_fn, run_chunk). The agent is built from a
-    sample observation of the loop's shapes: the 7-dim state and one
-    (1, 1, H, W, 3) uint8 frame per camera. `dp` (a
+    sample observation of the loop's shapes: the 7-dim state and a
+    (1, num_stack, H, W, 3) uint8 stack per camera; the ring
+    (`make_pixel_replay_buffer`) samples stacks of `num_stack` frames and
+    the loop keeps each env's last `num_stack` frames. `dp` (a
     `distributed.sharding.DataParallel`) splits the loop over its ranks,
     on the rank's device unless `device` says otherwise."""
     from serl_tpu_torch.training.loop import LoopConfig, make_fused_loop
@@ -130,9 +132,9 @@ def make_drq_sim_experiment(seed: int = 0, encoder_type: str = "small", image_si
         buffer_capacity=_round_up(config.buffer_capacity, config.num_envs)
     )
     rb = make_pixel_replay_buffer(capacity=config.buffer_capacity, image_size=image_size,
-                                  device=device)
+                                  num_stack=num_stack, device=device)
     sample = {"state": torch.zeros((1, PIXEL_STATE_DIM)),
-              **{k: torch.zeros((1, 1, image_size, image_size, 3), dtype=torch.uint8)
+              **{k: torch.zeros((1, num_stack, image_size, image_size, 3), dtype=torch.uint8)
                  for k in rb.image_keys}}
     agent = make_drq_agent(seed, sample, torch.zeros((1, ACTION_DIM)), image_keys=rb.image_keys,
                            encoder_type=encoder_type, shared_encoder=shared_encoder,

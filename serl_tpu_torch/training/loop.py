@@ -3,7 +3,8 @@
 Port of `serl_tpu/training/loop.py::make_fused_loop` and `evaluate`, for
 state observations (flat vectors) and pixels (the SERL flat convention
 {"state": vec, "<image key>": frame}: the buffer stores single frames and
-the agent sees an explicit T = 1 stack axis). Per iteration every env takes one step (uniform random
+the agent sees an explicit stack axis of T = the ring's `num_stack`
+frames). Per iteration every env takes one step (uniform random
 actions while `env_steps < random_steps`, policy samples after), the
 transitions go into the (slots, streams) replay ring, and the episode
 statistics are kept on the device. Once the buffer holds
@@ -31,9 +32,14 @@ statistics and `reward_mean` are summed over the ranks (one all-reduce an
 iteration); each sample hands the rank its share of every minibatch, and
 the optimizer steps average the gradients over the ranks.
 
-Not ported yet, and raising rather than passing silently: the loop's
-frame-stack history (`num_stack > 1`) and pixel buffers that store next
-observations.
+Frame stacks (`num_stack > 1`): the carry's `chunk` holds each env's
+last T frames of every camera (`envs/wrappers.py::chunk_init` /
+`chunk_push`), which the policy sees; where an episode ends the history
+restarts filled with the post-reset frame. A pixel ring that stores
+next_observations asks the env for the pre-reset terminal frame (a second
+render) and stores it; its samples stack the next_observations' cameras
+from the observations ring, as the JAX package does
+(`data/replay_buffer.py`).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from serl_tpu_torch.data.replay_buffer import ReplayBuffer, ReplayBufferState
 from serl_tpu_torch.distributed.sharding import local
 from serl_tpu_torch.envs.panda_pick import ACTION_DIM, PandaPickCubeEnv, flatten_obs
 from serl_tpu_torch.envs.scripted_expert import expert_action
-from serl_tpu_torch.envs.wrappers import add_stack_axis, serl_obs
+from serl_tpu_torch.envs.wrappers import ChunkState, add_stack_axis, chunk_init, chunk_push, serl_obs
 
 INTERVENTION_MODES = ("step", "episode", "rescue")
 
@@ -84,6 +90,8 @@ class LoopCarry(NamedTuple):
     ret_sum: torch.Tensor  # () sum of completed episode returns
     succ_sum: torch.Tensor  # () sum of per-episode success at episode end
     intervening: torch.Tensor  # (N,) bool: the expert owns this env's episode
+    # each env's last num_stack frames of every camera; None when num_stack == 1
+    chunk: Optional[ChunkState] = None
 
 
 def intervention_probability(config: LoopConfig, env_steps: int) -> float:
@@ -107,8 +115,9 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
                     expert_fn=None, dp=None):
     """Returns (init_fn, run_chunk).
 
-    `dp` (a `distributed.sharding.DataParallel`, the pick env only): run_chunk
-    takes this rank's share of the carry (`shard_carry` of init_fn's).
+    `dp` (a `distributed.sharding.DataParallel`; the env's `step_auto_reset`
+    takes it and draws its resets at the global shape): run_chunk takes this
+    rank's share of the carry (`shard_carry` of init_fn's).
 
     init_fn(agent, rng, demo_state=None) -> LoopCarry (at the global size), where `rng` is a
     torch.Generator on the env's device or an int seed, and `demo_state` a
@@ -124,14 +133,9 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         raise ValueError(f"intervention_mode must be 'step', 'episode' or 'rescue', got "
                          f"{config.intervention_mode!r}")
     pixel_keys = rb.image_keys
-    if pixel_keys and rb.num_stack > 1:
-        raise NotImplementedError("the loop's frame-stack history (num_stack > 1) is not ported yet")
-    if pixel_keys and rb.store_next_obs:
-        raise NotImplementedError("pixel buffers that store next_observations are not ported")
+    num_stack = rb.num_stack if pixel_keys else 1
     if expert_fn is None:
         expert_fn = expert_action
-    if dp is not None and type(env) is not PandaPickCubeEnv:
-        raise NotImplementedError(f"data parallelism runs the pick env, not {type(env).__name__}")
     action_dim = getattr(env, "ACTION_DIM", ACTION_DIM)
     num_envs = config.num_envs  # all ranks' envs
     device = env.device
@@ -140,13 +144,22 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
     # rb_state.size counts SLOTS; each slot holds num_envs transitions
     train_threshold = max(config.training_starts, config.batch_size * config.utd_ratio)
     env_index = torch.arange(num_envs, dtype=torch.int32, device=device)
-    step_kw = {} if dp is None else {"dp": dp}  # only the pick env takes it
+    step_kw = {} if dp is None else {"dp": dp}
 
     def to_buffer_obs(obs_dict):
         return serl_obs(obs_dict) if pixel_keys else flatten_obs(obs_dict)
 
-    def to_agent_obs(obs):
-        return add_stack_axis(obs, pixel_keys) if pixel_keys else obs
+    def to_agent_obs(obs, chunk):
+        """Buffer obs -> the agent's: each camera with its stack axis, the
+        env's history from `chunk` when num_stack > 1."""
+        if not pixel_keys:
+            return obs
+        if num_stack == 1:
+            return add_stack_axis(obs, pixel_keys)
+        return {**obs, **{k: chunk.frames[k] for k in pixel_keys}}
+
+    def images(obs):
+        return {k: obs[k] for k in pixel_keys}
 
     def draw(g, p: float) -> torch.Tensor:
         return torch.rand((num_envs,), generator=g, device=device) < p
@@ -157,10 +170,11 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         intervening = (draw(g, config.intervention_prob) if mode == "episode"
                        else torch.zeros((num_envs,), dtype=torch.bool, device=device))
         zero = torch.zeros((), device=device)
+        obs = to_buffer_obs(obs)
         return LoopCarry(
             agent=agent,
             env_states=env_states,
-            obs=to_buffer_obs(obs),
+            obs=obs,
             rb_state=rb.init_state(streams=num_envs),
             demo_state=demo_state,
             rng=g,
@@ -170,6 +184,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
             ret_sum=zero,
             succ_sum=zero.clone(),
             intervening=intervening,
+            chunk=chunk_init(images(obs), num_stack) if num_stack > 1 else None,
         )
 
     def iter_body(carry: LoopCarry):
@@ -181,7 +196,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
                             dp) * 2.0 - 1.0
         else:
             noise = local(torch.randn((num_envs, action_dim), generator=g, device=device), dp)
-            actions = carry.agent.sample_actions(to_agent_obs(carry.obs), noise=noise)
+            actions = carry.agent.sample_actions(to_agent_obs(carry.obs, carry.chunk), noise=noise)
         intervening = carry.intervening
         if intervenes:
             p = intervention_probability(config, carry.env_steps)
@@ -229,6 +244,16 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         ret_sum = carry.ret_sum + ret_done
         succ_sum = carry.succ_sum + succ_done
         ep_return = torch.where(done_mask, 0.0, ep_return)
+        chunk = carry.chunk
+        if num_stack > 1:
+            # push the stepped-to frame; where an episode ended, restart the
+            # history filled with the post-reset frame
+            frames = images(next_obs)
+            pushed = chunk_push(chunk, frames).frames
+            fresh = chunk_init(frames, num_stack).frames
+            chunk = ChunkState(frames={
+                k: torch.where(done_mask.reshape((-1,) + (1,) * (pushed[k].dim() - 1)),
+                               fresh[k], pushed[k]) for k in pixel_keys})
         if intervenes and mode == "episode":
             # the expert's ownership of each new episode is drawn as it starts
             intervening = torch.where(done_mask, local(draw(g, p), dp), intervening)
@@ -271,7 +296,7 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         new_carry = carry._replace(
             env_states=env_states, obs=next_obs, rb_state=rb_state, env_steps=env_steps,
             ep_return=ep_return, ep_count=ep_count, ret_sum=ret_sum, succ_sum=succ_sum,
-            intervening=intervening,
+            intervening=intervening, chunk=chunk,
         )
         return new_carry, metrics
 
@@ -294,21 +319,31 @@ def evaluate(env: PandaPickCubeEnv, agent: SACAgent, rng=None, num_episodes: int
     the env's device, or an int seed) draws the reset cube positions.
     `obs_fn` maps the env's observation dict to the agent's input; by
     default the flat state vector, or with `pixel_keys` the SERL pixel
-    convention with a T = 1 stack axis (a longer stack is not ported yet)."""
-    if num_stack != 1:
-        raise NotImplementedError("frame-stack histories (num_stack > 1) are not ported yet")
+    convention with a T = 1 stack axis. With pixel keys and `num_stack` > 1
+    the agent sees each episode's last `num_stack` frames of every camera
+    (the first frame repeated at the start), and `obs_fn` is not used, as in
+    the JAX package."""
     pixel_keys = tuple(pixel_keys)
+    chunked = bool(pixel_keys) and num_stack > 1
     if obs_fn is None:
         def obs_fn(o):
             return add_stack_axis(serl_obs(o), pixel_keys) if pixel_keys else flatten_obs(o)
 
+    def images(o):
+        flat = serl_obs(o)
+        return {k: flat[k] for k in pixel_keys}
+
     episode_len = int(getattr(env, "time_limit_steps", 100))
     states, obs = env.reset(num_episodes, _generator(rng, env.device))
+    chunk = chunk_init(images(obs), num_stack) if chunked else None
     ret = torch.zeros((num_episodes,), device=env.device)
     succ = torch.zeros((num_episodes,), device=env.device)
     for _ in range(episode_len):
-        actions = agent.sample_actions(obs_fn(obs), argmax=True)
+        aobs = {**serl_obs(obs), **chunk.frames} if chunked else obs_fn(obs)
+        actions = agent.sample_actions(aobs, argmax=True)
         states, obs, r, _, info = env.step(states, actions)
+        if chunked:
+            chunk = chunk_push(chunk, images(obs))
         ret = ret + r
         succ = torch.maximum(succ, info["success"])
     return {

@@ -25,7 +25,11 @@ per image as `_crop_indices` draws them, so the tests can feed JAX's draws;
     to its gather form, here both dtypes take the same gather. A row of more
     than ~40 KB (a block's shared memory) is refused.
 
-The photometric augmentations of the JAX module are not ported yet.
+The photometric augmentations (`rgb_to_hsv`, `hsv_to_rgb`,
+`to_grayscale`, `color_transform`, `gaussian_blur`, `random_flip`,
+`solarize`) are plain torch on float images in [0, 1], as the JAX module
+computes them; each random number is the caller's (`color_draws`,
+`blur_draws` draw them from a generator), and no path launches them.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def crop_offsets(n: int, padding: int, generator: Optional[torch.Generator] = None,
@@ -147,3 +152,136 @@ def batched_random_crop(img: torch.Tensor, offsets: torch.Tensor, *, padding: in
     """Random crop with edge padding, one window per leading-batch element:
     img (*batch, H, W, C), offsets (prod(batch), 2) in [0, 2 * padding]."""
     return crop_images([img], [offsets], padding=padding, num_batch_dims=num_batch_dims)[0]
+
+
+# ------------------------------------------------------------------ photometric
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB in [0, 1] -> (..., 3) HSV, hue in [0, 1)."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    rng = v - torch.minimum(torch.minimum(r, g), b)
+    s = torch.where(v > 0, rng / v, 0.0)
+    norm = torch.where(rng != 0, 1.0 / (6.0 * rng), 1e9)
+    hr = norm * (g - b)
+    hg = norm * (b - r) + 2.0 / 6.0
+    hb = norm * (r - g) + 4.0 / 6.0
+    h = torch.where(r == v, hr, torch.where(g == v, hg, hb))
+    h = h * (rng > 0)
+    h = h + (h < 0)
+    return torch.stack([h, s, v], -1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """(..., 3) HSV -> (..., 3) RGB."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    c = s * v
+    m = v - c
+    dh = (h % 1.0) * 6.0
+    x = c * (1.0 - torch.abs(dh % 2.0 - 1.0))
+    cat = torch.floor(dh).to(torch.int32)
+    zero = torch.zeros_like(c)
+    r = torch.where((cat == 0) | (cat == 5), c, torch.where((cat == 1) | (cat == 4), x, zero))
+    g = torch.where((cat == 1) | (cat == 2), c, torch.where((cat == 0) | (cat == 3), x, zero))
+    b = torch.where((cat == 3) | (cat == 4), c, torch.where((cat == 2) | (cat == 5), x, zero))
+    return torch.stack([r + m, g + m, b + m], -1)
+
+
+GRAY_WEIGHTS = (0.2989, 0.5870, 0.1140)
+
+
+def to_grayscale(image: torch.Tensor) -> torch.Tensor:
+    """The luma of each pixel, repeated on the three channels."""
+    gray = image @ torch.tensor(GRAY_WEIGHTS, dtype=image.dtype, device=image.device)
+    return gray[..., None].repeat_interleave(3, -1)
+
+
+def color_draws(generator: Optional[torch.Generator] = None, *, brightness: float = 0.2,
+                contrast: float = 0.2, saturation: float = 0.2, hue: float = 0.05,
+                device=None) -> Dict[str, torch.Tensor]:
+    """One `color_transform`'s draws: the three uniforms of its apply,
+    grayscale and jitter decisions, the brightness and hue offsets and
+    the contrast and saturation factors (uniform in their ranges), and the
+    jitter's order (a permutation of the four)."""
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand((), generator=generator, device=device)
+    return {"apply": u(0.0, 1.0), "gray": u(0.0, 1.0), "jitter": u(0.0, 1.0),
+            "brightness": u(-brightness, brightness), "contrast": u(1 - contrast, 1 + contrast),
+            "saturation": u(1 - saturation, 1 + saturation), "hue": u(-hue, hue),
+            "order": torch.randperm(4, generator=generator, device=device)}
+
+
+def color_transform(image: torch.Tensor, draws: Dict[str, torch.Tensor], *,
+                    to_grayscale_prob: float = 0.0, color_jitter_prob: float = 1.0,
+                    apply_prob: float = 1.0, shuffle: bool = False) -> torch.Tensor:
+    """Color jitter of one float (H, W, C) image in [0, 1]: brightness,
+    contrast, saturation and hue by `draws` (see `color_draws`), in that
+    order or with `shuffle` in draws["order"], where draws["apply"] <=
+    apply_prob and draws["jitter"] <= color_jitter_prob; then grayscale
+    where draws["apply"] <= apply_prob and draws["gray"] <= to_grayscale_prob."""
+    def bright(x):
+        return torch.clamp(x + draws["brightness"], 0.0, 1.0)
+
+    def contr(x):
+        mean = x.mean(dim=(-3, -2), keepdim=True)
+        return torch.clamp(draws["contrast"] * (x - mean) + mean, 0.0, 1.0)
+
+    def satur(x):
+        hsv = rgb_to_hsv(x)
+        hsv = torch.stack([hsv[..., 0], torch.clamp(hsv[..., 1] * draws["saturation"], 0.0, 1.0),
+                           hsv[..., 2]], -1)
+        return torch.clamp(hsv_to_rgb(hsv), 0.0, 1.0)
+
+    def huef(x):
+        hsv = rgb_to_hsv(x)
+        hsv = torch.stack([(hsv[..., 0] + draws["hue"]) % 1.0, hsv[..., 1], hsv[..., 2]], -1)
+        return torch.clamp(hsv_to_rgb(hsv), 0.0, 1.0)
+
+    fns = (bright, contr, satur, huef)
+    x = image
+    for i in (draws["order"].tolist() if shuffle else range(4)):
+        x = fns[i](x)
+    apply = draws["apply"] <= apply_prob
+    out = torch.where(apply & (draws["jitter"] <= color_jitter_prob), x, image)
+    out = torch.where(apply & (draws["gray"] <= to_grayscale_prob), to_grayscale(out), out)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def blur_draws(generator: Optional[torch.Generator] = None, *, sigma_min: float = 0.1,
+               sigma_max: float = 2.0, device=None) -> Dict[str, torch.Tensor]:
+    """One `gaussian_blur`'s draws: its apply uniform and its sigma."""
+    u = torch.rand((2,), generator=generator, device=device)
+    return {"apply": u[0], "sigma": sigma_min + (sigma_max - sigma_min) * u[1]}
+
+
+def gaussian_blur(image: torch.Tensor, draws: Dict[str, torch.Tensor], *,
+                  blur_divider: float = 10.0, apply_prob: float = 1.0) -> torch.Tensor:
+    """Separable gaussian blur of one (H, W, C) image, kernel radius
+    max(1, int(int(H / blur_divider) / 2)), sigma draws["sigma"], edges
+    zero-padded ("SAME"), where draws["apply"] <= apply_prob."""
+    radius = max(1, int(int(image.shape[0] / blur_divider) / 2))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=image.device)
+    f = torch.exp(-(x ** 2) / (2.0 * draws["sigma"] ** 2))
+    f = (f / f.sum()).to(image.dtype)
+    c = image.shape[-1]
+    img = image.permute(2, 0, 1)[None]  # (1, C, H, W)
+    img = F.conv2d(img, f.reshape(1, 1, 1, -1).repeat(c, 1, 1, 1), padding=(0, radius),
+                   groups=c)
+    img = F.conv2d(img, f.reshape(1, 1, -1, 1).repeat(c, 1, 1, 1), padding=(radius, 0),
+                   groups=c)
+    blurred = img[0].permute(1, 2, 0)
+    return torch.where(draws["apply"] <= apply_prob, blurred, image)
+
+
+def random_flip(image: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The image mirrored left-right (its second-to-last axis) where the
+    uniform `u` <= 0.5."""
+    return torch.where(u <= 0.5, torch.flip(image, (-2,)), image)
+
+
+def solarize(image: torch.Tensor, u: torch.Tensor, *, threshold: float = 0.5,
+             apply_prob: float = 1.0) -> torch.Tensor:
+    """Pixels at or above `threshold` inverted (1 - x), where the uniform
+    `u` <= apply_prob."""
+    sol = torch.where(image < threshold, image, 1.0 - image)
+    return torch.where(u <= apply_prob, sol, image)

@@ -546,7 +546,13 @@ class SmallEncoder(nn.Module):
     in_channels) of `image_size`; `in_channels` is the image's channels times
     the frame stack. `image_size` sizes the learned-embedding and softmax
     heads; the others do not need it. `encode` is accepted and ignored, as
-    the JAX module does."""
+    the JAX module does.
+
+    The stem switches: `pad_input_channels` zero-pads the input's channels
+    to that many (the same function: the extra kernel taps see zeros);
+    `space_to_depth_stem` (with a first stride of 2) makes the first conv a
+    space-to-depth(2), each 2x2 block's pixels as 4C channels in (column,
+    row, channel) order, then a 2x2 stride-1 "VALID" conv."""
 
     def __init__(
         self,
@@ -561,9 +567,14 @@ class SmallEncoder(nn.Module):
         spatial_block_size: int = 8,
         image_size: Optional[Union[int, Sequence[int]]] = None,
         generator: Optional[torch.Generator] = None,
+        pad_input_channels: Optional[int] = None,
+        space_to_depth_stem: bool = False,
     ):
         super().__init__()
         spatial = pool_method in ("spatial_learned_embeddings", "spatial_softmax")
+        self.pad_channels = max((pad_input_channels or 0) - in_channels, 0)
+        self.space_to_depth = bool(space_to_depth_stem) and strides[0] == 2
+        in_channels += self.pad_channels
         if spatial and image_size is None:
             raise ValueError(f"{pool_method} pooling needs image_size to size its head")
         self.compute_dtype = compute_dtype
@@ -572,6 +583,12 @@ class SmallEncoder(nn.Module):
                          else tuple(padding))
         h, w = _pair(image_size) if image_size is not None else (1, 1)
         sizes = [in_channels] + list(features)
+        kernel_sizes, strides = list(kernel_sizes), list(strides)
+        if self.space_to_depth:
+            sizes[0] *= 4
+            h, w = h // 2, w // 2
+            kernel_sizes[0], strides[0], self.paddings = 2, 1, ("VALID",) + self.paddings[1:]
+            self.strides = tuple(strides)
         self.convs = nn.ModuleList()
         for cin, cout, k, stride, pad in zip(sizes[:-1], sizes[1:], kernel_sizes, strides,
                                              self.paddings):
@@ -590,8 +607,16 @@ class SmallEncoder(nn.Module):
     def forward(self, observations: torch.Tensor, train: bool = False,
                 dropout: Optional[torch.Tensor] = None, encode: bool = True) -> torch.Tensor:
         cd = self.compute_dtype
+        x = observations.to(cd) / 255.0
+        if self.pad_channels:
+            x = F.pad(x, (0, self.pad_channels))
+        if self.space_to_depth:
+            b, h, w, c = x.shape
+            # (b, h/2, dy, w/2, dx, c) -> (b, h/2, w/2, dx, dy, c), the JAX module's order
+            x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 4, 2, 5).reshape(
+                b, h // 2, w // 2, 4 * c)
         # NHWC -> an NCHW view with channels_last strides
-        x = (observations.to(cd) / 255.0).permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2)
         for conv, stride, pad in zip(self.convs, self.strides, self.paddings):
             w = conv.weight.to(dtype=cd, memory_format=torch.channels_last)
             b = conv.bias.to(cd)

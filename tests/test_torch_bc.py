@@ -139,9 +139,12 @@ def test_torch_bc_create_defaults_and_no_encoder():
     assert not agent.actor.tanh_squash and agent.actor.std_parameterization == "exp"
     assert agent.actor.trunk.norms is None and agent.actor.std_max == 10.0
     assert agent.state.txs["actor"].learning_rate == 3e-4
-    with pytest.raises(NotImplementedError, match="image encoder"):
-        BCAgent.create(torch.zeros(1, OBS), torch.zeros(1, ACT), image_keys=("front",),
-                       device="cpu")
+    assert agent.encoder is None and agent.image_keys == ()
+    # with image keys the policy reads an encoder (tests/test_torch_agents_rest.py)
+    pixels = BCAgent.create({"state": torch.zeros(1, OBS),
+                             "front": torch.zeros((1, 1, 32, 32, 3), dtype=torch.uint8)},
+                            torch.zeros(1, ACT), image_keys=("front",), device="cpu")
+    assert pixels.encoder is not None and list(pixels.state.params) == ["actor"]
 
 
 def test_torch_dataset_sample_jax_takes_jax_indices():

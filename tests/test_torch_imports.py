@@ -44,7 +44,9 @@ def test_torch_port_never_imports_jax_or_serl_tpu():
                    "examples/async_sac_state_sim.py", "examples/async_drq_sim.py",
                    "distributed/sharding.py", "examples/dryrun_multichip.py",
                    "envs/goal_conditioned.py", "vision/mobilenet.py", "vision/mobilenet_v1.py",
-                   "utils/video.py"):
+                   "utils/video.py", "common/typing.py", "data/rlds.py",
+                   "data/trajectory_log.py", "envs/gym_adapter.py",
+                   "examples/external_gym_actor.py", "tools/scaling_analysis.py"):
         assert f"serl_tpu_torch/{module}" in scanned, module
     for path in files:
         for mod in _imported_modules(path):
@@ -71,3 +73,30 @@ def test_torch_entry_points_default_to_cuda():
 
         with pytest.raises(RuntimeError, match="CUDA"):
             make_state_sim_experiment()
+
+
+def test_torch_port_has_every_jax_module():
+    """A module-tree diff: every module of serl_tpu/ has its counterpart at
+    the same path under serl_tpu_torch/ (the JAX package's examples and
+    tools live outside it; their ports are under serl_tpu_torch/examples and
+    serl_tpu_torch/tools)."""
+    jax_modules = {p.relative_to(ROOT / "serl_tpu") for p in (ROOT / "serl_tpu").rglob("*.py")}
+    port = ROOT / "serl_tpu_torch"
+    missing = sorted(str(m) for m in jax_modules if not (port / m).exists())
+    assert not missing, missing
+    for script in ("external_gym_actor.py", "async_sac_state_sim.py", "fused_drq_sim.py"):
+        assert (ROOT / "examples" / script).exists() and (port / "examples" / script).exists()
+    assert (port / "tools" / "scaling_analysis.py").exists()
+
+
+def test_torch_new_entry_points_default_to_cuda(monkeypatch):
+    from serl_tpu_torch.data.dataset import Dataset
+    from serl_tpu_torch.envs import gym_adapter
+    from serl_tpu_torch.examples import external_gym_actor
+
+    assert external_gym_actor.parser().parse_args(["--actor"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (gym_adapter.PandaPickCubeGymBase, gym_adapter.FrankaTaskGymBase,
+                 lambda: Dataset({"rewards": np.zeros(3)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

@@ -110,8 +110,10 @@ def test_torch_pixel_unaligned_sample_matches_jax(num_stack):
 
 
 def test_torch_pixel_buffer_with_stored_next_obs_raises():
+    # a ring that stores next observations needs them in its example, as
+    # JAX's does (the quirk of such a pixel ring: tests/test_torch_frame_stack.py)
     trb = ReplayBuffer(_tree(torch.from_numpy, _example()), 40, image_keys=KEYS, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="next_observations"):
         trb.sample(trb.init_state(STREAMS), 8)
 
 

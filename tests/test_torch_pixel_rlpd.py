@@ -208,7 +208,7 @@ def test_torch_pixel_example_selects_the_demos_jax_selects(monkeypatch):
                                   ["--temperature_init", "0.1"], ["--port", "6000"],
                                   ["--publish_period", "3"]])
 def test_torch_pixel_example_raises_on_a_setting_it_does_not_read(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="refused, not ignored"):
         fused_drq_sim.main(["--rlpd", "--device", "cpu"] + argv)
 
 

@@ -113,10 +113,17 @@ def test_torch_pixel_slice_matches_jax_step_by_step():
 
 
 def test_torch_pixel_loop_raises_for_stack_histories():
+    # the fused loop keeps histories (tests/test_torch_frame_stack.py); the
+    # chained fwbw loop acts on one frame, as the JAX package's does, and a
+    # stack needs at least one frame
+    from serl_tpu_torch.data.replay_buffer import ReplayBuffer
+    from serl_tpu_torch.envs.chained_bin import ChainedBinEnv
+    from serl_tpu_torch.training.fwbw import FwBwConfig, make_chained_loop
+
     env, _, rb, config, *_ = make_drq_sim_experiment(device="cpu", num_envs=2, image_size=SIZE,
-                                                     buffer_capacity=8)
-    rb.num_stack = 2
-    with pytest.raises(NotImplementedError, match="num_stack"):
-        make_fused_loop(env, rb, LoopConfig(num_envs=2))
-    with pytest.raises(NotImplementedError):
-        evaluate(env, None, 0, num_episodes=1, pixel_keys=KEYS, num_stack=2)
+                                                     buffer_capacity=8, num_stack=2)
+    make_fused_loop(env, rb, LoopConfig(num_envs=2))
+    with pytest.raises(ValueError, match="num_stack"):
+        make_chained_loop(ChainedBinEnv(device="cpu"), rb, FwBwConfig(envs_per_task=1))
+    with pytest.raises(ValueError, match="num_stack"):
+        ReplayBuffer(rb._example, 8, image_keys=KEYS, num_stack=0, device="cpu")

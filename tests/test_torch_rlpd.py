@@ -426,7 +426,7 @@ def test_torch_workload_presets_equal_jax():
                                   ["--critic_ensemble_size", "4"], ["--temperature_init", "0.1"],
                                   ["--port", "6000"], ["--steps_per_update", "10"]])
 def test_torch_state_example_raises_on_a_setting_it_does_not_read(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="refused, not ignored"):
         fused_sac_state_sim.main(["--rlpd", "--device", "cpu"] + argv)
 
 

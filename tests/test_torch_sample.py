@@ -102,8 +102,9 @@ def test_torch_sample_matches_jax(store_next_obs, batch):
 
 
 def test_torch_sample_raises_for_pixels():
+    # stored next observations are read from the ring, so a ring without them raises
     trb = ReplayBuffer({"observations": torch.zeros(3)}, 8, image_keys=("front",), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="next_observations"):
         trb.sample(trb.init_state(streams=2), 4)
 
 

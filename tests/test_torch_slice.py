@@ -111,14 +111,18 @@ def test_torch_loop_raises_where_the_slice_ends():
     env, _, rb, config, *_ = make_state_sim_experiment(device="cpu", num_envs=4)
     with pytest.raises(ValueError, match="intervention_mode"):
         make_fused_loop(env, rb, config._replace(intervention_mode="sometimes"))
-    pixel_rb = ReplayBuffer({"observations": torch.zeros(3)}, 8, image_keys=("front",), device="cpu")
-    with pytest.raises(NotImplementedError, match="next_observations"):
-        make_fused_loop(env, pixel_rb, LoopConfig(num_envs=4))
+    # the loop takes pixel rings that store next observations, and stacks
+    # (tests/test_torch_frame_stack.py), and any env under data parallelism
+    # (tests/test_torch_fwbw_isolated.py holds the pose env's draws)
     stacked_rb = ReplayBuffer({"observations": {"front": torch.zeros((4, 4, 3), dtype=torch.uint8)}},
                               8, store_next_obs=False, image_keys=("front",), num_stack=2,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="num_stack"):
-        make_fused_loop(env, stacked_rb, LoopConfig(num_envs=4))
+    make_fused_loop(env, stacked_rb, LoopConfig(num_envs=4))
+    from serl_tpu_torch.distributed.sharding import DataParallel
+    from serl_tpu_torch.envs.tasks import PandaPoseTaskEnv
+
+    dp = DataParallel(rank=0, world_size=2, backend="gloo", device=torch.device("cpu"))
+    make_fused_loop(PandaPoseTaskEnv(device="cpu"), rb, LoopConfig(num_envs=4), dp=dp)
 
 
 def test_torch_evaluate_runs_full_argmax_episodes():

@@ -164,3 +164,100 @@ class Tasks:
 
     def __call__(self, dp):
         return [task(dp) for task in self.tasks]
+
+
+# ---------------------------------------------------------------- the isolated fwbw program
+
+
+def fwbw_isolated(device, config, dp=None, seed: int = 0):
+    """The isolated fwbw program (training/fwbw.py::make_fwbw_loop) at
+    `config` (a FwBwConfig): the two bin-task envs, a state ring spec, SAC
+    agents from seeds 0 and 1 at the launcher's defaults, the carry built
+    at the global size from `seed` and, with `dp`, cut to the rank's share.
+    Returns (fw_env, bw_env, rb, agents, carry, run_chunk)."""
+    from serl_tpu_torch.distributed.sharding import shard_fwbw_carry
+    from serl_tpu_torch.envs.tasks import STATE_OBS_DIM, BinRelocationEnv
+    from serl_tpu_torch.training.fwbw import make_fwbw_loop
+    from serl_tpu_torch.training.launcher import make_sac_agent, make_state_replay_buffer
+
+    fw_env = BinRelocationEnv(task_id=0, device=device)
+    bw_env = BinRelocationEnv(task_id=1, device=device)
+    rb = make_state_replay_buffer(capacity=config.buffer_capacity, obs_dim=STATE_OBS_DIM,
+                                  action_dim=7, device=device)
+    agents = tuple(make_sac_agent(s, obs_dim=STATE_OBS_DIM, action_dim=7, device=device)
+                   for s in (0, 1))
+    init_fn, run_chunk = make_fwbw_loop(fw_env, bw_env, rb, config, dp=dp)
+    carry = init_fn(*agents, seed)
+    if dp is not None:
+        carry = shard_fwbw_carry(carry, dp)
+    return fw_env, bw_env, rb, agents, carry, run_chunk
+
+
+def fwbw_snapshot(carry, agents) -> dict:
+    """CPU copies of both tasks' env rows, obs and statistics rows, both
+    rings' fields and both agents' learner state, in `merge_snapshots`'
+    layout."""
+    from serl_tpu_torch.distributed.sharding import agent_tensors
+    from serl_tpu_torch.examples.dryrun_multichip import _named
+
+    def cpu(named):
+        return {k: t.detach().cpu().clone() for k, t in named.items()}
+
+    env, rings = {}, {}
+    for name in ("fw", "bw"):
+        tc = getattr(carry, name)
+        env.update(cpu({**_named(tc.env_states, f"/{name}"), **_named(tc.obs, f"/{name}/obs"),
+                        f"/{name}/ep_return": tc.ep_return,
+                        f"/{name}/intervening": tc.intervening}))
+        rings[name] = cpu({**_named(tc.rb_state.data), "/ep_id": tc.rb_state.ep_id})
+    return {"env": env, "rings": rings,
+            "agents": [[t.detach().cpu().clone() for t in agent_tensors(a)] for a in agents]}
+
+
+def run_fwbw_isolated(dp, device, config, segments, snapshot_dir=None) -> dict:
+    """The isolated program on this rank (or alone, `dp` None) in
+    `segments` of iterations; after each, the replicated state's digests
+    are checked equal over the ranks and, with `snapshot_dir`, the rank's
+    share saved as <dir>/fwbw_isolated_r<rank>_s<segment>.pt. Returns the
+    metrics, the kernel launches and the collectives after the carry is
+    placed, and the final digest."""
+    import os
+
+    from serl_tpu_torch.distributed.sharding import replicated_digests
+    from serl_tpu_torch.examples.dryrun_multichip import kernel_launches
+
+    rank = 0 if dp is None else dp.rank
+    *_, agents, carry, run_chunk = fwbw_isolated(device, config, dp)
+    if dp is not None:
+        dp.reset_counts()
+    launches0 = kernel_launches()
+    history, digest = [], None
+    for i, seg in enumerate(segments):
+        carry, m = run_chunk(carry, seg)
+        history.append(m)
+        if dp is not None:
+            digests = replicated_digests(dp, agents, carry.rng)
+            if len(set(digests)) != 1:
+                raise AssertionError(f"fwbw isolated: the ranks' digests differ: {digests}")
+            digest = digests[0]
+        if snapshot_dir is not None:
+            torch.save(fwbw_snapshot(carry, agents),
+                       os.path.join(snapshot_dir, f"fwbw_isolated_r{rank}_s{i}.pt"))
+    return {"rank": rank, "iters": sum(segments), "env_steps": carry.env_steps,
+            "metrics": {k: torch.cat([h[k].reshape(len(h[k]), -1) for h in history]).cpu()
+                        for k in history[0]},
+            "agent_steps": [a.state.step for a in agents], "digest": digest,
+            "launches": {k: v - launches0[k] for k, v in kernel_launches().items()},
+            "collectives": {} if dp is None else {k: dict(v) for k, v in dp.counts.items()}}
+
+
+class FwbwIsolatedRun:
+    """A rank's task: `run_fwbw_isolated` on the rank's device."""
+
+    def __init__(self, config, segments, snapshot_dir=None):
+        self.config, self.segments, self.snapshot_dir = config, segments, snapshot_dir
+
+    def __call__(self, dp):
+        if dp.device.type == "cpu":
+            torch.set_num_threads(1)
+        return run_fwbw_isolated(dp, dp.device, self.config, self.segments, self.snapshot_dir)
