@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels    # phases 1 and 2 and K5's times only
     python3 chip_smoke.py --gc         # phase 1, K5 at the GC shapes, the GC phase
     python3 chip_smoke.py --rest       # phases 1 and 2, the rest phase
+    python3 chip_smoke.py --tools      # phases 1 and 2, the tools phase
 
 Phases, each fatal (non-zero exit, no result line) on failure:
   1. device: the card's name and power limit; build the CUDA kernels from the
@@ -233,7 +234,16 @@ Phases, each fatal (non-zero exit, no result line) on failure:
      while it acts at random; (c) examples/external_gym_actor.py's actor
      (the gymnasium-free FrankaTaskGymBase, K1 at N = 1) and learner as two
      processes, and one render through the pick env's gym base (K2 at
-     N = 1) under tests/torch_k2.py's rule. Around each path
+     N = 1) under tests/torch_k2.py's rule; the tools phase
+     (phase_tools_paths; `--tools` runs it alone, after the builds and
+     phase 2): (a) serl_tpu_torch/tools/pretrain_resnet10.py at its full
+     width (16 envs x 200 steps of 128 px frames, batch 128) for
+     TOOLS_PRETRAIN_STEPS optimizer steps, its loss finite and falling, its
+     exported backbone grafted through SERL_RESNET10_PARAMS equal to the
+     file's float16 values, and one ResNet update_high_utd on it; (b)
+     tools/dump_render_frames.py's episode against the JAX tool's committed
+     frames' names; (c) tools/probe_peg.py at TOOLS_PROBE_ARGV, every printed
+     field finite, K5 held at its critic probes' batches. Around each path
      every launch count is read and checked against the count that its loss
      functions and loop give (on the RLPD path K4's from the demo ring's
      stream count: a half takes K4 only when it divides over its ring's
@@ -259,7 +269,7 @@ It prints the kernel table as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs one CUDA card and the
 repository around it (serl_tpu_torch/, tests/torch_k1.py, tests/torch_k2.py,
 tests/torch_k5.py, tests/torch_resnet.py, tests/torch_dp.py,
-resnet10_params.pkl); it never imports JAX or serl_tpu.
+resnet10_params.pkl, results/render_frames); it never imports JAX or serl_tpu.
 """
 
 import copy
@@ -604,7 +614,9 @@ K5_REST_SHAPES = {
 K5_SHAPES.update(K5_DP_SHAPES)
 K5_SHAPES.update(K5_GC_SHAPES)
 K5_SHAPES.update(K5_REST_SHAPES)
-K5_UNTIMED = set(K5_DP_SHAPES) | set(K5_REST_SHAPES)  # held in phase 2, not timed in phase 4
+# held in phase 2 (the probe's critic batches in the tools phase), not timed in phase 4 (the
+# GC shapes are timed by `--gc`)
+K5_UNTIMED = set(K5_DP_SHAPES) | set(K5_REST_SHAPES) | set(K5_GC_SHAPES)
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
 # its kernels' code (the per-row divisions and square root left out):
@@ -2559,7 +2571,8 @@ def phase_resnet_trained(torch, device, card, rb, buf, config):
     return launches
 
 
-def _pose_run_launches(config, start: int, stop: int, evals: int, bc: bool) -> dict:
+def _pose_run_launches(config, start: int, stop: int, evals: int, bc: bool,
+                       demo_streams: int = POSE_DEMO_STREAMS) -> dict:
     """Launches of one run_fused over loop iterations [start, stop) of the
     state pose path, from its init_fn's reset, with `evals` 32-episode
     evaluations. An env step launches K1 once, then 5 times for every env's
@@ -2575,7 +2588,7 @@ def _pose_run_launches(config, start: int, stop: int, evals: int, bc: bool) -> d
     first_update = -(-threshold // config.num_envs) - 1
     policy = len([i for i in range(start, stop) if i >= random_iters])
     updating = len([i for i in range(start, stop) if i >= first_update])
-    per = _pose_per_update(config, bc)
+    per = _pose_per_update(config, bc, demo_streams)
     return {"control_step": SETTLE_STEPS + (1 + SETTLE_STEPS) * (stop - start)
             + evals * (SETTLE_STEPS + 100),
             "render": 0, "random_crop": 0, "replay_gather": per["replay_gather"] * updating,
@@ -2584,18 +2597,19 @@ def _pose_run_launches(config, start: int, stop: int, evals: int, bc: bool) -> d
             "dense_layer_norm_tanh_bwd": updating * per["dense_layer_norm_tanh_bwd"]}
 
 
-def _pose_k4(config) -> int:
+def _pose_k4(config, demo_streams: int = POSE_DEMO_STREAMS) -> int:
     """K4 launches of one sample_mixed on the pose paths: the online half
     divides over its 16 streams, the 20-stream demo half does not (plain)."""
     rows = config.batch_size * config.utd_ratio
     return (int((rows // 2) % config.num_envs == 0)
-            + int((rows - rows // 2) % POSE_DEMO_STREAMS == 0))
+            + int((rows - rows // 2) % demo_streams == 0))
 
 
-def _pose_per_update(config, bc: bool) -> dict:
+def _pose_per_update(config, bc: bool, demo_streams: int = POSE_DEMO_STREAMS) -> dict:
     """Launches per updating iteration of the state pose path (acting included)."""
     per = learner_launches_per_iter(config.utd_ratio, config.updates_per_iter)
-    return {**per, "control_step": 6, "replay_gather": config.updates_per_iter * _pose_k4(config),
+    return {**per, "control_step": 6,
+            "replay_gather": config.updates_per_iter * _pose_k4(config, demo_streams),
             "dense_layer_norm_tanh_fwd": per["dense_layer_norm_tanh_fwd"]
             + 2 * bc * config.updates_per_iter}
 
@@ -4837,49 +4851,31 @@ def _rest_stack_part(torch, device, card) -> dict:
 
 
 # The isolated fwbw program on 2 ranks against one rank, while it acts at
-# random: the physics state, clocks, episode ids, the ring's actions, dones,
-# masks and ids, and both learners bit for bit; the observations (and the
-# rewards and returns read from them) within REST_FWBW_OBS_ATOL, their
-# Euler angles modulo 2 pi. The bin task's observation is the tcp pose by
-# plain-torch forward kinematics, rotation matrix to quaternion to Euler
-# angles at the roll's +-pi flip, and on the card its rounding depends on
-# the batch: with the physics equal bit for bit, a task's 4 rows on a rank
-# and its 8 rows on one differ by 5.2e-6 after one iteration and 2.4e-4
-# after 62 (NVIDIA H100 80GB HBM3, 700.00 W; on the CPU they are equal bit
-# for bit, tests/test_torch_fwbw_isolated.py).
-REST_FWBW_OBS_ATOL = 1e-3
-FWBW_ANGLES = slice(7, 10)  # the Euler angles in the bin task's flat observation
-FWBW_READ_FIELDS = ("/obs", "/observations", "/next_observations", "/rewards", "/ep_return")
+# random: every field of the envs and both rings (the physics state, clocks,
+# episode ids, observations, actions, rewards, returns, dones, masks and
+# ids) and both learners, bit for bit. A task's 4 rows on a rank and its 8
+# rows on one round alike: the observations' forward kinematics multiplies
+# by the model's constant rotations elementwise
+# (serl_tpu_torch/envs/physics/arm.py::rotate_by), where a batched `@` let
+# cuBLAS round by the row count (tests/bin_obs_rounding.py finds such ops).
 
 
-def _fwbw_dp_rule(torch, dpc, two: dict, one: dict):
-    """(the fields that differ, with their max abs difference; those beyond
-    the rule above)."""
-    def diff(a, b, key):
-        if a.shape != b.shape:
-            return float("inf")
-        if a.dtype.is_floating_point and a.shape[-1:] == (13,):
-            d = (a - b).abs()
-            ang = d[..., FWBW_ANGLES].double()
-            d[..., FWBW_ANGLES] = ((ang + math.pi) % (2 * math.pi) - math.pi).abs().float()
-            return float(d.max()) if d.numel() else 0.0
-        return dpc.field_diffs({key: a}, {key: b})[key]
-
-    diffs, bad = {}, []
+def _fwbw_dp_rule(dpc, two: dict, one: dict):
+    """(the fields that differ, with their max abs difference; the same
+    fields, each a failure of the rule above)."""
+    diffs = {}
     parts = [("env", two["env"], one["env"])] + [(f"ring {t}", two["rings"][t], one["rings"][t])
                                                  for t in ("fw", "bw")]
     for where, a, b in parts:
         for key in b:
-            d = diff(a[key], b[key], key)
+            d = (float("inf") if a[key].shape != b[key].shape
+                 else dpc.field_diffs({key: a[key]}, {key: b[key]})[key])
             if d:
                 diffs[f"{where}{key}"] = float(f"{d:.3g}")
-                read = key.endswith(FWBW_READ_FIELDS)
-                if not read or d > REST_FWBW_OBS_ATOL:
-                    bad.append(f"{where}{key}")
     for i, (a, b) in enumerate(zip(two["agents"], one["agents"])):
         if dpc.max_abs_diff(a, b):
-            bad.append(f"agent {i}")
-    return diffs, bad
+            diffs[f"agent {i}"] = float(f"{dpc.max_abs_diff(a, b):.3g}")
+    return diffs, sorted(diffs)
 
 
 def _fwbw_iso_per_iter(config, acting: bool, updating: int) -> dict:
@@ -4965,7 +4961,7 @@ def _rest_fwbw_part(torch, device, card) -> dict:
     finally:
         for d in snaps.values():
             shutil.rmtree(d, ignore_errors=True)
-    diffs, bad = _fwbw_dp_rule(torch, dpc, two, ref1)
+    diffs, bad = _fwbw_dp_rule(dpc, two, ref1)
     iters = sum(REST_FWBW_DP_SEGMENTS)
     acting = sum(1 for i in range(iters) if i * 2 * n >= config.random_steps)
     updating = iters - gate
@@ -4979,8 +4975,7 @@ def _rest_fwbw_part(torch, device, card) -> dict:
                  "all_to_all": 2 * updating, "all_gather": len(REST_FWBW_DP_SEGMENTS)}
     print(f"rest (b) isolated fwbw on {DP_RANKS} gloo ranks ({iters} iterations, the gates at "
           f"{gate}): against one rank after {REST_FWBW_DP_SEGMENTS[0]} iterations (random "
-          f"actions), the fields that differ (max abs; Euler angles modulo 2 pi) "
-          f"{json.dumps(diffs)}, beyond the rule {bad}; digests "
+          f"actions), the fields that differ (max abs) {json.dumps(diffs)}; digests "
           f"equal {len({r['digest'] for r in ranks}) == 1}; launches per rank "
           f"{json.dumps(ranks[0]['launches'])}, collectives "
           f"{json.dumps({k: v['calls'] for k, v in ranks[0]['collectives'].items()})} "
@@ -5170,6 +5165,269 @@ def rest_launches(rest: dict) -> tuple:
     return launches, per_iter
 
 
+# The tools phase (phase_tools_paths; `--tools` runs it alone, after the
+# builds and phase 2): serl_tpu_torch/tools/ at the JAX tools' full widths.
+# (a) pretrain_resnet10: 16 envs x 200 rollout steps of 128 px frames, then
+# TOOLS_PRETRAIN_STEPS of its 2,000 optimizer steps at batch 128; the file
+# it exports grafted into a "resnet-pretrained" DrQ agent and one
+# update_high_utd of that agent (batch 256 x UTD 4, the ResNet path's) on
+# the collected frames. (b) dump_render_frames: the 100-step expert episode
+# at N = 1, against the JAX tool's committed frames' names. (c) probe_peg
+# at TOOLS_PROBE_ARGV (its 24,000 steps cut to 2,000 past the gate, 3
+# chunks).
+TOOLS_PRETRAIN_STEPS = 200
+TOOLS_LOSS_WINDOW = 50
+TOOLS_UPDATE = dict(batch_size=256, utd_ratio=4)
+TOOLS_PROBE_ARGV = ["--total_steps", "2000", "--eval_period", "1000"]
+TOOLS_RENDER_RECORD = os.path.join("results", "render_frames")  # the JAX tool's PNGs
+
+
+def _tools_pretrain_part(torch, device, card) -> dict:
+    """The pretraining tool, its file grafted, then one ResNet update."""
+    from serl_tpu_torch.tools import pretrain_resnet10 as pre
+    from serl_tpu_torch.training import launcher
+    from serl_tpu_torch.utils.pretrained import read_params
+
+    args = pre.parser().parse_args([])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        out = os.path.join(tmp, "resnet10_params.pkl")
+        torch.cuda.synchronize()
+        reset_launches()
+        result = pre.main(["--steps", str(TOOLS_PRETRAIN_STEPS), "--out", out, "--device",
+                           str(device)])
+        launches = read_launches()
+        # K1 once a step; K2 (2 launches) for the reset's render and once a
+        # step (the auto-reset swaps states, no second render); the ResNet
+        # and its Dense -> relu head reach no kernel of the port
+        want = {**_zero_launches(), "control_step": args.rollout_steps,
+                "render": 2 * (1 + args.rollout_steps)}
+        losses = result["losses"]
+        first, last = (float(losses[:TOOLS_LOSS_WINDOW].mean()),
+                       float(losses[-TOOLS_LOSS_WINDOW:].mean()))
+        print(f"tools (a) pretrain_resnet10: {result['frames'].shape[0]} frames of "
+              f"{tuple(result['frames'].shape[1:])} uint8 ({args.num_envs} envs x "
+              f"{args.rollout_steps} steps) collected in {result['collect_s']:.3f} s; "
+              f"{TOOLS_PRETRAIN_STEPS} steps at batch {args.batch_size}: "
+              f"{result['train_ms_per_step']:.3f} ms a step (host clock, ending in a sync); loss "
+              f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}, mean of the first "
+              f"{TOOLS_LOSS_WINDOW} {first:.4f}, of the last {last:.4f}; launches "
+              f"{json.dumps(launches)} [{card}]")
+        if launches != want:
+            raise AssertionError(f"pretraining: expected launches {want}, got {launches}")
+        if not (bool(torch.isfinite(losses).all()) and last < first):
+            raise AssertionError(f"pretraining: losses not finite or not falling ({first} -> "
+                                 f"{last})")
+
+        # the exported file grafted into a resnet-pretrained agent
+        raw = read_params(out)
+        before = os.environ.get("SERL_RESNET10_PARAMS")
+        os.environ["SERL_RESNET10_PARAMS"] = out
+        try:
+            sample = {"state": torch.zeros((1, launcher.PIXEL_STATE_DIM)),
+                      **{k: torch.zeros((1, 1, PIXEL_SIZE, PIXEL_SIZE, 3), dtype=torch.uint8)
+                         for k in IMAGE_KEYS}}
+            agent = launcher.make_drq_agent(0, sample, torch.zeros((1, launcher.ACTION_DIM)),
+                                            image_keys=IMAGE_KEYS,
+                                            encoder_type="resnet-pretrained", device=device)
+        finally:
+            if before is None:
+                os.environ.pop("SERL_RESNET10_PARAMS")
+            else:
+                os.environ["SERL_RESNET10_PARAMS"] = before
+        bad = _backbone_graft_errors(torch, agent, raw)
+        n_tensors = sum(len(list(e.pretrained_encoder.parameters()))
+                        for e in agent.encoder.encoders.values())
+        print(f"tools (a) the exported file ({os.path.getsize(out) / 1e6:.1f} MB, modules "
+              f"{sorted(raw)}) grafted through SERL_RESNET10_PARAMS: {n_tensors} backbone "
+              f"tensors over {len(IMAGE_KEYS)} cameras and their target copies "
+              + ("equal to the file's float16 values" if not bad else f"DIFFER: {bad[:4]}"))
+        if bad:
+            raise AssertionError(f"the graft of the exported backbone differs in {bad[:4]}")
+
+        # one update_high_utd of the ResNet path on the collected frames
+        g = torch.Generator(device=device).manual_seed(19)
+        frames = result["frames"]
+        rows = TOOLS_UPDATE["batch_size"] * TOOLS_UPDATE["utd_ratio"]
+        pick = lambda: frames[torch.randint(0, frames.shape[0], (rows,), generator=g,
+                                            device=device)][:, None]
+        obs = lambda: {"state": torch.randn((rows, launcher.PIXEL_STATE_DIM), generator=g,
+                                            device=device), **{k: pick() for k in IMAGE_KEYS}}
+        batch = {"observations": obs(), "next_observations": obs(),
+                 "actions": 2 * torch.rand((rows, launcher.ACTION_DIM), generator=g,
+                                           device=device) - 1,
+                 "rewards": torch.rand((rows,), generator=g, device=device),
+                 "masks": torch.ones((rows,), device=device),
+                 "dones": torch.zeros((rows,), device=device)}
+        del result["frames"], frames
+        before_params = [p.detach().clone() for p in agent.parameters()]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, info = agent.update_high_utd(batch, utd_ratio=TOOLS_UPDATE["utd_ratio"], generator=g)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) * 1e3
+        update_launches = read_launches()
+        per = pixel_launches_per_iter(TOOLS_UPDATE["utd_ratio"], 1)
+        want_update = {**_zero_launches(), "random_crop": 1,
+                       "dense_layer_norm_tanh_fwd": per["dense_layer_norm_tanh_fwd"] - 5,
+                       "dense_layer_norm_tanh_bwd": per["dense_layer_norm_tanh_bwd"]}
+        backbone = {id(p) for e in agent.encoder.encoders.values()
+                    for p in e.pretrained_encoder.parameters()}
+        params = list(agent.parameters())
+        moved = [not torch.equal(p, q) for p, q in zip(params, before_params)]
+        losses = {k: float(info[group][k]) for group, k in
+                  (("critic", "critic_loss"), ("actor", "actor_loss"))}
+        checks = {"launches as the ResNet path's update": update_launches == want_update,
+                  "losses finite": all(math.isfinite(v) for v in losses.values()),
+                  "backbones unchanged": not any(m for p, m in zip(params, moved)
+                                                 if id(p) in backbone),
+                  "the heads moved": any(m for p, m in zip(params, moved)
+                                         if id(p) not in backbone)}
+        print(f"tools (a) one update_high_utd (batch {TOOLS_UPDATE['batch_size']} x UTD "
+              f"{TOOLS_UPDATE['utd_ratio']}) of the ResNet path on the new backbone: "
+              f"{update_ms:.1f} ms, the first (cuDNN's set-up included); {json.dumps(losses)}; "
+              f"launches {json.dumps(update_launches)} [{card}]")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"the update on the pretrained backbone: {bad}; launches "
+                                 f"{update_launches}, expected {want_update}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "update_launches": update_launches,
+            "collect_s": result["collect_s"], "train_ms_per_step": result["train_ms_per_step"],
+            "loss_first": first, "loss_last": last}
+
+
+def _render_record() -> dict:
+    """{step: (reward, cube z)} from the names of the JAX tool's frames."""
+    record = {}
+    for name in os.listdir(os.path.join(HERE, TOOLS_RENDER_RECORD)):
+        t, r, z = os.path.splitext(name)[0].split("_")  # t099_r0.02_z0.020
+        record[int(t[1:])] = (float(r[1:]), float(z[1:]))
+    return record
+
+
+def _tools_dump_part(torch, device, card) -> dict:
+    """The render dump's episode at N = 1 against the JAX tool's record."""
+    from serl_tpu_torch.tools import dump_render_frames as dump
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dump_")
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = dump.main([tmp, "--device", str(device)])
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        saved = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {**_zero_launches(), "control_step": dump.EPISODE_STEPS,
+            "render": 2 * (1 + dump.EPISODE_STEPS)}
+    record = _render_record()
+    # the names round reward to 2 and cube z to 3 decimals
+    off = {t: (abs(float(outs["reward"][t]) - r), abs(float(outs["cube_z"][t]) - z))
+           for t, (r, z) in record.items()}
+    checks = {"launches": launches == want,
+              "the record's steps": sorted(record) == sorted(dump.SNAP_TS),
+              "reward and cube z as the JAX tool's frames": all(
+                  dr <= 0.005 + 1e-4 and dz <= 0.0005 + 1e-4 for dr, dz in off.values()),
+              "no success, as the JAX tool's episode": float(outs["success"].max()) == 0.0,
+              "frames saved": bool(saved)}
+    print(f"tools (b) dump_render_frames: {dump.summary(outs)} in {seconds:.2f} s (host clock); "
+          f"against {TOOLS_RENDER_RECORD} (the JAX tool's frames from PRNGKey(3)): "
+          f"{json.dumps({t: [round(a, 6), round(b, 6)] for t, (a, b) in off.items()})}; saved "
+          f"{saved}; launches {json.dumps(launches)} [{card}]")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"the render dump: {bad}; launches {launches}, expected {want}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def _tools_probe_part(torch, device, card, k5_checks) -> dict:
+    """The peg probe at TOOLS_PROBE_ARGV: every printed field finite, the
+    launches those of its demos, loop, evaluations and critic probes."""
+    from serl_tpu_torch.envs.tasks import SETTLE_STEPS
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+    from serl_tpu_torch.tools import probe_peg
+
+    argv = TOOLS_PROBE_ARGV + ["--device", str(device)]
+    args = probe_peg.parser().parse_args(argv)
+    config = probe_peg.loop_config(args)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    records = probe_peg.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # Q_pos's batch is the demos' reward > 0 rows (up to 256): K5 at those
+    # rows, at the critic's two layers, is held here
+    new = sorted({s[:5] for s in k5.shape_log} - set(K5_SHAPES))
+    probe_shapes = [s for s in new if s[0] in ("shared", "member") and s[1] == 10
+                    and s[3] in (probe_peg.OBS_DIM + probe_peg.ACT_DIM, 256)]
+    if probe_shapes != new:
+        raise AssertionError(f"the probe ran K5 at shapes outside its critic probes: {new}")
+    K5_SHAPES.update({s: (True, True) for s in probe_shapes})
+    K5_UNTIMED.update(probe_shapes)
+    launches = read_launches()
+    phase_k5_vs_plain(torch, k5_checks, device, probe_shapes)  # after the counts are read
+    chunk = max(args.eval_period // config.num_envs, 1)
+    chunks = len(records)
+    episode = probe_peg.PEG_INSERT_CONFIG.time_limit_steps
+    want = _sum_launches(
+        # the demos: a settled reset, then a step and every env's settled reset a step
+        {"control_step": SETTLE_STEPS + (1 + SETTLE_STEPS) * episode},
+        # the loop
+        _pose_run_launches(config, 0, chunks * chunk, 0, bc=False, demo_streams=args.num_demos),
+        # a chunk: probe_q (the critic on two batches, two K5 layers each) and
+        # eval_pose_error (a settled reset of its envs, then an episode of
+        # steps and argmax policy passes, two K5 layers each)
+        {"control_step": chunks * (SETTLE_STEPS + episode),
+         "dense_layer_norm_tanh_fwd": chunks * (2 * 2 + 2 * episode)})
+    fields = ("train_succ", "eval_succ", "Q_pos", "Q_early", "alpha", "H")
+    finite = all(math.isfinite(r[k]) for r in records for k in fields) and all(
+        math.isfinite(v) for r in records for v in r["err"])
+    print(f"tools (c) probe_peg {' '.join(TOOLS_PROBE_ARGV)}: {chunks} chunks of {chunk} "
+          f"iterations in {seconds:.1f} s (host clock); last {json.dumps(records[-1])}; K5 held "
+          f"at the probe's critic batches {[k5_label(s) for s in probe_shapes]}; launches "
+          f"{json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"the probe: expected launches {want}, got {launches}")
+    if not finite or records[-1]["steps"] < args.total_steps:
+        raise AssertionError(f"the probe's fields are not all finite: {records}")
+    return {"launches": launches, "seconds": seconds, "records": records,
+            "per_update": _pose_per_update(config, bc=False, demo_streams=args.num_demos)}
+
+
+def phase_tools_paths(torch, device, card, k5_checks) -> dict:
+    """The tools phase (see TOOLS_PRETRAIN_STEPS' comment); every part fatal."""
+    seconds, out = {}, {}
+    for name, part in (("pretrain", lambda: _tools_pretrain_part(torch, device, card)),
+                       ("dump", lambda: _tools_dump_part(torch, device, card)),
+                       ("probe", lambda: _tools_probe_part(torch, device, card, k5_checks))):
+        t = time.perf_counter()
+        out[name] = part()
+        seconds[name] = time.perf_counter() - t
+    out["seconds"] = seconds
+    print(f"tools phase seconds (host clock): "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return out
+
+
+def tools_launches(tools: dict) -> tuple:
+    """(launches by path, per-iteration launches by path) of the tools phase."""
+    launches = {"tools_pretrain": tools["pretrain"]["launches"],
+                "tools_pretrained_update": tools["pretrain"]["update_launches"],
+                "tools_dump": tools["dump"]["launches"],
+                "tools_probe": tools["probe"]["launches"]}
+    per_iter = {"tools_pretrain": tools["pretrain"]["launches"],  # whole paths
+                "tools_pretrained_update": tools["pretrain"]["update_launches"],
+                "tools_dump": tools["dump"]["launches"],
+                "tools_probe": tools["probe"]["per_update"]}  # per updating iteration
+    return launches, per_iter
+
+
 def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, ptxas):
     """The kernel table's entries. `launches` is each kernel's count over the
     timed iterations of the path its row describes: the state learner path
@@ -5270,11 +5528,14 @@ def kernel_table(rows, lrows, prows, k5rows, errs, launches_by_path, per_iter, p
     return kernels
 
 
-def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = False) -> int:
+def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = False,
+         tools_only: bool = False) -> int:
     """The whole run; with `kernels_only` (--kernels) phases 1 and 2 and K5's
     times only, with `gc_only` (--gc) phase 1, K5 held and timed at the GC
     phase's shapes and the GC phase, with `rest_only` (--rest) phases 1 and 2
-    and the rest phase (phase_rest_paths); none prints the result lines."""
+    and the rest phase (phase_rest_paths), with `tools_only` (--tools) phases
+    1 and 2 and the tools phase (phase_tools_paths); none prints the result
+    lines."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5282,7 +5543,7 @@ def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = Fa
     for part in ("serl_tpu_torch", os.path.join("tests", "torch_k1.py"),
                  os.path.join("tests", "torch_k2.py"), os.path.join("tests", "torch_k5.py"),
                  os.path.join("tests", "torch_resnet.py"), os.path.join("tests", "torch_dp.py"),
-                 "resnet10_params.pkl"):
+                 "resnet10_params.pkl", TOOLS_RENDER_RECORD):
         if not os.path.exists(os.path.join(HERE, part)):
             return fail(f"{part} is not beside chip_smoke.py: run it from the repository")
     sys.path.insert(0, HERE)
@@ -5380,6 +5641,11 @@ def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = Fa
         print(f"--rest: every kernel held against its plain version, then the rest phase; "
               f"{time.perf_counter() - t0:.1f} s from the first build")
         return 0
+    if tools_only:
+        phase_tools_paths(torch, device, card, k5_checks)
+        print(f"--tools: every kernel held against its plain version, then the tools phase; "
+              f"{time.perf_counter() - t0:.1f} s from the first build")
+        return 0
     if kernels_only:
         phase_k5_times(torch, k5_checks, device, card)
         print(f"--kernels: every kernel built and held against its plain version; "
@@ -5445,6 +5711,10 @@ def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = Fa
     rest = phase_rest_paths(torch, device, card)
     new_s["rest"] = time.perf_counter() - t_new
     rest_by_path, rest_per_iter = rest_launches(rest)
+    t_new = time.perf_counter()
+    tools = phase_tools_paths(torch, device, card, k5_checks)
+    new_s["tools"] = time.perf_counter() - t_new
+    tools_by_path, tools_per_iter = tools_launches(tools)
 
     # phase 4: times
     rows = phase_times(torch, engine, checks, device, card, env, agent, carry, run_chunk)
@@ -5483,7 +5753,9 @@ def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = Fa
                 # the data-parallel paths: a rank's whole path (rank 0's; every rank's equal)
                 **dp_launches,
                 # the rest phase: per timed iteration, actor step, learner update
-                **rest_per_iter}
+                **rest_per_iter,
+                # the tools phase: whole paths; the probe per updating iteration
+                **tools_per_iter}
     kernels = kernel_table(rows, lrows, prows, k5rows, errs,
                            {"actor": actor_launches, "learner": learner_launches,
                             "pixel": pixel_launches, "rlpd": rlpd_launches_path,
@@ -5494,7 +5766,8 @@ def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = Fa
                             **{f"fwbw_{m}": fwbw[m][0] for m in fwbw},
                             **{f"async_{m}_actor": a["launches_actor"] for m, a in asyncs.items()},
                             **{f"async_{m}_learner": a["launches_learner"]
-                               for m, a in asyncs.items()}, **dp_launches, **rest_by_path},
+                               for m, a in asyncs.items()}, **dp_launches, **rest_by_path,
+                            **tools_by_path},
                            per_iter, ptxas)
     for kernel in kernels:
         if kernel["name"] == "replay_gather":
@@ -5554,8 +5827,13 @@ def main(kernels_only: bool = False, gc_only: bool = False, rest_only: bool = Fa
           f"{json.dumps(rest['fwbw']['eval_result'])}; external actor "
           f"{rest['external']['actor']['env_steps_s']:.1f} env-steps/s, learner "
           f"{rest['external']['learner']['updates_s']:.2f} updates/s [{card}]")
+    p, pr = tools["pretrain"], tools["probe"]["records"][-1]
+    print(f"tools: pretraining collected its frames in {p['collect_s']:.3f} s, trained at "
+          f"{p['train_ms_per_step']:.3f} ms a step (loss {p['loss_first']:.4f} -> "
+          f"{p['loss_last']:.4f}, means of the first and last {TOOLS_LOSS_WINDOW}); the probe's "
+          f"last line {json.dumps(pr)} [{card}]")
     print("the pixel RLPD, ResNet, trained ResNet, pose, learned-reward, GC, fwbw, two-process, "
-          "data-parallel, rest and timing phases' "
+          "data-parallel, rest, tools and timing phases' "
           "seconds (host clock): "
           + json.dumps({k: round(v, 1) for k, v in new_s.items()}))
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "serl_tpu."))
@@ -5577,7 +5855,8 @@ if __name__ == "__main__":
             code = dp_state_main()
         else:
             code = main(kernels_only=sys.argv[1:] == ["--kernels"],
-                        gc_only=sys.argv[1:] == ["--gc"], rest_only=sys.argv[1:] == ["--rest"])
+                        gc_only=sys.argv[1:] == ["--gc"], rest_only=sys.argv[1:] == ["--rest"],
+                        tools_only=sys.argv[1:] == ["--tools"])
     except Exception as exc:  # every phase failure ends the run with no result line
         import traceback
 

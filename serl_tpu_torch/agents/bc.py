@@ -21,6 +21,7 @@ LayerNorm -> tanh only); the encoder's bottleneck and proprio run K5.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -32,6 +33,13 @@ from serl_tpu_torch.common.train_state import TrainState
 from serl_tpu_torch.networks.actor_critic import PolicyNet
 from serl_tpu_torch.utils.pretrained import graft_resnet10
 from serl_tpu_torch.vision.encoding import ObsEncoder
+
+
+@dataclass(frozen=True)
+class BCConfig:
+    """The JAX package's (unused) BC config: the camera keys only."""
+
+    image_keys: Tuple[str, ...] = ()
 
 
 class BCAgent(nn.Module):

@@ -49,6 +49,13 @@ class Normal:
     def mode(self) -> torch.Tensor:
         return self.loc
 
+    def stddev(self) -> torch.Tensor:
+        return torch.broadcast_to(self.scale, self.loc.shape)
+
+    def entropy(self) -> torch.Tensor:
+        per_dim = 0.5 * (1.0 + _LOG_2PI) + torch.log(self.scale)
+        return torch.broadcast_to(per_dim, self.loc.shape).sum(-1)
+
 
 def _tanh_log_det_jacobian(pre_tanh: torch.Tensor) -> torch.Tensor:
     # log(1 - tanh(x)^2) == 2 * (log 2 - x - softplus(-2x)), summed over event dim
@@ -105,3 +112,8 @@ class TanhNormal:
 
     def mode(self) -> torch.Tensor:
         return self._forward(self.loc)
+
+    def stddev(self) -> torch.Tensor:
+        """The bijector's forward of the base std (the JAX package's and the
+        reference's meaning), not the std of the squashed variable."""
+        return self._forward(torch.broadcast_to(self.scale, self.loc.shape))

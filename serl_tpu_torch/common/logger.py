@@ -67,3 +67,6 @@ class Logger:
         if self._fh:
             self._fh.close()
             self._fh = None
+
+
+WandBLogger = Logger  # the reference's name (wandb itself is not used)

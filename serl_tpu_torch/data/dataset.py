@@ -48,6 +48,15 @@ class Dataset:
         idx = indices.to(self.device)
         return _map(lambda v: v[idx], self.data)
 
+    def sample(self, batch_size: int, indx=None,
+               generator: Optional[torch.Generator] = None) -> Dict:
+        """The rows at `indx` when given, else `sample_jax`'s uniform draw of
+        `batch_size` rows from `generator` (JAX's draws from a key)."""
+        if indx is None:
+            return self.sample_jax(batch_size, generator)
+        idx = torch.as_tensor(np.array(indx), dtype=torch.int64, device=self.device)
+        return _map(lambda v: v[idx], self.data)
+
     def split(self, ratio: float, permutation=None) -> Tuple["Dataset", "Dataset"]:
         """The rows at `permutation`'s first int(size * ratio) entries, and
         the rest; `permutation` drawn from numpy's global state unless

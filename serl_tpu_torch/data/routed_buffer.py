@@ -78,6 +78,10 @@ class RoutedReplayBuffer(ReplayBuffer):
         state.size = torch.where(mask, torch.clamp(state.size + 1, max=slots), state.size)
         return state
 
+    def total_rows(self, state: RoutedBufferState) -> torch.Tensor:
+        """The rows held over every stream (a 0-d tensor on the ring's device)."""
+        return state.size.sum()
+
     def sample(self, state: RoutedBufferState, batch_size: int, *,
                generator: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
                e: Optional[torch.Tensor] = None, dp=None) -> Dict[str, torch.Tensor]:

@@ -63,10 +63,29 @@ class ArmKin(NamedTuple):
     pinch_rmat: torch.Tensor  # (..., 3, 3)
 
 
+def rotate_by(R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """R @ C for a batch of (..., 3, 3) rotations R and one constant (3, 3)
+    C, as an elementwise product summed over the shared axis. A batched `@`
+    against a constant folds the batch into the product's rows, and on the
+    card cuBLAS picks its kernel, and so its rounding, by that row count: a
+    4-row batch's result differed from the same rows of an 8-row batch's
+    (tests/bin_obs_rounding.py). This form rounds each row alike at any row
+    count."""
+    return (R[..., :, :, None] * C).sum(-2)
+
+
 @f32_precision
-def fk(qpos: torch.Tensor) -> ArmKin:
-    """Forward kinematics. qpos: (..., 7)."""
+def fk(qpos: torch.Tensor, rows_alike: bool = False) -> ArmKin:
+    """Forward kinematics. qpos: (..., 7). With `rows_alike` the products
+    by the model's constant rotations are `rotate_by`'s, so that each row
+    rounds as it would in a batch of any size: the pose tasks' observations
+    and the bin task's reward take it, and a data-parallel rank's rows equal
+    one rank's. The physics, the resets and the experts keep the batched
+    `@`: their rounding sets the states at which K1 is held to its plain
+    version, and a state moved by an ulp can cross `mat_to_quat`'s sign flip
+    (tests/torch_k1.py)."""
     c = _consts(qpos.device, qpos.dtype)
+    rotate = rotate_by if rows_alike else torch.matmul
     batch = qpos.shape[:-1]
     p = c["body_pos"][0].expand(batch + (3,))
     R = c["body_rmat"][0].expand(batch + (3, 3))
@@ -75,7 +94,7 @@ def fk(qpos: torch.Tensor) -> ArmKin:
     one = torch.ones_like(zero)
     for i in range(1, NL + 1):
         p = p + R @ c["body_pos"][i]
-        R_fixed = R @ c["body_rmat"][i]
+        R_fixed = rotate(R, c["body_rmat"][i])
         cq, sq = torch.cos(qpos[..., i - 1]), torch.sin(qpos[..., i - 1])
         Rz = torch.stack([cq, -sq, zero, sq, cq, zero, zero, zero, one], -1)
         R = R_fixed @ Rz.reshape(batch + (3, 3))
@@ -85,7 +104,7 @@ def fk(qpos: torch.Tensor) -> ArmKin:
     p = torch.stack(ps, -2)
     R = torch.stack(Rs, -3)
     pinch_pos = p[..., NL, :] + R[..., NL, :, :] @ c["pinch_pos"]
-    pinch_rmat = R[..., NL, :, :] @ c["pinch_rmat"]
+    pinch_rmat = rotate(R[..., NL, :, :], c["pinch_rmat"])
     return ArmKin(p=p, R=R, axes=torch.stack(axes, -2), pinch_pos=pinch_pos,
                   pinch_rmat=pinch_rmat)
 

@@ -71,6 +71,7 @@ from serl_tpu_torch.envs.physics.opspace import opspace_torques
 # ---- constants ----
 DT = 0.002
 N_SUBSTEPS = 10
+CONTROL_DT = DT * N_SUBSTEPS
 
 JOINT_DAMPING = np.asarray(pm.JOINT_DAMPING, np.float32)
 JNT_LO = np.asarray(pm.JOINT_RANGE, np.float32)[:, 0]

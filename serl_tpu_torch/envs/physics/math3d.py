@@ -115,6 +115,14 @@ def mat_to_quat(m):
     return quat_normalize(torch.stack([w, x, y, z], -1))
 
 
+def quat_rotate(q, v):
+    """Rotate vectors v (…,3) by quaternions q (…,4)."""
+    w = q[..., :1]
+    u = q[..., 1:]
+    uv = cross(u, v)
+    return v + 2.0 * (w * uv + cross(u, uv))
+
+
 def quat_from_axis_angle(axis, angle):
     half = angle * 0.5
     return torch.cat([torch.cos(half)[..., None], axis * torch.sin(half)[..., None]], dim=-1)

@@ -319,7 +319,7 @@ class PandaPoseTaskEnv:
 
     def _obs(self, state: EnvState) -> Dict:
         phys = state.physics
-        kin = fk(phys.qpos)
+        kin = fk(phys.qpos, rows_alike=True)
         tcp_vel, _ = pinch_velocity(kin, phys.qvel)
         obs_state = {"tcp_pose": self._pose(kin), "tcp_vel": tcp_vel,
                      "gripper_pose": (phys.grip_ctrl / 255.0)[:, None]}
@@ -462,7 +462,7 @@ def bin_shaped_reward(state: EnvState, success: torch.Tensor, gripper_moved: tor
                       target: torch.Tensor, gripper_penalty: float) -> torch.Tensor:
     """0.15 exp(-20 |tcp - cube|) + 0.25 lift (over the walls) + 0.6 carry
     (toward `target`, (2,) or (N, 2)) + success - the gripper penalty."""
-    tcp, _, cube = engine.observe(state.physics)
+    tcp, cube = fk(state.physics.qpos, rows_alike=True).pinch_pos, state.physics.cube_pos
     r_reach = 0.15 * torch.exp(-20.0 * norm(tcp - cube))
     r_lift = 0.25 * torch.clamp((cube[:, 2] - 0.02) / (WALL_HEIGHT + 0.04), 0.0, 1.0)
     d0 = math.hypot(FW_BIN[0] - BW_BIN[0], FW_BIN[1] - BW_BIN[1])

@@ -1,4 +1,5 @@
-"""Phase timer: the port's own copy of `serl_tpu/utils/timer.py`'s `Timer`.
+"""Phase timer: the port's own copy of `serl_tpu/utils/timer.py`'s `Timer`,
+and `torch_profile`, the counterpart of its `jax_profile`.
 
 tick/tock and a context manager; `get_average_times(reset=True)` returns the
 mean wall time per phase since the last reset. The host clock only: a phase
@@ -7,8 +8,12 @@ synchronizes.
 """
 
 import contextlib
+import os
 import time
 from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 
 class Timer:
@@ -45,3 +50,21 @@ class Timer:
         if reset:
             self.reset()
         return {k: round(v, 6) for k, v in ret.items()}
+
+
+@contextlib.contextmanager
+def torch_profile(logdir: str):
+    """Capture a torch.profiler trace of a code block into
+    `logdir/trace.json` (chrome://tracing, Perfetto): the counterpart of the
+    JAX package's `jax_profile`. CPU activity always, CUDA activity where the
+    process has a card. Yields the profiler, whose `key_averages()` the
+    caller may read after the block."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

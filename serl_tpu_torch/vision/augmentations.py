@@ -1,6 +1,6 @@
 """DrQ's random crop (K3).
 
-Port of `batched_random_crop`, `_crop_indices` and
+Port of `random_crop`, `batched_random_crop`, `_crop_indices` and
 `batched_random_crop_gather` from `serl_tpu/vision/augmentations.py`. The
 crop pads each image by `padding` pixels of edge replication and cuts a
 window of the original size at a random offset, independently for every
@@ -152,6 +152,12 @@ def batched_random_crop(img: torch.Tensor, offsets: torch.Tensor, *, padding: in
     """Random crop with edge padding, one window per leading-batch element:
     img (*batch, H, W, C), offsets (prod(batch), 2) in [0, 2 * padding]."""
     return crop_images([img], [offsets], padding=padding, num_batch_dims=num_batch_dims)[0]
+
+
+def random_crop(img: torch.Tensor, offsets: torch.Tensor, *, padding: int) -> torch.Tensor:
+    """One image (H, W, C) through the batched crop: offsets (1, 2) or (2,),
+    its (row, column) window offset in [0, 2 * padding]."""
+    return batched_random_crop(img[None], offsets.reshape(1, 2), padding=padding)[0]
 
 
 # ------------------------------------------------------------------ photometric

@@ -629,3 +629,6 @@ class SmallEncoder(nn.Module):
         if self.bottleneck is not None:
             x = self.bottleneck(x)
         return x
+
+
+small_configs = {"small": SmallEncoder}

@@ -15,8 +15,19 @@ serl_tpu's, on the CPU.
   return mean, return std and success rate, 1e-5 abs.
 - The record_demo and bc_policy examples: their flags and defaults, and
   both main()s on the CPU at a tiny size.
+- `BCAgent.create(encoder_type="resnet-pretrained")` with
+  `SERL_RESNET10_PARAMS` at the committed pickle: every backbone tensor
+  holds the pickle's float16 value cast to fp32 (kernels HWIO -> OIHW),
+  exactly, and an update leaves it so. The JAX package's BC graft looks up
+  `encoder_<key>` where flax names the ObsEncoder's dict `encoders_<key>`
+  (`serl_tpu/agents/bc.py:187`), so JAX raises a KeyError whenever the
+  pickle is found; the port grafts under flax's name (the inherited quirk
+  is not carried over, it cannot be: JAX has no grafted agent to match).
 """
 
+from pathlib import Path
+
+import math
 import pickle
 
 import jax
@@ -34,7 +45,8 @@ from serl_tpu_torch.data.dataset import Dataset
 from serl_tpu_torch.examples import bc_policy, record_demo
 from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
 from serl_tpu_torch.networks import mlp
-from serl_tpu_torch.utils.jax_params import actor_pairs, load_pairs, pairs_to_tree
+from serl_tpu_torch.utils.jax_params import actor_pairs, load_pairs, pairs_to_tree, resnet_pairs
+from serl_tpu_torch.utils.pretrained import read_params
 from tests.test_torch_learner import jax_state_np
 
 OBS, ACT, H = 10, 4, 32
@@ -145,6 +157,43 @@ def test_torch_bc_create_defaults_and_no_encoder():
                              "front": torch.zeros((1, 1, 32, 32, 3), dtype=torch.uint8)},
                             torch.zeros(1, ACT), image_keys=("front",), device="cpu")
     assert pixels.encoder is not None and list(pixels.state.params) == ["actor"]
+
+
+def test_torch_bc_resnet_pretrained_holds_the_committed_backbone(monkeypatch):
+    pkl = Path(__file__).resolve().parents[1] / "resnet10_params.pkl"
+    monkeypatch.setenv("SERL_RESNET10_PARAMS", str(pkl))
+    rng = np.random.default_rng(3)
+    obs = {"state": rng.normal(size=(4, 7)).astype(np.float32),
+           "image": rng.integers(0, 256, (4, 1, 64, 64, 3)).astype(np.uint8)}
+    actions = rng.uniform(-1, 1, (4, ACT)).astype(np.float32)
+    agent = BCAgent.create(_tb(obs), torch.from_numpy(actions), encoder_type="resnet-pretrained",
+                           image_keys=("image",), generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    raw = read_params(str(pkl))
+    backbone = agent.encoder.encoders["image"].pretrained_encoder
+
+    def check():
+        for path, tensor, layout in resnet_pairs(backbone):
+            node = raw
+            for k in path:
+                node = node[k]
+            want = torch.from_numpy(node.astype(np.float32))
+            want = want.permute(3, 2, 0, 1) if layout == "HWIO" else want
+            assert tensor.dtype == torch.float32 and torch.equal(tensor.detach(), want), path
+
+    check()
+    assert sorted({p[0] for p, _, _ in resnet_pairs(backbone)}) == sorted(raw)
+    features = agent.encoder(_tb(obs))
+    assert bool(torch.isfinite(features).all())
+    _, info = agent.update({"observations": _tb(obs), "actions": torch.from_numpy(actions)},
+                           draws={"encoder_dropout": {"image": torch.ones(
+                               (4, agent.encoder.encoders["image"].dropout_features),
+                               dtype=torch.bool)}})
+    assert math.isfinite(float(info["actor_loss"]))
+    check()  # the encoder is never trained
+    with pytest.raises(KeyError, match="encoder_image"):  # the JAX package's misnamed graft
+        JaxBCAgent.create(jax.random.PRNGKey(0), obs, actions, encoder_type="resnet-pretrained",
+                          image_keys=("image",))
 
 
 def test_torch_dataset_sample_jax_takes_jax_indices():
