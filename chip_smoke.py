@@ -314,6 +314,9 @@ K4_PIXEL_SHAPE = dict(slots=625, streams=16, rows_per_stream=64)  # 10,000 rows,
 # batch 1,024; 13-dim observations, 7-dim actions), whole and a rank's half
 K4_FWBW_ISOLATED_SHAPES = (dict(slots=12500, streams=8, rows_per_stream=128),
                            dict(slots=12500, streams=4, rows_per_stream=128))
+# perf_pixels' 64 px row (tools phase (f)): 16 envs' frames at 64 px, where K2 renders, K3 crops
+# and K4 gathers
+TOOLS_SMALL_N, TOOLS_SMALL_SIZE = 16, 64
 # the pixel rings K4 gathers from: bench_pixels' (small encoder and ResNet),
 # the pixel RLPD path's online half (50,000 rows over 16 streams, 512 of a
 # 1,024-row batch), and that half on bench_pixels' ring
@@ -323,7 +326,11 @@ K4_PIXEL_SHAPES = (K4_PIXEL_SHAPE, dict(slots=3125, streams=16, rows_per_stream=
                    dict(slots=625, streams=8, rows_per_stream=64),
                    # the frame-stack ring of the rest phase (make_drq_sim_experiment's
                    # 50,048 rows over 128 streams, batch 1,024)
-                   dict(slots=391, streams=128, rows_per_stream=8))
+                   dict(slots=391, streams=128, rows_per_stream=8),
+                   # perf_pixels' ring (16 envs x 640), at 128 px and, for its 64 px
+                   # row, at TOOLS_SMALL_SIZE
+                   dict(slots=640, streams=16, rows_per_stream=64),
+                   dict(slots=640, streams=16, rows_per_stream=64, size=TOOLS_SMALL_SIZE))
 # the pose tasks' pixel rings (10-dim state, 7-dim actions): 20,000 rows over
 # 16 streams, sampled 512 rows (sample_mixed's online half on the peg and
 # cable-route paths) and 80 (VICE's classifier batches)
@@ -461,6 +468,8 @@ K3_PATHS = (
     # both cameras' 128 next observations
     ((128, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "uint8", 0, 1, 16),
     ((128, 1, PIXEL_SIZE, PIXEL_SIZE, 3), "uint8", 0, 2, 16),
+    # perf_pixels' 64 px row: both cameras' obs and next_obs, 192-byte rows
+    ((1024, 1, TOOLS_SMALL_SIZE, TOOLS_SMALL_SIZE, 3), "uint8", 0, 4, 16),
 )
 # K5's calls on the main paths, (form, E, M, K, D) -> (whether that call's
 # backward computes the weight grads, dgamma, dbeta, dbias and dW: not in
@@ -611,12 +620,26 @@ K5_REST_SHAPES = {
     ("linear", 1, 1024, 16, 256): (True, False),
     ("linear", 1, 1, 16, 256): (True, False),
 }
+# the measurement tools' shapes (tools/mfu_experiments.py, perf_speed_of_light.py): their
+# SmallEncoders pool with learned spatial embeddings (256 channels x 8), so
+# the bottleneck is K5 at K = 2,048: a critic minibatch (256 rows; the
+# embeddings' kernel below needs dx), the actor update's 1,024, and both
+# cameras stacked through one shared encoder (512, 2,048). Phase 2 holds
+# them; phase 4 does not time them (the ResNet heads' K = 4,096 are timed)
+K5_TOOLS_SHAPES = {
+    ("linear", 1, 256, 2048, 256): (True, True),
+    ("linear", 1, 512, 2048, 256): (True, True),
+    ("linear", 1, 1024, 2048, 256): (True, True),
+    ("linear", 1, 2048, 2048, 256): (True, True),
+}
 K5_SHAPES.update(K5_DP_SHAPES)
 K5_SHAPES.update(K5_GC_SHAPES)
 K5_SHAPES.update(K5_REST_SHAPES)
+K5_SHAPES.update(K5_TOOLS_SHAPES)
 # held in phase 2 (the probe's critic batches in the tools phase), not timed in phase 4 (the
 # GC shapes are timed by `--gc`)
-K5_UNTIMED = set(K5_DP_SHAPES) | set(K5_REST_SHAPES) | set(K5_GC_SHAPES)
+K5_UNTIMED = (set(K5_DP_SHAPES) | set(K5_REST_SHAPES) | set(K5_GC_SHAPES)
+              | set(K5_TOOLS_SHAPES))
 K5_MAIN = ("member", 10, 256, 256, 256)  # the shape of most K5 launches: the critic updates
 # K5's float operations per output element outside the product, counted in
 # its kernels' code (the per-row divisions and square root left out):
@@ -1343,8 +1366,10 @@ def phase_k5_times(torch, k5_checks, device, card, shapes=None):
     two products), and the torch sequence the op replaced (the Dense as
     F.linear or matmul/bmm plus the bias, then tanh(F.layer_norm); its
     autograd backward), each per call (calls back to back between CUDA
-    events) and on the device (torch.profiler: our kernel alone for the
-    wrappers, every kernel for the op and the sequence)."""
+    events), and on the device (torch.profiler) our kernel alone for the
+    wrappers at every shape, every kernel of the op and of the sequence at
+    K5_MAIN only (their profiler passes at the other shapes were cut to keep
+    the whole run inside its time limit)."""
     import torch.nn.functional as F
 
     from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
@@ -1356,6 +1381,7 @@ def phase_k5_times(torch, k5_checks, device, card, shapes=None):
             continue
         form, e, m, k, d = shape
         member = form == "member"
+        traced = shape == K5_MAIN  # the op's and the sequence's device time
         x, kernel, bias, gamma, beta, dy = k5_checks.inputs(form, e, m, k, d, g, device)
         x3, w3, b2, out_shape = k5.member_views(x, kernel, bias, member)
         y, h, mean, rstd = k5.dense_layer_norm_tanh_forward(x3, w3, b2, gamma, beta, save=True)
@@ -1409,20 +1435,23 @@ def phase_k5_times(torch, k5_checks, device, card, shapes=None):
                 profiler_ms=profiled_kernel_ms(c["kernel"], 50, c["kernel_name"]),
                 plain_ms=per_call_ms(c["plain"], calls=20),
                 op_ms=per_call_ms(c["op"], calls=50),
-                op_profiler_ms=profiled_kernel_ms(c["op"], 50, ""),
+                op_profiler_ms=profiled_kernel_ms(c["op"], 50, "") if traced else None,
                 sequence_ms=per_call_ms(c["sequence"], calls=50),
-                sequence_profiler_ms=profiled_kernel_ms(c["sequence"], 50, ""),
+                sequence_profiler_ms=(profiled_kernel_ms(c["sequence"], 50, "") if traced
+                                      else None),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=c["bytes"],
                 tf32_ops=c["tf32_ops"], fp32_ops=c["ops"], library_ms=None)
             what = ("y, h, mean, rstd stored" if direction == "fwd" else
                     "dh" + (", dgamma, dbeta, dbias" if wg else " only (as on the main path)"))
+            on_device = lambda key: ("" if row[key] is None
+                                     else f", {row[key]:.4f} ms on the device")
             print(f"K5 {direction} at {k5_label(shape)} ({what}): kernel {row['ms']:.4f} ms per "
                   f"call (50 back to back, CUDA events), {row['profiler_ms']:.4f} ms on the "
                   f"device (torch.profiler); plain {row['plain_ms']:.4f} ms; the op through "
                   f"autograd{' with its dx, dW products' if direction == 'bwd' else ''} "
-                  f"{row['op_ms']:.4f} ms per call, {row['op_profiler_ms']:.4f} ms on the "
-                  f"device; the replaced torch sequence {row['sequence_ms']:.4f} ms per call, "
-                  f"{row['sequence_profiler_ms']:.4f} ms on the device; bound "
+                  f"{row['op_ms']:.4f} ms per call{on_device('op_profiler_ms')}; the replaced "
+                  f"torch sequence {row['sequence_ms']:.4f} ms per call"
+                  f"{on_device('sequence_profiler_ms')}; bound "
                   f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({row['bytes']} bytes, "
                   f"{row['tf32_ops']} TF32 tensor-core ops at 495 TFLOP/s, {row['fp32_ops']} "
                   f"fp32 ops at 67 TFLOP/s) [{card}]")
@@ -1437,8 +1466,8 @@ def _cube_frames(torch, frames) -> int:
     return int(cube.flatten(1).any(1).sum())
 
 
-def _k2_hold(torch, k2, builds, s, where: str, rule: dict):
-    """K2 on the states `s` against its plain version under the pixel rule
+def _k2_hold(torch, k2, builds, s, where: str, rule: dict, size: int = PIXEL_SIZE):
+    """K2 on the states `s` at `size` px against its plain version under the pixel rule
     of tests/torch_k2.py, each build of `builds` (the first, the shipped one,
     must hold), and each build's scene rows against pack_scene's. Returns
     (the shipped build's worst level difference, the worst scene row error,
@@ -1446,12 +1475,12 @@ def _k2_hold(torch, k2, builds, s, where: str, rule: dict):
     from serl_tpu_torch.envs import rendering
 
     n = s.cube_pos.shape[0]
-    want = rendering.render_cameras_plain(s, PIXEL_SIZE)
-    ids = k2.surface_ids(s, PIXEL_SIZE)
+    want = rendering.render_cameras_plain(s, size)
+    ids = k2.surface_ids(s, size)
     shipped, worst, scene_err = next(iter(builds)), 0, 0.0
     for label, lib in builds.items():
         rows = torch.empty((n, rendering.SCENE_FLOATS), device=s.cube_pos.device)
-        got = rendering.render_cameras_cuda(s, PIXEL_SIZE, scene_out=rows, lib=lib)
+        got = rendering.render_cameras_cuda(s, size, scene_out=rows, lib=lib)
         torch.cuda.synchronize()
         err = float((rows - rendering.pack_scene(s)).abs().max())
         print(f"K2 ({label}) scene rows vs pack_scene, {where}: max abs err {err:.3g} "
@@ -1472,7 +1501,8 @@ def _k2_hold(torch, k2, builds, s, where: str, rule: dict):
 
 def phase_k2_vs_plain(torch, checks, k2, builds, device):
     """K2 against its plain version at K2_N envs, 128 px, on rollout and
-    grasp states, and at the fwbw paths' 32 chained envs on bin states
+    grasp states, at perf_pixels' 64 px row (TOOLS_SMALL_N envs), and at
+    the fwbw paths' 32 chained envs on bin states
     (phase_k2_bin_vs_plain), under the pixel rule of tests/torch_k2.py, both
     -fmad builds; the kernel's scene rows (its debug output) against
     pack_scene's; one render under torch.cuda.set_sync_debug_mode("error")."""
@@ -1491,6 +1521,11 @@ def phase_k2_vs_plain(torch, checks, k2, builds, device):
                 print(f"K2 grasp states at N={n}: the cube is in {envs} of {n} wrist frames")
                 if envs < n // 2:
                     raise AssertionError(f"the cube is in view in only {envs} of {n} grasp frames")
+    for source, make in (("rollout", checks.rollout_states), ("grasp", checks.grasp_states)):
+        w, e, _ = _k2_hold(torch, k2, builds, make(TOOLS_SMALL_N, g, device),
+                           f"N={TOOLS_SMALL_N}, {TOOLS_SMALL_SIZE} px, {source} states", rule,
+                           TOOLS_SMALL_SIZE)
+        worst, scene_err = max(worst, w), max(scene_err, e)
     w, e = phase_k2_graze(torch, checks, k2, builds, device, rule)
     worst, scene_err = max(worst, w), max(scene_err, e)
     w, e = phase_k2_bin_vs_plain(torch, checks, k2, builds, device, rule)
@@ -1624,10 +1659,12 @@ def phase_k3_vs_plain(torch, device):
 
 
 def _pixel_ring(torch, device, g, slots=K4_PIXEL_SHAPE["slots"],
-                streams=K4_PIXEL_SHAPE["streams"], state_dim=7, action_dim=4):
-    """A full, wrapped ring of slots x streams with 100-slot episodes that end
-    at another slot in every stream: (data, ep_id, insert_slot)."""
-    frame = (PIXEL_SIZE, PIXEL_SIZE, 3)
+                streams=K4_PIXEL_SHAPE["streams"], state_dim=7, action_dim=4,
+                size=PIXEL_SIZE):
+    """A full, wrapped ring of slots x streams of `size` px frames with
+    100-slot episodes that end at another slot in every stream: (data,
+    ep_id, insert_slot)."""
+    frame = (size, size, 3)
     data = {"observations": {"state": torch.randn((slots, streams, state_dim), generator=g,
                                                   device=device),
                              **{k: torch.randint(0, 256, (slots, streams) + frame, generator=g,
@@ -1656,12 +1693,12 @@ def phase_k4_pixel_vs_plain(torch, device):
 
 
 def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream, state_dim=7,
-                       action_dim=4):
+                       action_dim=4, size=PIXEL_SIZE):
     from serl_tpu_torch.data import replay_buffer as rbm
 
     r = rows_per_stream
     data, ep_id, insert_slot = _pixel_ring(torch, device, g, slots, streams, state_dim,
-                                           action_dim)
+                                           action_dim, size)
     stream = torch.arange(streams, device=device)
     starts = ((ep_id != ep_id.roll(1, 0)).to(torch.int32).argmax(0))  # an episode's first slot
     u = torch.randint(0, slots - 1, (r, streams), generator=g, device=device)
@@ -1695,7 +1732,7 @@ def _k4_pixel_vs_plain(torch, device, g, slots, streams, rows_per_stream, state_
         raise AssertionError("K4 pixel check sampled no clamped stack or no episode end")
     print(f"K4 pixel vs plain at {slots} slots x {streams} streams ({state_dim}-dim state, "
           f"{action_dim}-dim actions), {r * streams} rows of "
-          f"{PIXEL_SIZE} px frames, T = 1 and 3, next_observations stored (the quirk: their "
+          f"{size} px frames, T = 1 and 3, next_observations stored (the quirk: their "
           f"cameras stacked from the observations ring) and not ({clamped} clamped stack frames "
           f"at T = 3, "
           f"{boundary} rows at an episode end): exactly equal")
@@ -5174,12 +5211,22 @@ def rest_launches(rest: dict) -> tuple:
 # the collected frames. (b) dump_render_frames: the 100-step expert episode
 # at N = 1, against the JAX tool's committed frames' names. (c) probe_peg
 # at TOOLS_PROBE_ARGV (its 24,000 steps cut to 2,000 past the gate, 3
-# chunks).
+# chunks). (d) perf_speed_of_light at its defaults but --iters TOOLS_ITERS
+# (sol, update, shared, shared2), and the count of one update_high_utd on the
+# card held against the plain path's on CPU tensors (TOOLS_COUNT_ROWS rows a
+# minibatch, the count scaled: every operation FlopCounterMode counts does
+# work linear in the rows) and K5's tally against FlopCounterMode of the
+# plain version at every shape the call launched. (e) mfu_experiments' five
+# levers at --iters TOOLS_ITERS. (f) perf_pixels' five rows in chunks of
+# TOOLS_PIXEL_CHUNK iterations, each timed chunk's launches held.
 TOOLS_PRETRAIN_STEPS = 200
 TOOLS_LOSS_WINDOW = 50
 TOOLS_UPDATE = dict(batch_size=256, utd_ratio=4)
 TOOLS_PROBE_ARGV = ["--total_steps", "2000", "--eval_period", "1000"]
 TOOLS_RENDER_RECORD = os.path.join("results", "render_frames")  # the JAX tool's PNGs
+TOOLS_ITERS = 2
+TOOLS_COUNT_ROWS = 16
+TOOLS_PIXEL_CHUNK = 5
 
 
 def _tools_pretrain_part(torch, device, card) -> dict:
@@ -5400,12 +5447,224 @@ def _tools_probe_part(torch, device, card, k5_checks) -> dict:
             "per_update": _pose_per_update(config, bc=False, demo_streams=args.num_demos)}
 
 
+class _Multiset(list):
+    """K5's shape log with one entry a call (`k5.shape_log` takes any `.add`)."""
+
+    add = list.append
+
+
+def _drop_sample_shapes(k5):
+    """An agent's constructor runs its encoder on a one-row sample (two rows
+    when one encoder takes both cameras stacked) while its weights are on the
+    CPU: no launch, not a shape of the path."""
+    k5.shape_log = {s for s in k5.shape_log if s[2] > 2}
+
+
+def _tool_update_launches(utd: int, stacked: bool = False, crop: int = 1) -> dict:
+    """K3 and K5 launches of one DrQ update_high_utd on a fixed batch (no
+    sample, no acting): an ObsEncoder pass runs 3 K5 forwards (a bottleneck a
+    camera and the proprio Dense), 2 with both cameras stacked through one
+    encoder."""
+    return {**_sac_launches(2 if stacked else 3, high_utd_calls=1, utd=utd), "random_crop": crop}
+
+
+def _scaled(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def _rates_ok(values) -> bool:
+    return all(math.isfinite(v) and v > 0 for v in values)
+
+
+def _tools_sol_part(torch, device, card) -> dict:
+    """(d): the speed-of-light tool, then its count held against the plain
+    path's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+    from serl_tpu_torch.tools import mfu_experiments as mfu
+    from serl_tpu_torch.tools import perf_speed_of_light as sol
+
+    args = sol.parser().parse_args([])
+    utd, calls = args.utd, 2 + 3 * TOOLS_ITERS  # counted_flops, then time_fn's
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = sol.main(["--iters", str(TOOLS_ITERS), "--device", str(device)])
+    seconds = time.perf_counter() - t0
+    _drop_sample_shapes(k5)
+    launches = read_launches()
+    # the tower: 2 bottleneck forwards with grad, their backward and 2 under
+    # no_grad a minibatch; each update variant: its calls (bench_update's and
+    # counted_flops'), then critic_body_flops' one critic update
+    want = {**_zero_launches(), "dense_layer_norm_tanh_fwd": calls * 4 * utd,
+            "dense_layer_norm_tanh_bwd": calls * 2 * utd}
+    for stacked in (False, True, False):
+        enc = 2 if stacked else 3
+        want = _sum_launches(want, _scaled(_tool_update_launches(utd, stacked), calls),
+                             {"dense_layer_norm_tanh_fwd": 3 * enc + 6,
+                              "dense_layer_norm_tanh_bwd": 2 + enc})
+    print(f"tools (d) perf_speed_of_light --iters {TOOLS_ITERS}: {seconds:.1f} s (host clock); "
+          f"{json.dumps({v: {k: float(f'{x:.6g}') for k, x in r.items()} for v, r in out.items()})}"
+          f"; launches {json.dumps(launches)} [{card}]")
+    if launches != want:
+        raise AssertionError(f"perf_speed_of_light: expected launches {want}, got {launches}")
+    if not _rates_ok(x for r in out.values() for x in r.values()):
+        raise AssertionError(f"perf_speed_of_light: a figure is not finite and positive: {out}")
+
+    # one update_high_utd's count on the card against the plain path's
+    batch = mfu.make_batch(0, args.batch, utd, args.size, device)
+    agent = mfu.make_agent("baseline", batch)
+    g = torch.Generator(device=device).manual_seed(3)
+    update = lambda: agent.update_high_utd(batch, utd_ratio=utd, generator=g)
+    log = k5.shape_log = _Multiset()
+    card_total = sol.counted_flops(update)
+    k5.shape_log = None
+    counter = FlopCounterMode(display=False)
+    with counter:
+        update()
+    torch.cuda.synchronize()
+    aten = counter.get_total_flops()
+    forwards = [s for s in log if len(s) == 5]
+    plain = {}
+    for shape in sorted(set(forwards)):  # FlopCounterMode of the plain product, CPU tensors
+        form, e, m, kdim, d = shape
+        x3 = torch.zeros((e if form == "member" else 1, m, kdim))
+        counter = FlopCounterMode(display=False)
+        with counter:
+            k5.dense_layer_norm_tanh_forward_plain(x3, torch.zeros((e, kdim, d)),
+                                                   torch.zeros((e, d)), torch.ones(d),
+                                                   torch.zeros(d))
+        plain[shape] = counter.get_total_flops()
+    tally = sum(k5.product_flops(s) for s in forwards)
+    rows = TOOLS_COUNT_ROWS
+    cpu_batch = mfu.make_batch(0, rows, utd, args.size, "cpu")
+    cpu_agent = mfu.make_agent("baseline", cpu_batch)
+    t0 = time.perf_counter()
+    cpu_total = sol.counted_flops(lambda: cpu_agent.update_high_utd(
+        cpu_batch, utd_ratio=utd, generator=torch.Generator().manual_seed(3)))
+    cpu_s = time.perf_counter() - t0
+    scale = args.batch // rows
+    checks = {"the main's update count": card_total == out["update"]["flops"],
+              "K5's tally, a launch at a time": card_total - aten == tally,
+              "the tally as FlopCounterMode counts the plain product, at every shape": all(
+                  plain[s] == k5.product_flops(s) for s in plain),
+              f"{scale} x the plain path's at {rows} rows a minibatch": card_total
+              == scale * cpu_total,
+              "K5 launched": len(forwards) == _tool_update_launches(utd)[
+                  "dense_layer_norm_tanh_fwd"]}
+    print(f"tools (d) one update_high_utd's count on the card {card_total:,} (aten by "
+          f"FlopCounterMode {aten:,}, K5's tally {card_total - aten:,} over {len(forwards)} "
+          f"launches at {len(plain)} shapes, FlopCounterMode of the plain product there "
+          f"{sum(plain[s] for s in forwards):,}); the plain path's on CPU tensors at {rows} rows "
+          f"a minibatch {cpu_total:,} ({cpu_s:.1f} s), x {scale} = {scale * cpu_total:,}; "
+          f"{json.dumps(checks)} [{card}]")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"the FLOP count differs between the card and the plain path: {bad}")
+    return {"launches": launches, "seconds": seconds, "out": out, "flops": card_total,
+            "per_update": _tool_update_launches(utd)}
+
+
+def _tools_mfu_part(torch, device, card) -> dict:
+    """(e): the five levers, each's update launches held."""
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+    from serl_tpu_torch.tools import mfu_experiments as mfu
+
+    args = mfu.parser().parse_args([])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = mfu.main(["--iters", str(TOOLS_ITERS), "--device", str(device)])
+    seconds = time.perf_counter() - t0
+    _drop_sample_shapes(k5)
+    launches = read_launches()
+    calls = 1 + 3 * TOOLS_ITERS  # bench_update's warm-up and rounds
+    want = _sum_launches(*(_scaled(_tool_update_launches(args.utd, crop=int(v != "half_aug")),
+                                   calls) for v in mfu.VARIANTS))
+    base = results["baseline"]
+    print(f"tools (e) mfu_experiments --iters {TOOLS_ITERS}: {seconds:.1f} s (host clock); "
+          f"critic grad-steps/s {json.dumps({v: round(r, 3) for v, r in results.items()})}, to "
+          f"the baseline {json.dumps({v: round(r / base, 4) for v, r in results.items()})}; "
+          f"launches {json.dumps(launches)} [{card}]")
+    if list(results) != list(mfu.VARIANTS) or launches != want:
+        raise AssertionError(f"mfu_experiments: expected launches {want}, got {launches}")
+    if not _rates_ok(results.values()):
+        raise AssertionError(f"mfu_experiments: a rate is not finite and positive: {results}")
+    return {"launches": launches, "seconds": seconds, "results": results}
+
+
+def _tools_pixels_part(torch, device, card) -> dict:
+    """(f): perf_pixels' rows; each timed chunk's launches are the pixel
+    path's per iteration (the shared encoder's and the actor's their own)."""
+    from serl_tpu_torch.networks import dense_layer_norm_tanh as k5
+    from serl_tpu_torch.tools import perf_pixels
+    from serl_tpu_torch.training import launcher
+
+    chunks, made = [], launcher.make_drq_sim_experiment
+
+    def recording(**kw):  # every chunk's launches, the counts read around it
+        env, agent, rb, config, init_fn, run_chunk = made(**kw)
+
+        def run(carry, iters):
+            before = {name: w.launches for name, w in launch_counters().items()}
+            out = run_chunk(carry, iters)
+            chunks[-1].append({name: w.launches - before[name]
+                               for name, w in launch_counters().items()})
+            return out
+
+        chunks.append([])
+        return env, agent, rb, config, init_fn, run
+
+    args = perf_pixels.parser().parse_args([])
+    launcher.make_drq_sim_experiment = recording
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rows = perf_pixels.main(["--iters", str(TOOLS_PIXEL_CHUNK), "--device", str(device)])
+    finally:
+        launcher.make_drq_sim_experiment = made
+    seconds = time.perf_counter() - t0
+    _drop_sample_shapes(k5)
+    launches = read_launches()
+    bad, per_iter = [], {}
+    for (label, kw), row_chunks in zip(perf_pixels.ROWS, chunks):
+        upi = kw.get("updates_per_iter", 2)
+        if not kw["updates"]:
+            want = {**_zero_launches(), "control_step": 1, "render": 2,
+                    "dense_layer_norm_tanh_fwd": 5}
+        else:
+            want = pixel_launches_per_iter(args.utd_ratio, upi)
+            if kw["shared_encoder"]:  # the cameras stacked: 2 K5 forwards an encoder pass
+                want = {**want, **{k: v for k, v in _sum_launches(
+                    _scaled(_tool_update_launches(args.utd_ratio, stacked=True), upi),
+                    {"dense_layer_norm_tanh_fwd": 4}).items() if k.startswith("dense")}}
+        per_iter[label] = want
+        if any(c != _scaled(want, TOOLS_PIXEL_CHUNK) for c in row_chunks[-3:]):
+            bad.append(f"{label}: timed chunks {row_chunks[-3:]}, expected "
+                       f"{_scaled(want, TOOLS_PIXEL_CHUNK)}")
+    print(f"tools (f) perf_pixels --iters {TOOLS_PIXEL_CHUNK}: {seconds:.1f} s (host clock); "
+          f"rows (env-steps/s, grad-steps/s, ms an iteration) "
+          f"{json.dumps([[r[0], round(r[1], 3), round(r[2], 3), round(r[3], 4)] for r in rows])}"
+          f"; {sum(len(c) for c in chunks)} chunks; launches {json.dumps(launches)} [{card}]")
+    if len(rows) != len(perf_pixels.ROWS) or bad:
+        raise AssertionError(f"perf_pixels: launches not the path's: {bad}")
+    if not _rates_ok(x for r in rows for x in r[1:] if not (x == 0 and "actor-only" in r[0])):
+        raise AssertionError(f"perf_pixels: a rate is not finite and positive: {rows}")
+    return {"launches": launches, "seconds": seconds, "rows": rows,
+            "per_iter": per_iter[perf_pixels.ROWS[0][0]]}
+
+
 def phase_tools_paths(torch, device, card, k5_checks) -> dict:
     """The tools phase (see TOOLS_PRETRAIN_STEPS' comment); every part fatal."""
     seconds, out = {}, {}
     for name, part in (("pretrain", lambda: _tools_pretrain_part(torch, device, card)),
                        ("dump", lambda: _tools_dump_part(torch, device, card)),
-                       ("probe", lambda: _tools_probe_part(torch, device, card, k5_checks))):
+                       ("probe", lambda: _tools_probe_part(torch, device, card, k5_checks)),
+                       ("sol", lambda: _tools_sol_part(torch, device, card)),
+                       ("mfu", lambda: _tools_mfu_part(torch, device, card)),
+                       ("pixels", lambda: _tools_pixels_part(torch, device, card))):
         t = time.perf_counter()
         out[name] = part()
         seconds[name] = time.perf_counter() - t
@@ -5420,11 +5679,19 @@ def tools_launches(tools: dict) -> tuple:
     launches = {"tools_pretrain": tools["pretrain"]["launches"],
                 "tools_pretrained_update": tools["pretrain"]["update_launches"],
                 "tools_dump": tools["dump"]["launches"],
-                "tools_probe": tools["probe"]["launches"]}
+                "tools_probe": tools["probe"]["launches"],
+                "tools_speed_of_light": tools["sol"]["launches"],
+                "tools_mfu_experiments": tools["mfu"]["launches"],
+                "tools_perf_pixels": tools["pixels"]["launches"]}
     per_iter = {"tools_pretrain": tools["pretrain"]["launches"],  # whole paths
                 "tools_pretrained_update": tools["pretrain"]["update_launches"],
                 "tools_dump": tools["dump"]["launches"],
-                "tools_probe": tools["probe"]["per_update"]}  # per updating iteration
+                "tools_probe": tools["probe"]["per_update"],  # per updating iteration
+                # per update_high_utd call; mfu_experiments the whole tool
+                "tools_speed_of_light": tools["sol"]["per_update"],
+                "tools_mfu_experiments": tools["mfu"]["launches"],
+                # perf_pixels: per iteration of its first row (the pixel path's)
+                "tools_perf_pixels": tools["pixels"]["per_iter"]}
     return launches, per_iter
 
 

@@ -102,6 +102,38 @@ def _leaves(tree):
     return [tree]
 
 
+def param_slots(module: nn.Module) -> List[Tuple[nn.Module, str, int]]:
+    """(owner module, attribute, index in `module.parameters()`) of every
+    parameter slot of `module`, a submodule that serves under two names (one
+    encoder for every camera) once per name."""
+    index = {id(p): i for i, p in enumerate(module.parameters())}
+    slots = []
+    for name, p in module.named_parameters(remove_duplicate=False):
+        owner, _, attr = name.rpartition(".")
+        slots.append((module.get_submodule(owner), attr, index[id(p)]))
+    return slots
+
+
+def call_with_params(module: nn.Module, slots, tensors: List[torch.Tensor], args: tuple,
+                     kwargs: dict):
+    """`module(*args, **kwargs)` with `tensors` (in `module.parameters()`
+    order) in its parameter `slots` (`param_slots`), put back in the reverse
+    order afterwards, so that a slot reached under two names ends holding its
+    own parameter. torch.func.functional_call puts a tied module's slots back
+    in the order it filled them, which leaves them holding the tensors it was
+    given: a shared encoder would then compute with the target's copy and
+    never train."""
+    saved = []
+    try:
+        for owner, attr, i in slots:
+            saved.append((owner, attr, owner._parameters[attr]))
+            owner._parameters[attr] = tensors[i]
+        return module(*args, **kwargs)
+    finally:
+        for owner, attr, p in reversed(saved):
+            owner._parameters[attr] = p
+
+
 def encoder_dropout_shapes(encoder: nn.Module, rows: int) -> Dict[str, tuple]:
     """{mask key: shape} of the keep-masks an encoder pass draws in train
     mode for `rows` observations; a camera encoder alone (it has
@@ -123,8 +155,8 @@ class SACAgent(nn.Module):
         self.config = config
         self.state: Optional[TrainState] = None  # set by init_train_state
         self._critic_names = [name for name, _ in critic.named_parameters()]
-        self._encoder_names = ([] if encoder is None
-                               else [name for name, _ in encoder.named_parameters()])
+        self._encoder_slots = [] if encoder is None else param_slots(encoder)
+        self._n_encoder = 0 if encoder is None else len(list(encoder.parameters()))
         # a camera encoder alone takes its one keep-mask, not a dict of them
         self._bare_encoder = hasattr(encoder, "dropout_features")
 
@@ -165,8 +197,7 @@ class SACAgent(nn.Module):
         kwargs = {"train": train, "dropout": dropout}
         if params is None:
             return self.encoder(obs, **kwargs)
-        return functional_call(self.encoder, dict(zip(self._encoder_names, params)), (obs,),
-                               kwargs)
+        return call_with_params(self.encoder, self._encoder_slots, params, (obs,), kwargs)
 
     def forward_policy(self, obs, *, temperature: float = 1.0, train: bool = False,
                        dropout: Optional[Dict[str, torch.Tensor]] = None):
@@ -182,7 +213,7 @@ class SACAgent(nn.Module):
         critic."""
         if params is None:
             return self.critic(self._encode(obs, train=train, dropout=dropout), actions)
-        n = len(self._encoder_names)
+        n = self._n_encoder
         feats = self._encode(obs, params[:n], train, dropout)
         return functional_call(self.critic, dict(zip(self._critic_names, params[n:])),
                                (feats, actions))

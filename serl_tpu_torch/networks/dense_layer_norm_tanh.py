@@ -62,6 +62,14 @@ SUPPORTED_D = (64, 128, 256)  # the kernels' LayerNorm widths
 # caller learns the shapes that a run gives K5.
 shape_log = None
 N_COUNTERS = 1 << 14  # tickets per device: backward 1 + E + E * groups; split forward a tile
+# When a number, every launch of the forward kernel adds its product's
+# 2 * E * M * K * D float operations (`product_flops`): the work that
+# torch.utils.flop_counter.FlopCounterMode counts in the plain version's
+# torch.matmul and cannot see in a ctypes launch. CPU tensors add nothing
+# here (FlopCounterMode counts their matmul), so a count over both reads the
+# same work whichever implementation ran (`tools/perf_speed_of_light.py::
+# counted_flops`).
+flops = None
 
 
 def member_views(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, member_inputs: bool):
@@ -174,7 +182,9 @@ def _bad(what: str, *tensors) -> ValueError:
 def dense_layer_norm_tanh_forward(x3, w3, b2, ln_weight, ln_bias, save=False):
     """(y, h, mean, rstd) of `member_views`' forms; h, mean and rstd (what
     the backward needs) are None unless `save`. The plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (or raise)."""
+    tensors, the CUDA kernel for CUDA tensors (or raise); a launch adds its
+    product's operations to `flops` when that is a number."""
+    global flops
     device = x3.device
     if device.type == "cpu":
         y, h, mean, rstd = dense_layer_norm_tanh_forward_plain(x3, w3, b2, ln_weight, ln_bias)
@@ -218,6 +228,8 @@ def dense_layer_norm_tanh_forward(x3, w3, b2, ln_weight, ln_bias, save=False):
         ln_bias.data_ptr(), y.data_ptr(), h_ptr, mean_ptr, rstd_ptr, e, m, k, d, LAYER_NORM_EPS,
         partial.data_ptr(), partial.numel(), _counters(device).data_ptr(), N_COUNTERS, stream))
     dense_layer_norm_tanh_forward.launches += 1
+    if flops is not None:
+        flops += product_flops(("", e, m, k, d))
     return y, h, mean, rstd
 
 
@@ -276,6 +288,14 @@ def call_shape(x: torch.Tensor, kernel: torch.Tensor, member_inputs: bool) -> tu
     if member_inputs:
         return ("member", e, x.numel() // (k * e), k, d)
     return ("shared", e, x.numel() // k, k, d)
+
+
+def product_flops(shape: tuple) -> int:
+    """2 * E * M * K * D: the float operations of the Dense product of a call
+    of `call_shape`'s (form, E, M, K, D), as FlopCounterMode counts the plain
+    version's torch.matmul, and as the forward kernel adds them to `flops`."""
+    _, e, m, k, d = shape[:5]
+    return 2 * e * m * k * d
 
 
 class _DenseLayerNormTanh(torch.autograd.Function):

@@ -40,9 +40,10 @@ over a given pre-pooling map (`encode=False`) skips the backbone of
 `PreTrainedResNetEncoder`; the SmallEncoder accepts the flag and ignores
 it, as the JAX module does.
 
-Not ported: the SmallEncoder's MXU-stem ablations `pad_input_channels`
-and `space_to_depth_stem` (measurement switches of the JAX package's TPU
-experiments).
+The SmallEncoder's stem switches `pad_input_channels` and
+`space_to_depth_stem` (the levers of `tools/mfu_experiments.py`) are
+ported; tests/test_torch_augmentations.py::
+test_torch_small_encoder_stem_switches_match_jax holds them against flax.
 """
 
 from __future__ import annotations

@@ -178,9 +178,6 @@ def test_torch_port_has_every_jax_public_name():
 # The repository's tools (tools/*.py: each imports serl_tpu, or writes its
 # model file or its test fixtures) that the port does not carry, and why.
 TOOLS_LEFT_OUT = {
-    "perf_pixels.py": "a measurement tool: it belongs with the port's benchmark",
-    "perf_speed_of_light.py": "a measurement tool: it belongs with the port's benchmark",
-    "mfu_experiments.py": "a measurement tool whose levers are the TPU's (MXU lane packing)",
     "extract_model.py": "needs the reference's MJCF and the mujoco package (absent)",
     "gen_reference_fixtures.py": "needs the reference's code and MJCF (absent)",
     "validate_physics.py": "needs the reference's MJCF and the mujoco package (absent)",
@@ -193,7 +190,8 @@ def test_torch_port_has_every_tool():
     tools = {p.name for p in (ROOT / "tools").glob("*.py")}
     ported = {p.name for p in (ROOT / "serl_tpu_torch" / "tools").glob("*.py")} - {"__init__.py"}
     assert {"pretrain_resnet10.py", "dump_render_frames.py", "probe_peg.py",
-            "scaling_analysis.py"} <= ported
+            "scaling_analysis.py", "mfu_experiments.py", "perf_speed_of_light.py",
+            "perf_pixels.py"} <= ported
     assert tools - ported == set(TOOLS_LEFT_OUT), (
         f"no port and no reason: {sorted(tools - ported - set(TOOLS_LEFT_OUT))}; listed but "
         f"ported or gone: {sorted(set(TOOLS_LEFT_OUT) - (tools - ported))}")
