@@ -32,6 +32,7 @@ import torch
 from serl_tpu_torch.agents.sac import SACAgent
 from serl_tpu_torch.distributed.sharding import local, num_ranks
 from serl_tpu_torch.utils.pretrained import load_resnet10_params
+from serl_tpu_torch.utils.timer import span
 from serl_tpu_torch.vision.augmentations import crop_images, crop_offsets
 from serl_tpu_torch.vision.encoders import PreTrainedResNetEncoder, SmallEncoder, resnetv1_configs
 from serl_tpu_torch.vision.encoding import ObsEncoder
@@ -131,7 +132,8 @@ class DrQAgent(SACAgent):
         if not self.config.augment:
             return batch
         parts = ("observations", "next_observations")
-        cropped = self._crop({p: batch[p] for p in parts}, offsets)
+        with span("learner.augment"):
+            cropped = self._crop({p: batch[p] for p in parts}, offsets)
         return {**batch, **cropped}
 
     def drq_draws(self, batch: Dict, utd_ratio: int,
@@ -154,15 +156,18 @@ class DrQAgent(SACAgent):
         block of the global batch and the draws are the global batch's: the
         rank crops its rows with their own offsets, and SAC's update hands
         the cropped rows on (`distributed/sharding.py`)."""
-        dp = self.state.dp
-        batch_size = batch["rewards"].shape[0] * num_ranks(dp)
-        if draws is None:
-            draws = self.drq_draws(batch, utd_ratio, generator, batch_size)
-        offsets = {part: {k: local(v.reshape(batch_size, -1, 2), dp).reshape(-1, 2)
-                          for k, v in by_key.items()}
-                   for part, by_key in draws["augment"].items()}
-        batch = self._augment_batch(batch, offsets)
-        return SACAgent.update_high_utd(self, batch, utd_ratio=utd_ratio, draws=draws["updates"])
+        with span("learner.update"):  # SAC's update_high_utd, inside it, opens none
+            dp = self.state.dp
+            batch_size = batch["rewards"].shape[0] * num_ranks(dp)
+            if draws is None:
+                with span("learner.draws"):
+                    draws = self.drq_draws(batch, utd_ratio, generator, batch_size)
+            offsets = {part: {k: local(v.reshape(batch_size, -1, 2), dp).reshape(-1, 2)
+                              for k, v in by_key.items()}
+                       for part, by_key in draws["augment"].items()}
+            batch = self._augment_batch(batch, offsets)
+            return SACAgent.update_high_utd(self, batch, utd_ratio=utd_ratio,
+                                            draws=draws["updates"])
 
     def critic_draws(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict:
         """The draws of one `update_critics` of `batch`: {"augment": crop

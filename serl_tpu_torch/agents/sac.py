@@ -64,6 +64,7 @@ from serl_tpu_torch.networks.lagrange import (
     lagrange_penalty,
     lagrange_value,
 )
+from serl_tpu_torch.utils.timer import span
 from serl_tpu_torch.vision.encoders import DROPOUT_RATE
 
 NETWORKS = frozenset({"actor", "critic", "temperature"})
@@ -234,10 +235,11 @@ class SACAgent(nn.Module):
         """Actions for a batch of observations: the distribution's mode when
         `argmax`, else a sample with standard-normal `noise` if given, drawn
         from `generator` otherwise."""
-        dist = self.forward_policy(observations, temperature=temperature)
-        if argmax:
-            return dist.mode()
-        return dist.sample(generator=generator, eps=noise)
+        with span("policy.sample"):
+            dist = self.forward_policy(observations, temperature=temperature)
+            if argmax:
+                return dist.mode()
+            return dist.sample(generator=generator, eps=noise)
 
     # ------------------------------------------------------------------ #
     # Losses
@@ -407,29 +409,35 @@ class SACAgent(nn.Module):
         `sample(dp=)`): one all-to-all hands the rank its share of every
         minibatch (`distributed/sharding.py::exchange_minibatches`), and
         `draws`, given or drawn, are the global batch's, cut to those rows."""
-        dp = self.state.dp
-        batch_size = batch["rewards"].shape[0] * num_ranks(dp)
-        if batch_size % utd_ratio != 0:
-            raise ValueError(f"batch size {batch_size} does not divide by utd_ratio {utd_ratio}")
-        if draws is None:
-            draws = self.high_utd_draws(batch_size, utd_ratio, generator)
-        if dp is not None:
-            batch = exchange_minibatches(batch, utd_ratio, dp)
-            draws = share_draws(draws, batch_size, utd_ratio, dp)
-        minibatch_size = batch["rewards"].shape[0] // utd_ratio
-        critic_infos = []
-        for i in range(utd_ratio):
-            rows = slice(i * minibatch_size, (i + 1) * minibatch_size)
-            _, info = self.update(_map(lambda v: v[rows], batch),
-                                  networks_to_update=frozenset({"critic"}), draws=draws[i])
-            critic_infos.append(info)
-        critic_info = _mean_infos(critic_infos)
-        critic_info.pop("actor", None)
-        critic_info.pop("temperature", None)
-        _, actor_temp_info = self.update(batch, networks_to_update=frozenset({"actor", "temperature"}),
-                                         draws=draws[utd_ratio])
-        actor_temp_info.pop("critic", None)
-        return self, {**critic_info, **actor_temp_info}
+        with span("learner.update"):
+            dp = self.state.dp
+            batch_size = batch["rewards"].shape[0] * num_ranks(dp)
+            if batch_size % utd_ratio != 0:
+                raise ValueError(f"batch size {batch_size} does not divide by utd_ratio "
+                                 f"{utd_ratio}")
+            if draws is None:
+                with span("learner.draws"):
+                    draws = self.high_utd_draws(batch_size, utd_ratio, generator)
+            if dp is not None:
+                batch = exchange_minibatches(batch, utd_ratio, dp)
+                draws = share_draws(draws, batch_size, utd_ratio, dp)
+            minibatch_size = batch["rewards"].shape[0] // utd_ratio
+            critic_infos = []
+            for i in range(utd_ratio):
+                rows = slice(i * minibatch_size, (i + 1) * minibatch_size)
+                with span("learner.critic"):
+                    _, info = self.update(_map(lambda v: v[rows], batch),
+                                          networks_to_update=frozenset({"critic"}), draws=draws[i])
+                critic_infos.append(info)
+            critic_info = _mean_infos(critic_infos)
+            critic_info.pop("actor", None)
+            critic_info.pop("temperature", None)
+            with span("learner.actor"):
+                _, actor_temp_info = self.update(
+                    batch, networks_to_update=frozenset({"actor", "temperature"}),
+                    draws=draws[utd_ratio])
+            actor_temp_info.pop("critic", None)
+            return self, {**critic_info, **actor_temp_info}
 
     # ------------------------------------------------------------------ #
     # Constructors

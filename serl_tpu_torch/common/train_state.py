@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from serl_tpu_torch.common.optimizers import OptState, Optimizer
+from serl_tpu_torch.utils.timer import span
 
 # A loss function takes no arguments (it closes over its batch and draws) and
 # returns (scalar loss, info dict). None stands for the JAX package's
@@ -54,14 +55,16 @@ class TrainState:
     @torch.no_grad()
     def target_update(self, tau: float) -> None:
         """target = tau * params + (1 - tau) * target, in place."""
-        for g, targets in self.target_params.items():
-            torch._foreach_mul_(targets, 1.0 - tau)
-            torch._foreach_add_(targets, self.params[g], alpha=tau)
+        with span("learner.optimizer"):
+            for g, targets in self.target_params.items():
+                torch._foreach_mul_(targets, 1.0 - tau)
+                torch._foreach_add_(targets, self.params[g], alpha=tau)
 
     def apply_gradients(self, grads: Dict[str, Optional[List[torch.Tensor]]]) -> None:
         """Step each named group with its own optimizer (None: zero grads)."""
-        for g, grad in grads.items():
-            self.opt_states[g] = self.txs[g].step(self.params[g], grad, self.opt_states[g])
+        with span("learner.optimizer"):
+            for g, grad in grads.items():
+                self.opt_states[g] = self.txs[g].step(self.params[g], grad, self.opt_states[g])
         self.step += 1
 
     def apply_loss_fns(self, loss_fns: Dict[str, LossFn]) -> Dict[str, Dict]:
@@ -73,9 +76,11 @@ class TrainState:
             if loss_fns[g] is None:
                 grads[g], infos[g] = None, {}
                 continue
-            loss, info = loss_fns[g]()
-            grads[g] = list(torch.autograd.grad(loss, self.params[g], allow_unused=True,
-                                                materialize_grads=True))
+            with span("learner.forward"):
+                loss, info = loss_fns[g]()
+            with span("learner.backward"):
+                grads[g] = list(torch.autograd.grad(loss, self.params[g], allow_unused=True,
+                                                    materialize_grads=True))
             infos[g] = info
             if self.dp is not None:
                 keys = [k for k, v in info.items() if isinstance(v, torch.Tensor)]

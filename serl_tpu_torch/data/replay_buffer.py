@@ -48,6 +48,7 @@ import torch
 
 from serl_tpu_torch import resolve_device
 from serl_tpu_torch.distributed.sharding import local, num_ranks
+from serl_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -159,21 +160,22 @@ class ReplayBuffer:
         """Write one lockstep slot in place: `transitions` leaves are
         (streams, ...); `ep_ids` (streams,) episode identifiers (e.g.
         env_index + episode_count * num_envs)."""
-        tr = dict(transitions)
-        if not self.store_next_obs:
-            tr.pop("next_observations", None)
-        slot = state.insert_slot
-        slots = state.ep_id.shape[0]
+        with span("replay.insert"):
+            tr = dict(transitions)
+            if not self.store_next_obs:
+                tr.pop("next_observations", None)
+            slot = state.insert_slot
+            slots = state.ep_id.shape[0]
 
-        def write(buf, x):
-            buf[slot] = x
-            return buf
+            def write(buf, x):
+                buf[slot] = x
+                return buf
 
-        _map2(write, state.data, {k: tr[k] for k in state.data})
-        state.ep_id[slot] = ep_ids
-        state.insert_slot = (slot + 1) % slots
-        state.size = min(state.size + 1, slots)
-        return state
+            _map2(write, state.data, {k: tr[k] for k in state.data})
+            state.ep_id[slot] = ep_ids
+            state.insert_slot = (slot + 1) % slots
+            state.size = min(state.size + 1, slots)
+            return state
 
     # ------------------------------------------------------------------ #
 
@@ -189,31 +191,33 @@ class ReplayBuffer:
         global batch, which must divide over all ranks' streams: `u` is
         drawn (or given) at its global shape and the rank gathers its own
         columns through K4, its block of the global stream-major batch."""
-        slots, streams = state.ep_id.shape
-        if dp is not None or batch_size % streams == 0:
-            return self._sample_aligned(state, batch_size, generator, u, dp)
-        n_valid = max(state.size if self.store_next_obs else state.size - 1, 1)
-        device = state.ep_id.device
-        if u is None:
-            u = torch.randint(0, n_valid, (batch_size,), generator=generator, device=device)
-        if e is None:
-            e = torch.randint(0, streams, (batch_size,), generator=generator, device=device)
-        # the valid window is the `size` newest slots ending at insert_slot - 1
-        s = (state.insert_slot - state.size + u) % slots
-        out = _map(lambda v: v[s, e], state.data)
-        if not self.store_next_obs:
-            nxt = (s + 1) % slots
-            same_ep = state.ep_id[nxt, e] == state.ep_id[s, e]
-            safe_nxt = torch.where(same_ep, nxt, s)
-            out["next_observations"] = _map(lambda v: v[safe_nxt, e], state.data["observations"])
-            if isinstance(out["next_observations"], dict):
-                out["next_observations"].update(self._stack_obs(state, safe_nxt, e))
-        elif isinstance(out["next_observations"], dict):
-            # the quirk: stacks from the observations ring at the row itself
-            out["next_observations"].update(self._stack_obs(state, s, e))
-        if isinstance(out["observations"], dict):
-            out["observations"].update(self._stack_obs(state, s, e))
-        return out
+        with span("replay.sample"):
+            slots, streams = state.ep_id.shape
+            if dp is not None or batch_size % streams == 0:
+                return self._sample_aligned(state, batch_size, generator, u, dp)
+            n_valid = max(state.size if self.store_next_obs else state.size - 1, 1)
+            device = state.ep_id.device
+            if u is None:
+                u = torch.randint(0, n_valid, (batch_size,), generator=generator, device=device)
+            if e is None:
+                e = torch.randint(0, streams, (batch_size,), generator=generator, device=device)
+            # the valid window is the `size` newest slots ending at insert_slot - 1
+            s = (state.insert_slot - state.size + u) % slots
+            out = _map(lambda v: v[s, e], state.data)
+            if not self.store_next_obs:
+                nxt = (s + 1) % slots
+                same_ep = state.ep_id[nxt, e] == state.ep_id[s, e]
+                safe_nxt = torch.where(same_ep, nxt, s)
+                out["next_observations"] = _map(lambda v: v[safe_nxt, e],
+                                                state.data["observations"])
+                if isinstance(out["next_observations"], dict):
+                    out["next_observations"].update(self._stack_obs(state, safe_nxt, e))
+            elif isinstance(out["next_observations"], dict):
+                # the quirk: stacks from the observations ring at the row itself
+                out["next_observations"].update(self._stack_obs(state, s, e))
+            if isinstance(out["observations"], dict):
+                out["observations"].update(self._stack_obs(state, s, e))
+            return out
 
     def sample_mixed(self, state_a: ReplayBufferState, state_b: ReplayBufferState,
                      batch_size: int, *, generator: Optional[torch.Generator] = None,
@@ -233,16 +237,18 @@ class ReplayBuffer:
         `state_b`, a demo ring, is replicated: the rank's block of the online
         half interleaved with the same rows of the demo half is its block of
         the global interleave."""
-        buffer_b = buffer_b or self
-        half = batch_size // 2
-        if dp is not None and batch_size % 2 != 0:
-            raise ValueError(f"under data parallelism the mixed batch ({batch_size}) must be even")
-        a = self.sample(state_a, half, generator=generator, u=u_a, e=e_a, dp=dp)
-        b = buffer_b.sample(state_b, batch_size - half, generator=generator, u=u_b, e=e_b)
-        if batch_size % 2 == 0:
-            return _map2(lambda x, y: torch.stack([x, local(y, dp)], 1).reshape(
-                (2 * x.shape[0],) + tuple(x.shape[1:])), a, b)
-        return _map2(lambda x, y: torch.cat([x, y], 0), a, b)
+        with span("replay.sample"):  # its two samples inside open none
+            buffer_b = buffer_b or self
+            half = batch_size // 2
+            if dp is not None and batch_size % 2 != 0:
+                raise ValueError(f"under data parallelism the mixed batch ({batch_size}) must be "
+                                 "even")
+            a = self.sample(state_a, half, generator=generator, u=u_a, e=e_a, dp=dp)
+            b = buffer_b.sample(state_b, batch_size - half, generator=generator, u=u_b, e=e_b)
+            if batch_size % 2 == 0:
+                return _map2(lambda x, y: torch.stack([x, local(y, dp)], 1).reshape(
+                    (2 * x.shape[0],) + tuple(x.shape[1:])), a, b)
+            return _map2(lambda x, y: torch.cat([x, y], 0), a, b)
 
     def _sample_aligned(self, state: ReplayBufferState, batch_size: int, generator, u,
                         dp) -> Dict:

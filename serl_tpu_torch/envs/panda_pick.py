@@ -31,6 +31,7 @@ from serl_tpu_torch import resolve_device
 from serl_tpu_torch.distributed.sharding import local, num_ranks
 from serl_tpu_torch.envs.physics import engine
 from serl_tpu_torch.envs.rendering import render_cameras
+from serl_tpu_torch.utils.timer import span
 
 # reference constants (panda_pick_gym_env.py:21-23)
 CARTESIAN_BOUNDS = np.asarray([[0.2, -0.3, 0.0], [0.6, 0.3, 0.5]], np.float32)
@@ -152,17 +153,18 @@ class PandaPickCubeEnv:
         `distributed.sharding.DataParallel`) `state` holds the rank's envs:
         the positions are drawn for every rank's envs, as one rank would
         draw them for all, and the rank keeps its own."""
-        stepped, reward, done, info = self._step_state(state, action)
-        n = action.shape[0]
-        if reset_xy is None:
-            reset_xy = local(self.sample_reset_xy(n * num_ranks(dp), generator), dp)
-        fresh = self._fresh(reset_xy.to(self.device, torch.float32), state.ep_id + 1)
-        new_state = where_state(done > 0.5, stepped, fresh)
-        out_obs = self._obs(new_state)
-        info = dict(info)
-        if final_obs:
-            info["final_obs"] = self._obs(stepped)
-        return new_state, out_obs, reward, done, info
+        with span("env.step"):
+            stepped, reward, done, info = self._step_state(state, action)
+            n = action.shape[0]
+            if reset_xy is None:
+                reset_xy = local(self.sample_reset_xy(n * num_ranks(dp), generator), dp)
+            fresh = self._fresh(reset_xy.to(self.device, torch.float32), state.ep_id + 1)
+            new_state = where_state(done > 0.5, stepped, fresh)
+            out_obs = self._obs(new_state)
+            info = dict(info)
+            if final_obs:
+                info["final_obs"] = self._obs(stepped)
+            return new_state, out_obs, reward, done, info
 
     # ------------------------------------------------------------------ #
 

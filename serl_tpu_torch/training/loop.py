@@ -54,6 +54,7 @@ from serl_tpu_torch.distributed.sharding import local
 from serl_tpu_torch.envs.panda_pick import ACTION_DIM, PandaPickCubeEnv, flatten_obs
 from serl_tpu_torch.envs.scripted_expert import expert_action
 from serl_tpu_torch.envs.wrappers import ChunkState, add_stack_axis, chunk_init, chunk_push, serl_obs
+from serl_tpu_torch.utils.timer import span
 
 INTERVENTION_MODES = ("step", "episode", "rescue")
 
@@ -188,6 +189,10 @@ def make_fused_loop(env: PandaPickCubeEnv, rb: ReplayBuffer, config: LoopConfig,
         )
 
     def iter_body(carry: LoopCarry):
+        with span("loop.iteration", iteration=carry.env_steps // num_envs):
+            return iteration(carry)
+
+    def iteration(carry: LoopCarry):
         g = carry.rng
 
         # ---- actor: one step for every env ----

@@ -9,7 +9,9 @@ on the CPU, on the same numpy inputs.
     the indices it drew.
   * `RoutedReplayBuffer.total_rows` after masked inserts: exact.
   * `torch_profile` (the counterpart of `jax_profile`): both traces land in
-    their logdir, and the block's result is the one it computes unprofiled.
+    their logdir, and the block's result is the one it computes unprofiled;
+    the port's trace.json holds the program's spans of the block on the
+    timeline of its operations.
   * The aliases and constants: `WandBLogger` (the Logger, writing JAX's
     lines), `small_configs`, `CONTROL_DT`, `BCConfig`.
 """
@@ -39,7 +41,7 @@ from serl_tpu_torch.common import logger
 from serl_tpu_torch.data.dataset import Dataset
 from serl_tpu_torch.data.routed_buffer import RoutedReplayBuffer
 from serl_tpu_torch.envs.physics import engine, math3d
-from serl_tpu_torch.utils.timer import torch_profile
+from serl_tpu_torch.utils.timer import span, torch_profile
 from serl_tpu_torch.vision import augmentations, encoders
 
 DIST_ATOL = 1e-6
@@ -162,14 +164,21 @@ def test_torch_profile_writes_a_trace_as_jax_profile_does(tmp_path):
     x = np.random.default_rng(9).normal(size=(16, 16)).astype(np.float32)
     with jax_profile(str(tmp_path / "jax")):
         want = np.asarray((jnp.asarray(x) @ jnp.asarray(x)).block_until_ready())
+    with span("test.before"):
+        pass
     with torch_profile(str(tmp_path / "torch")) as prof:
-        got = _t(x) @ _t(x)
+        with span("test.mm"):
+            got = _t(x) @ _t(x)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
     assert list((tmp_path / "jax").rglob("*.xplane.pb"))
     with open(tmp_path / "torch" / "trace.json") as f:
         trace = json.load(f)
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
     assert any("mm" in e.key for e in prof.key_averages())
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "program_span"]
+    (mm,) = [e for e in trace["traceEvents"] if e.get("name") == "aten::mm"]
+    assert [e["name"] for e in spans] == ["test.mm"]
+    assert spans[0]["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= spans[0]["ts"] + spans[0]["dur"]
 
 
 def test_torch_aliases_and_constants_match_jax(tmp_path):
