@@ -919,6 +919,19 @@ def check_k5_shapes(log) -> None:
         raise AssertionError(f"K5 ran at shapes that K5_SHAPES does not hold: {missing}")
 
 
+def graphs_line(agent, gate: bool = False) -> str:
+    """What `SACAgent.update`'s CUDA graphs did for `agent` so far
+    (serl_tpu_torch/agents/graphs.py); with `gate`, fails unless its updates
+    replay and no capture fell back to eager."""
+    g = agent.graphs
+    line = (f"CUDA graphs of update: {g.captures} captured, {g.replays} replays, "
+            + (f"eager after a failed capture: {sorted(g.failed.values())}" if g.failed
+               else "no capture failed"))
+    if gate and (not g.replays or g.failed):
+        raise AssertionError(f"the learner's updates are not replayed graphs: {line}")
+    return line
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -1203,7 +1216,8 @@ def phase_learner_path(torch, device, card):
     print(f"learner path outputs: critic_loss {float(learner['critic_loss'][-1]):.5g}, "
           f"actor_loss {float(learner['actor_loss'][-1]):.5g}, temperature "
           f"{float(learner['temperature'][-1]):.5g}, entropy {float(learner['entropy'][-1]):.5g} "
-          f"(last iteration); optimizer steps {agent.state.step}; eval {json.dumps(ev)}")
+          f"(last iteration); optimizer steps {agent.state.step}; eval {json.dumps(ev)}; "
+          f"{graphs_line(agent, gate=True)}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"learner path output checks failed: {bad}")
@@ -1853,7 +1867,7 @@ def phase_pixel_path(torch, device, card):
           f"{float(learner['actor_loss'][-1]):.5g}, temperature "
           f"{float(learner['temperature'][-1]):.5g}, entropy {float(learner['entropy'][-1]):.5g} "
           f"(last iteration); optimizer steps {agent.state.step}; buffer {buf.size} slots; eval "
-          f"(16 episodes) {json.dumps(ev)}")
+          f"(16 episodes) {json.dumps(ev)}; {graphs_line(agent, gate=True)}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"pixel path output checks failed: {bad}")
@@ -2170,7 +2184,8 @@ def phase_rlpd_path(torch, device, card):
         "evals finite": all(math.isfinite(v) and 0 <= v <= 100 for e in evals for v in e.values()),
     }
     print(f"RLPD path outputs: {json.dumps({k: [round(v, 5) for v in vs] for k, vs in learner.items()})} "
-          f"(per chunk); optimizer steps {agent.state.step}; evals {json.dumps(evals)}")
+          f"(per chunk); optimizer steps {agent.state.step}; evals {json.dumps(evals)}; "
+          f"{graphs_line(agent)}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"RLPD path output checks failed: {bad}")
@@ -2351,7 +2366,8 @@ def phase_pixel_rlpd_path(torch, device, card):
     }
     print(f"pixel RLPD path outputs: "
           f"{json.dumps({k: [round(v, 5) for v in vs] for k, vs in learner.items()})} (per "
-          f"chunk); optimizer steps {agent.state.step}; evals {json.dumps(evals)}")
+          f"chunk); optimizer steps {agent.state.step}; evals {json.dumps(evals)}; "
+          f"{graphs_line(agent)}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"pixel RLPD path output checks failed: {bad}")
@@ -2498,7 +2514,7 @@ def phase_resnet_path(torch, device, card, resnet_checks):
     print(f"ResNet path outputs: critic_loss {float(learner['critic_loss'][-1]):.5g}, actor_loss "
           f"{float(learner['actor_loss'][-1]):.5g}, temperature "
           f"{float(learner['temperature'][-1]):.5g}; optimizer steps {agent.state.step}; eval "
-          f"(16 episodes) {json.dumps(ev)}")
+          f"(16 episodes) {json.dumps(ev)}; {graphs_line(agent)}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"ResNet path checks failed: {bad} {frozen_bad[:4]} {failures}")
@@ -3304,8 +3320,8 @@ def phase_vice_path(torch, device, card):
           f"{LEARNED_REWARD_CHUNK}; {VICE_UPDATES} update_vice calls, the last under "
           f"set_sync_debug_mode('error')): bce_loss {bce}, grad_norm {gn}; the vice head's "
           f"{len(head)} tensors moved: {moved == head}; evaluation: pose success {p_succ:.3f}, "
-          f"VICE-rated share {v_rate:.3f}; {seconds:.2f} s; launches {json.dumps(launches)} "
-          f"[{card}]")
+          f"VICE-rated share {v_rate:.3f}; {seconds:.2f} s; launches {json.dumps(launches)}; "
+          f"{graphs_line(agent)} [{card}]")
     if launches != want:
         raise AssertionError(f"expected launches {want} on the VICE path, got {launches}")
     if moved != head or not all(math.isfinite(x) for x in bce + gn):
@@ -3606,7 +3622,7 @@ def _learner_run(torch, agent, run, label, card, want, step):
           f"sync), then one call warm {warm_ms:.2f} ms (median of 3, CUDA events); critic_loss "
           f"{[round(float(v), 5) for v in losses['critic_loss']]}, actor_loss "
           f"{[round(float(v), 5) for v in losses['actor_loss']]}; {sum(moved)} of {len(params)} "
-          f"parameters moved; launches {json.dumps(launches)} [{card}]")
+          f"parameters moved; launches {json.dumps(launches)}; {graphs_line(agent)} [{card}]")
     return launches, seconds, warm_ms
 
 
@@ -4188,7 +4204,7 @@ def phase_fwbw_path(torch, device, card, mode: str):
     k1_step = launch_counters()["control_step"].launches - k1_before
     print(f"fwbw {mode}: both learners' sample_mixed + update_high_utd ran under "
           f"torch.cuda.set_sync_debug_mode('error'); a chained env step launched K1 {k1_step} "
-          "times")
+          f"times; fw {graphs_line(carry.fw_agent)}; bw {graphs_line(carry.bw_agent)}")
     if k1_step != 6:
         raise AssertionError(f"a chained env step launched K1 {k1_step} times, want 6")
     result = dict(env_steps_s=env_steps_s, updates_s=updates_s, best_chunk_s=best,

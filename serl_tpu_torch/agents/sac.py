@@ -55,6 +55,7 @@ from torch import nn
 from torch.func import functional_call
 
 from serl_tpu_torch import resolve_device
+from serl_tpu_torch.agents.graphs import UpdateGraphs, _leaves, _map
 from serl_tpu_torch.common.optimizers import make_optimizer, optimizer_lr
 from serl_tpu_torch.common.train_state import TrainState
 from serl_tpu_torch.distributed.sharding import exchange_minibatches, num_ranks, share_draws
@@ -85,22 +86,6 @@ class SACConfig(NamedTuple):
     # weight of the Q-filtered BC term on the actor (0 = off): see policy_loss_fn
     bc_regularization: float = 0.0
     vice_image_keys: Tuple[str, ...] = ()  # the VICE classifier's cameras (agents/vice.py)
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
 
 
 def param_slots(module: nn.Module) -> List[Tuple[nn.Module, str, int]]:
@@ -160,6 +145,7 @@ class SACAgent(nn.Module):
         self._n_encoder = 0 if encoder is None else len(list(encoder.parameters()))
         # a camera encoder alone takes its one keep-mask, not a dict of them
         self._bare_encoder = hasattr(encoder, "dropout_features")
+        self.graphs = UpdateGraphs()  # `update`'s CUDA graphs (agents/graphs.py)
 
     def critic_group(self) -> List[nn.Parameter]:
         """The "critic" group's tensors: the encoder's, then the head's."""
@@ -374,7 +360,8 @@ class SACAgent(nn.Module):
                generator: Optional[torch.Generator] = None):
         """One gradient step on all (or a subset) of the networks, in place;
         returns (self, info). Skipped networks still step their optimizer
-        with zero gradients."""
+        with zero gradients. On the card the step after the draws is a CUDA
+        graph's replay wherever agents/graphs.py can capture it."""
         batch_size = batch["rewards"].shape[0]
         for k, v in batch.items():
             if any(x.shape[0] != batch_size for x in _leaves(v)):
@@ -388,15 +375,26 @@ class SACAgent(nn.Module):
                              "(update_high_utd cuts them from the global batch's)")
         if draws is None:
             draws = self.update_draws(batch_size, networks_to_update, generator)
-        loss_fns = self.loss_fns(batch, draws)
-        for key in set(loss_fns) - networks_to_update:
-            loss_fns[key] = None
-        info = self.state.apply_loss_fns(loss_fns)
-        if "critic" in networks_to_update:
-            self.state.target_update(self.config.soft_target_update_rate)
+        info = self.graphs.run(self, batch, draws, networks_to_update)
+        if info is None:
+            info = self._step(batch, draws, networks_to_update)
         for name, opt_state in self.state.opt_states.items():
             info[f"{name}_lr"] = optimizer_lr(opt_state)
         return self, info
+
+    def _step(self, batch: Dict, draws: Dict, networks_to_update: FrozenSet[str],
+              scalars: Optional[torch.Tensor] = None) -> Dict:
+        """`update`'s losses, gradients, optimizer steps and target update;
+        returns the infos by group. With `scalars` (on the device, as
+        `TrainState.apply_gradients` takes them) the device side only, which
+        agents/graphs.py captures."""
+        loss_fns = self.loss_fns(batch, draws)
+        for key in set(loss_fns) - networks_to_update:
+            loss_fns[key] = None
+        info = self.state.apply_loss_fns(loss_fns, scalars)
+        if "critic" in networks_to_update:
+            self.state.target_update(self.config.soft_target_update_rate)
+        return info
 
     def update_high_utd(self, batch: Dict[str, torch.Tensor], *, utd_ratio: int,
                         draws: Optional[List[Dict]] = None,

@@ -10,13 +10,18 @@ tensors, not `torch.optim`, so that three of optax's behaviours carry over:
   * Adam is optax's `scale_by_adam` (b1 0.9, b2 0.999, eps 1e-8 outside the
     square root, eps_root 0), bias-corrected by the step count.
 Every per-step scalar (learning rate, bias corrections) is computed on the
-host in float32 from host integers, so a step never waits for the device.
-Params are updated in place.
+host in float32 from host integers (`Optimizer.scalars`), so a step never
+waits for the device, and reaches the device in one tensor
+(`device_scalars`, copied without waiting from pinned memory on a card),
+which `update` reads: a CUDA graph of the step reads it anew at each replay
+(agents/graphs.py), and an eager step runs the same kernels. On the CPU this
+gives the bits of the host-float arithmetic (`p - lr * u` with lr a Python
+float). Params are updated in place.
 """
 
 import math
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,12 +72,29 @@ class Optimizer(NamedTuple):
                         nu=[torch.zeros_like(p) for p in params],
                         learning_rate=self.schedule(0))
 
-    @torch.no_grad()
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """(lr, bias correction 1, bias correction 2) of the step taken at
+        count `count`, in float32 from host integers."""
+        n = _F32(count + 1)
+        return (self.schedule(count), float(_F32(1) - _F32(B1) ** n),
+                float(_F32(1) - _F32(B2) ** n))
+
     def step(self, params: Sequence[torch.Tensor], grads: Optional[Sequence[torch.Tensor]],
              state: OptState) -> OptState:
         """One optax step of `params` in place; `grads=None` means zeros."""
         params = list(params)
-        mu, nu = state.mu, state.nu
+        row = self.scalars(state.count)
+        self.update(params, grads, state.mu, state.nu, device_scalars([row], params[0].device)[0])
+        return OptState(count=state.count + 1, mu=state.mu, nu=state.nu, learning_rate=row[0])
+
+    @torch.no_grad()
+    def update(self, params: Sequence[torch.Tensor], grads: Optional[Sequence[torch.Tensor]],
+               mu: List[torch.Tensor], nu: List[torch.Tensor], scalars: torch.Tensor) -> None:
+        """The device side of a step: params and moments in place, reading
+        the step's `scalars` (lr, bias correction 1, bias correction 2) from a
+        (3,) float32 tensor on the params' device."""
+        params = list(params)
+        lr, bc1, bc2 = scalars
         if grads is not None and self.clip_grad_norm is not None:
             grads = _clip_by_global_norm(list(grads), self.clip_grad_norm)
         # (1 - b) * g**k + b * t, as optax.tree.update_moment; a zero g leaves b * t
@@ -82,9 +104,6 @@ class Optimizer(NamedTuple):
             grads = list(grads)
             torch._foreach_add_(mu, grads, alpha=1.0 - B1)
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - B2)
-        count = state.count + 1
-        bc1 = float(_F32(1) - _F32(B1) ** _F32(count))
-        bc2 = float(_F32(1) - _F32(B2) ** _F32(count))
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, EPS)
@@ -92,9 +111,19 @@ class Optimizer(NamedTuple):
         torch._foreach_div_(updates, denom)
         if self.weight_decay is not None:
             torch._foreach_add_(updates, params, alpha=self.weight_decay)
-        lr = self.schedule(state.count)
-        torch._foreach_add_(params, updates, alpha=-lr)
-        return OptState(count=count, mu=mu, nu=nu, learning_rate=lr)
+        torch._foreach_addcmul_(params, updates, [lr] * len(params), value=-1.0)
+
+
+def device_scalars(rows: Sequence[Tuple[float, float, float]], device: torch.device,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`Optimizer.scalars` rows as one (rows, 3) float32 tensor on `device`
+    (or copied into `out`); on a card copied from pinned memory without
+    waiting (the host allocator keeps the pinned block until the copy is
+    done)."""
+    host = torch.tensor(rows, dtype=torch.float32, pin_memory=device.type == "cuda")
+    if out is None:
+        return host.to(device, non_blocking=True)
+    return out.copy_(host, non_blocking=True)
 
 
 def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:

@@ -19,6 +19,15 @@ all-reduce GSPMD inserts in the JAX package (the `pmean_axis` hook of its
 train state): the optimizer then steps on equal gradients everywhere, so
 params and optimizer state stay equal bit for bit across the ranks. A group
 with no loss (None: zero gradients) has nothing to average.
+
+An optimizer step reads its per-step scalars (lr, bias corrections,
+computed on the host) from a tensor on the device. `apply_gradients` steps
+each group with `Optimizer.step`, which copies them there itself and moves
+the group's host state on. Given one tensor of every group's scalars
+(`step_scalars`), it runs the device side alone and changes no host state:
+a CUDA graph captures such a step once and replays it (agents/graphs.py),
+and the replay's caller fills the tensor and then calls `advance` (the
+counts, learning rates and `step`).
 """
 
 from __future__ import annotations
@@ -60,16 +69,43 @@ class TrainState:
                 torch._foreach_mul_(targets, 1.0 - tau)
                 torch._foreach_add_(targets, self.params[g], alpha=tau)
 
-    def apply_gradients(self, grads: Dict[str, Optional[List[torch.Tensor]]]) -> None:
-        """Step each named group with its own optimizer (None: zero grads)."""
+    def apply_gradients(self, grads: Dict[str, Optional[List[torch.Tensor]]],
+                        scalars: Optional[torch.Tensor] = None) -> None:
+        """Step each named group with its own optimizer (None: zero grads).
+        Given `scalars` (`step_scalars`' rows on the device, every group
+        named) the device side only, which changes no host state."""
         with span("learner.optimizer"):
-            for g, grad in grads.items():
-                self.opt_states[g] = self.txs[g].step(self.params[g], grad, self.opt_states[g])
+            if scalars is None:
+                for g, grad in grads.items():
+                    self.opt_states[g] = self.txs[g].step(self.params[g], grad, self.opt_states[g])
+            else:
+                if sorted(grads) != sorted(self.txs):
+                    raise ValueError(f"a step on given scalars steps every group "
+                                     f"{sorted(self.txs)}, not {sorted(grads)}")
+                for g, row in zip(sorted(self.txs), scalars):
+                    state = self.opt_states[g]
+                    self.txs[g].update(self.params[g], grads[g], state.mu, state.nu, row)
+        if scalars is None:
+            self.step += 1
+
+    def step_scalars(self) -> Dict[str, Tuple[float, float, float]]:
+        """`Optimizer.scalars` (lr, bias corrections) of each group's next
+        step, the groups in sorted order."""
+        return {g: self.txs[g].scalars(self.opt_states[g].count) for g in sorted(self.txs)}
+
+    def advance(self, rows: Dict[str, Tuple]) -> None:
+        """The host side of a step on `step_scalars`' `rows`: each group's
+        count and learning rate, and `step`."""
+        for g, (lr, _, _) in rows.items():
+            state = self.opt_states[g]
+            self.opt_states[g] = OptState(state.count + 1, state.mu, state.nu, lr)
         self.step += 1
 
-    def apply_loss_fns(self, loss_fns: Dict[str, LossFn]) -> Dict[str, Dict]:
+    def apply_loss_fns(self, loss_fns: Dict[str, LossFn],
+                       scalars: Optional[torch.Tensor] = None) -> Dict[str, Dict]:
         """Differentiate each loss w.r.t. its own group at the current params,
-        then step every group; returns the infos by group name."""
+        then step every group (`scalars` as `apply_gradients`); returns the
+        infos by group name."""
         grads: Dict[str, Optional[List[torch.Tensor]]] = {}
         infos: Dict[str, Dict] = {}
         for g in sorted(loss_fns):
@@ -87,5 +123,5 @@ class TrainState:
                 mean = self.dp.all_reduce_mean(grads[g] + [info[k] for k in keys])
                 grads[g] = mean[:len(grads[g])]
                 infos[g] = {**info, **dict(zip(keys, mean[len(grads[g]):]))}
-        self.apply_gradients(grads)
+        self.apply_gradients(grads, scalars)
         return infos

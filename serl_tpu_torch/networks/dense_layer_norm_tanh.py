@@ -49,8 +49,11 @@ one stream).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from dataclasses import dataclass, field
+from typing import Iterator, List
 
 import torch
 
@@ -296,6 +299,54 @@ def product_flops(shape: tuple) -> int:
     version's torch.matmul, and as the forward kernel adds them to `flops`."""
     _, e, m, k, d = shape[:5]
     return 2 * e * m * k * d
+
+
+@dataclass
+class Counts:
+    """The host counts of a block of K5 calls (`counts_apart`): the forward's
+    and the backward's launches, the shapes the calls logged (one entry a
+    call) and the FLOPs the products added."""
+
+    forward: int = 0
+    backward: int = 0
+    shapes: List[tuple] = field(default_factory=list)
+    flops: int = 0
+
+    def add(self) -> None:
+        """Adds the block's counts to the module's, as launching its calls
+        again would: the launches, and the shapes and FLOPs where
+        `shape_log` and `flops` take them."""
+        global flops
+        dense_layer_norm_tanh_forward.launches += self.forward
+        dense_layer_norm_tanh_backward.launches += self.backward
+        if shape_log is not None:
+            for shape in self.shapes:
+                shape_log.add(shape)
+        if flops is not None:
+            flops += self.flops
+
+
+class _ShapeList(list):
+    add = list.append
+
+
+@contextlib.contextmanager
+def counts_apart() -> Iterator[Counts]:
+    """Yields the `Counts` of the block's calls, which the module's counts
+    leave out: a CUDA graph's capture calls K5 but launches nothing, and each
+    replay launches the captured kernels without a call, so the replay adds
+    the capture's counts (agents/graphs.py)."""
+    global shape_log, flops
+    fw, bw = dense_layer_norm_tanh_forward, dense_layer_norm_tanh_backward
+    outer = shape_log, flops, fw.launches, bw.launches
+    counts = Counts()
+    shape_log, flops = _ShapeList(), 0
+    try:
+        yield counts
+    finally:
+        counts.shapes, counts.flops = list(shape_log), flops
+        counts.forward, counts.backward = fw.launches - outer[2], bw.launches - outer[3]
+        shape_log, flops, fw.launches, bw.launches = outer
 
 
 class _DenseLayerNormTanh(torch.autograd.Function):

@@ -278,16 +278,23 @@ def _made_up_run(monkeypatch, with_spans=True, with_ops=True):
         _record("loop.iteration", 2, 50, -1, 0),  # 1
         _record("env.step", 3, 8, 1, 0),
         _record("learner.update", 10, 40, 1, 0),  # 3
-        _record("learner.forward", 12, 17, 3, 0),
-        _record("learner.backward", 18, 20, 3, 0),
-        _record("learner.optimizer", 21, 24, 3, 0),
-        _record("host.gc", 25, 26, 3, 0),
-        _record("loop.iteration", 50, 98, -1, 1),  # 8
-        _record("env.step", 51, 54, 8, 1),
-        _record("learner.update", 60, 90, 8, 1),  # 10
-        _record("learner.forward", 61, 71, 10, 1),
-        _record("learner.backward", 72, 74, 10, 1),
-        _record("learner.optimizer", 75, 80, 10, 1),
+        _record("learner.critic", 11, 30, 3, 0),  # 4: an eager step
+        _record("learner.forward", 12, 17, 4, 0),
+        _record("learner.backward", 18, 20, 4, 0),
+        _record("learner.optimizer", 21, 24, 4, 0),
+        _record("host.gc", 25, 26, 4, 0),
+        _record("learner.actor", 31, 39, 3, 0),  # 9: a replayed step
+        _record("learner.replay", 32, 38, 9, 0),
+        _record("loop.iteration", 50, 98, -1, 1),  # 11
+        _record("env.step", 51, 54, 11, 1),
+        _record("learner.update", 60, 90, 11, 1),  # 13
+        _record("learner.critic", 60.5, 80, 13, 1),  # 14: a step captured, then replayed
+        _record("learner.forward", 61, 71, 14, 1),
+        _record("learner.backward", 72, 74, 14, 1),
+        _record("learner.optimizer", 75, 79, 14, 1),
+        _record("learner.replay", 79.5, 80, 14, 1),
+        _record("learner.actor", 81, 89, 13, 1),  # 19: an eager step
+        _record("learner.optimizer", 82, 83, 19, 1),
         _record("learner.update", 120, 130, -1, None),  # past the window
     ]
     monkeypatch.setattr(timer, "records", lambda: records if with_spans else [])
@@ -312,6 +319,7 @@ def _made_up_run(monkeypatch, with_spans=True, with_ops=True):
     ("learner.launches", 3 / 2),
     ("env.host_ms", (5 + 3) / 2),
     ("loop.gc_ms", 1 / 2),
+    ("learner.graph_share", 2 / 4),
 ])
 def test_program_span_readers_on_a_made_up_window(monkeypatch, name, want):
     reader = manifest.metric(name)
