@@ -7,7 +7,10 @@ agent. The benchmark makes every trained weight on the card from the seed
 biases, LayerNorm scale 1) and writes it into the agent and its target; the
 frozen ResNet-10 is the program's graft of the committed pickle. Set-up
 fills the ring to capacity: the loop's random-action steps, then the
-seed-made rows of `fill.py`, then the steps up to the checked calls.
+seed-made rows of `fill.py`, then the steps up to the checked calls. A
+traffic mix with `"learner": false` gives the loop a `training_starts` that
+no ring reaches, so its learner never runs: set-up then takes the random
+sweeps and the policy's first step, and no learning call is checked.
 
 `Probe` wraps the bound methods of the instances built here, never the
 program's code: during set-up it copies to the host what the check reads
@@ -23,7 +26,7 @@ import gc
 import hashlib
 import math
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,17 +48,27 @@ def _cpu(tree):
     return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
+NEVER = 1 << 62  # a `training_starts` above any ring's rows and any window's env steps
+
+
+def learns(traffic: Dict) -> bool:
+    """Whether the mix runs the learner (`"learner": false` turns it off)."""
+    return traffic.get("learner", True)
+
+
 def build(config: Dict, traffic: Dict, seed: int, device: torch.device):
     """The program's experiment at the cell's sizes: (env, agent, rb, init_fn, run_chunk)."""
     from serl_tpu_torch.training.launcher import make_drq_sim_experiment
 
+    learner = ({"updates_per_iter": traffic["updates_per_iter"],
+                "training_starts": traffic["training_starts"]} if learns(traffic)
+               else {"training_starts": NEVER})
     env, agent, rb, loop_config, init_fn, run_chunk = make_drq_sim_experiment(
         seed=sub_seed(seed, "program"), encoder_type=config["encoder_type"],
         image_size=config["image_size"], device=device, num_envs=traffic["num_envs"],
         batch_size=traffic["batch_size"], utd_ratio=traffic["utd_ratio"],
-        updates_per_iter=traffic["updates_per_iter"],
-        training_starts=traffic["training_starts"],
-        random_steps=traffic["random_steps"], buffer_capacity=traffic["buffer_capacity"])
+        random_steps=traffic["random_steps"], buffer_capacity=traffic["buffer_capacity"],
+        **learner)
     c = agent.config
     stated = {"discount": config["discount"], "soft_target_update_rate": config["soft_target_update_rate"],
               "target_entropy": config["target_entropy"],
@@ -76,8 +89,10 @@ def _fan_in(name: str, p: torch.Tensor) -> int:
     return p.shape[1]  # nn.Linear (out, in) and ensemble kernels (E, in, out)
 
 
-def _is_norm_scale(name: str) -> bool:
-    return name.endswith(".weight") and any(s in name for s in (".norms.", ".norm.", "proprio_norm."))
+def _is_norm_scale(name: str, p: torch.Tensor) -> bool:
+    """A normalisation's scale: the one-dimensional "weight"s (a Dense's or
+    a convolution's has two or more dimensions)."""
+    return name.endswith(".weight") and p.dim() == 1
 
 
 def make_weights(agent, config: Dict, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -85,7 +100,7 @@ def make_weights(agent, config: Dict, seed: int, device: torch.device) -> Dict[s
     its target critic; returns {name: a copy} for the reference."""
     named = [(n, p) for n, p in agent.named_parameters() if "pretrained_encoder" not in n]
     kernels = [(n, p) for n, p in named
-               if n != "temperature_raw" and not n.endswith("bias") and not _is_norm_scale(n)]
+               if n != "temperature_raw" and not n.endswith("bias") and not _is_norm_scale(n, p)]
     g = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
     u = torch.rand(sum(p.numel() for _, p in kernels), generator=g, device=device) * 2.0 - 1.0
     values, at = {}, 0
@@ -97,7 +112,7 @@ def make_weights(agent, config: Dict, seed: int, device: torch.device) -> Dict[s
         if n == "temperature_raw":
             values[n] = torch.full_like(p, raw)
         elif n not in values:
-            values[n] = torch.ones_like(p) if _is_norm_scale(n) else torch.zeros_like(p)
+            values[n] = torch.ones_like(p) if _is_norm_scale(n, p) else torch.zeros_like(p)
     index = {id(p): i for i, p in enumerate(agent.state.params["critic"])}
     with torch.no_grad():
         for n, p in named:
@@ -277,8 +292,16 @@ def _env_obs(obs) -> Dict[str, torch.Tensor]:
 def set_up(agent, env, rb, init_fn, run_chunk, traffic: Dict, seed: int, probe: Probe):
     """Run the loop's random-action steps, fill the ring with seed-made rows
     up to the steps of the checked calls, which make it full, run those,
-    then warm up: returns the carry."""
+    then warm up: returns the carry. With the learner off: the random
+    sweeps and the policy's first step, then the warm-up."""
     n = traffic["num_envs"]
+    g = torch.Generator(device=probe.device).manual_seed(sub_seed(seed, "loop"))
+    if not learns(traffic):
+        first_policy = -(-traffic["random_steps"] // n)
+        probe.env_checked |= {first_policy, env.time_limit_steps - 1, env.time_limit_steps}
+        carry, _ = run_chunk(init_fn(agent, g), first_policy + 1)
+        carry, _ = run_chunk(carry, traffic["warmup_iters"])
+        return carry
     threshold = -(-max(traffic["training_starts"], traffic["batch_size"] * traffic["utd_ratio"]) // n)
     first_learning = threshold - 1  # the iteration whose insert reaches the threshold
     first_policy = -(-traffic["random_steps"] // n)
@@ -286,7 +309,6 @@ def set_up(agent, env, rb, init_fn, run_chunk, traffic: Dict, seed: int, probe: 
                       first_policy + 1)
     episode = env.time_limit_steps
     probe.env_checked |= {first_policy, checked_end - 1, episode - 1, episode}
-    g = torch.Generator(device=probe.device).manual_seed(sub_seed(seed, "loop"))
     carry = init_fn(agent, g)
     carry, _ = run_chunk(carry, first_learning)
     state = carry.rb_state
@@ -309,10 +331,11 @@ def _meta(tree):
     return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
-def window(run_chunk, carry, seconds: float, chunk_iters: int):
+def window(run_chunk, carry, seconds: float, chunk_iters: int, learner: bool = True):
     """Run chunks until `seconds` have passed on the host clock, then end on
-    a device-to-host read: (carry, iterations, seconds, per-iteration losses,
-    each chunk's host seconds)."""
+    a device-to-host read: (carry, iterations, seconds, per-iteration losses
+    (with the learner off, the reward means), each chunk's host seconds)."""
+    keys = ("critic_loss", "actor_loss") if learner else ("reward_mean",)
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -321,9 +344,47 @@ def window(run_chunk, carry, seconds: float, chunk_iters: int):
     while time.perf_counter() - t0 < seconds:
         carry, metrics = run_chunk(carry, chunk_iters)
         iters += chunk_iters
-        losses.append(torch.stack([metrics[k] for k in ("critic_loss", "actor_loss")], 1))
+        losses.append(torch.stack([metrics[k] for k in keys], 1))
         ends.append(time.perf_counter())
     losses[-1][-1, 0].item()  # waits for all the work enqueued
     elapsed = time.perf_counter() - t0
     chunks = [b - a for a, b in zip([t0] + ends, ends)]
     return carry, iters, elapsed, torch.cat(losses), chunks
+
+
+def refill(rb, run_chunk, carry) -> Tuple[object, Dict]:
+    """After the window: run the loop until it has written every slot of the
+    ring again, copying each insert into a shadow of the ring's data (and
+    the episode ids it was given) by slot, which the check reads the ring
+    back against (`check.readback`): (carry, shadow)."""
+    state = carry.rb_state
+    shadow = {**{k: _like(v) for k, v in state.data.items()}, "ep_id": torch.empty_like(state.ep_id)}
+    insert = rb.insert
+
+    def insert_one(state, transitions, ep_ids):
+        slot = state.insert_slot
+        for k in state.data:
+            _copy_into(shadow[k], slot, transitions[k])
+        shadow["ep_id"][slot] = ep_ids
+        return insert(state, transitions, ep_ids)
+
+    rb.insert = insert_one
+    try:
+        carry, _ = run_chunk(carry, state.ep_id.shape[0])
+    finally:
+        del rb.insert
+    return carry, shadow
+
+
+def _like(tree):
+    if isinstance(tree, dict):
+        return {k: _like(v) for k, v in tree.items()}
+    return torch.empty_like(tree)
+
+
+def _copy_into(tree, slot: int, value) -> None:
+    if isinstance(tree, dict):
+        for k in tree:
+            _copy_into(tree[k], slot, value[k])
+    else:
+        tree[slot] = value

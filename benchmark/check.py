@@ -1,10 +1,11 @@
 """`correct`: what the timed path produced, held to the plain reference.
 
-The reference (`reference/drq.py`) starts from the weights the benchmark made
-and follows the program's first `checked_updates` calls of
-`update_high_utd`, on the batches the program's ring handed them and the
-draws the benchmark made. It reads the program's outputs only to judge them.
-The numbers compared, each against a limit set from sound runs and the
+The reference (`reference/drq.py`, with the configuration's own encoder and
+precisions from `reference/<config>.py`, found by its name) starts from the
+weights the benchmark made and follows the program's first `checked_updates`
+calls of `update_high_utd`, on the batches the program's ring handed them and
+the draws the benchmark made. It reads the program's outputs only to judge
+them. The numbers compared, each against a limit set from sound runs and the
 control (PERF.md lists the readings):
 
   loss_gap     the widest relative gap of a loss over the checked calls'
@@ -20,13 +21,16 @@ control (PERF.md lists the readings):
   action_gap   the widest gap of the policy's first sampled actions, taken
                from the reference's parameters after as many calls;
   ring_rows    sampled rows that are not the stored transition with its
-               successor (exact: limit 0).
+               successor (exact: limit 0); with the learner off, the rows
+               of the whole ring read back after the window (`readback`).
 
 Leaves whose reference gradient is under a thousandth of the group's median
 leaf's (the frozen backbone, whose gradient is zero) are left out of the
 gradient and change comparisons. The control puts the reference computed one
-step below the configuration's precision in the program's place
-(`reference.drq.CONTROL`); a fault mode puts a broken reference there.
+step below the configuration's precision in the program's place (its
+module's `CONTROL`); a fault mode puts a broken reference there. A traffic
+mix with the learner off checks no learning call: its numbers are the
+policy's first actions, on the initial weights, the ring's rows and the env's.
 """
 
 from __future__ import annotations
@@ -37,14 +41,14 @@ from typing import Dict, List, Optional
 import torch
 
 from benchmark import fill as fills
-from benchmark.reference import drq, resnet10
+from benchmark import manifest
+from benchmark.reference import drq
 
 RULE = 1e-3  # a leaf counts where its reference gradient is at least this share of the median
 
 
 def spec_of(config: Dict) -> drq.Spec:
     return drq.Spec(
-        encoder="small" if config["encoder_type"] == "small" else "resnet10",
         image_keys=tuple(config["image_keys"]), discount=config["discount"],
         tau=config["soft_target_update_rate"], target_entropy=config["target_entropy"],
         ensemble=config["critic_ensemble_size"], subsample=config["critic_subsample_size"],
@@ -102,12 +106,27 @@ def _half(batch: Dict, draws: Dict, utd: int):
     return half, {"augment": aug, "updates": ups}
 
 
+def make_learner(config: Dict, params: Dict[str, torch.Tensor], device) -> drq.Learner:
+    """The reference learner of the configuration, with its own encoder
+    (`reference/<config>.py`), from `params`."""
+    encoder = manifest.reference(config["name"]).Encoder(config, device)
+    return drq.Learner(spec_of(config), _to(params, device), encoder)
+
+
+def precision(config: Dict, control: bool = False):
+    """The configuration's stated precision, or its control's."""
+    ref = manifest.reference(config["name"])
+    return ref.CONTROL if control else ref.STATED
+
+
 def follow(config: Dict, traffic: Dict, initial: Dict[str, torch.Tensor], calls: List[Dict],
-           policy: Optional[Dict], device, prec=drq.STATED, fault: Optional[str] = None):
-    """The reference over the checked calls: (losses per update, first grads,
-    params after, actions of the policy's first call or None)."""
-    backbone = resnet10.load(device=device) if config["encoder_type"] != "small" else None
-    learner = drq.Learner(spec_of(config), _to(initial, device), backbone)
+           policy: Optional[Dict], device, prec=None, fault: Optional[str] = None):
+    """The reference over the checked calls: (losses per update, first grads
+    or None where no call is checked, params after, actions of the policy's
+    first call or None). `prec` is the configuration's stated precision
+    unless given."""
+    prec = precision(config) if prec is None else prec
+    learner = make_learner(config, initial, device)
     utd = traffic["utd_ratio"]
     losses, grads, actions = [], None, None
     if policy is not None and policy["after_calls"] == 0:
@@ -159,10 +178,19 @@ def kept_leaves(ref_grads: Dict[str, torch.Tensor]) -> Dict[str, bool]:
 
 def compare(initial, ref, side, where: Optional[Dict] = None) -> Dict[str, float]:
     """The compared numbers between the reference's (losses, grads, params,
-    actions) and another side's; `where` gets what set each."""
+    actions) and another side's; `where` gets what set each. Without a
+    checked learning call (no reference gradients) only the actions."""
     where = {} if where is None else where
-    r_losses, r_grads, r_params, r_actions = ref
-    s_losses, s_grads, s_params, s_actions = side
+    r_actions, s_actions = ref[3], side[3]
+    out = {} if ref[1] is None else _learning_gaps(initial, ref, side, where)
+    if r_actions is not None and s_actions is not None:
+        out["action_gap"] = float((s_actions - r_actions).abs().max())
+    return out
+
+
+def _learning_gaps(initial, ref, side, where: Dict) -> Dict[str, float]:
+    r_losses, r_grads, r_params, _ = ref
+    s_losses, s_grads, s_params, _ = side
     loss_gap = 0.0
     for i, (r, s) in enumerate(zip(r_losses, s_losses, strict=True)):
         for k, v in r.items():
@@ -174,14 +202,11 @@ def compare(initial, ref, side, where: Optional[Dict] = None) -> Dict[str, float
     keep = kept_leaves(r_grads)
     init = {k: v.cpu() for k, v in initial.items()}
     where["grad_gap"], where["change_gap"] = [], []
-    out = {"loss_gap": loss_gap,
-           "grad_gap": _worst_leaf(s_grads, r_grads, keep, where["grad_gap"]),
-           "change_gap": _worst_leaf({k: s_params[k] - init[k] for k in r_params},
-                                     {k: r_params[k] - init[k] for k in r_params}, keep,
-                                     where["change_gap"])}
-    if r_actions is not None and s_actions is not None:
-        out["action_gap"] = float((s_actions - r_actions).abs().max())
-    return out
+    return {"loss_gap": loss_gap,
+            "grad_gap": _worst_leaf(s_grads, r_grads, keep, where["grad_gap"]),
+            "change_gap": _worst_leaf({k: s_params[k] - init[k] for k in r_params},
+                                      {k: r_params[k] - init[k] for k in r_params}, keep,
+                                      where["change_gap"])}
 
 
 def ring_rows(inserts: List, fill: "fills.Fill", shapes: Dict, calls: List[Dict], image_keys,
@@ -240,6 +265,62 @@ def ring_rows(inserts: List, fill: "fills.Fill", shapes: Dict, calls: List[Dict]
             same = same and torch.equal(b["next_observations"][k][r, -1], nxt["observations"][k])
         bad += not same
     return bad
+
+
+def readback(rb, state, shadow: Dict, seed: int, where: Optional[Dict] = None) -> int:
+    """The whole ring read back after the window through its own `sample`
+    and held to `shadow`, the transitions that the loop inserted into each
+    slot since the window closed (`cell.refill`, which wrote every slot
+    again). Each stream's sampleable slots (all but the newest, whose
+    observations are read as the successor of the row before it) are read
+    once each, in an order drawn from `seed`, one row a stream a block. A
+    row is found by its action; it counts as bad where it is no recorded
+    transition, differs from it, or its successor is not the next slot's
+    observations (its own, across an episode boundary); and every recorded
+    row that no block returned, or returned twice, counts too."""
+    slots, streams = state.ep_id.shape
+    device = state.ep_id.device
+    newest = (state.insert_slot - 1) % slots
+    actions = shadow["actions"].reshape(slots * streams, -1).cpu().contiguous().numpy()
+    keys = actions.view(f"V{actions.shape[1] * actions.itemsize}").reshape(-1)
+    found = {k.tobytes(): i for i, k in enumerate(keys)}
+    ep = shadow["ep_id"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    valid = max(state.size - 1, 0)  # the sampler leaves out the newest slot
+    order = torch.argsort(torch.rand((valid, streams), generator=g, device=device), dim=0)
+    seen = torch.zeros(slots * streams, dtype=torch.int64)
+    bad = 0
+    for j in range(valid):
+        got = rb.sample(state, streams, u=order[j:j + 1])
+        rows = got["actions"].cpu().contiguous().numpy()
+        at = torch.tensor([found.get(r.tobytes(), -1) for r in rows.view(keys.dtype).reshape(-1)])
+        hit = at >= 0
+        seen.index_add_(0, at[hit], torch.ones(int(hit.sum()), dtype=torch.int64))
+        idx = at.clamp(min=0).to(device)
+        slot, stream = idx // streams, idx % streams
+        nxt = (slot + 1) % slots
+        nxt = torch.where(ep[nxt, stream] == ep[slot, stream], nxt, slot)
+        same = hit.to(device)
+        for k in ("actions", "rewards", "masks", "dones"):
+            same &= _rows_equal(got[k], shadow[k][slot, stream])
+        for k, want in shadow["observations"].items():
+            now, succ = want[slot, stream], want[nxt, stream]
+            got_now, got_next = got["observations"][k], got["next_observations"][k]
+            if k != "state":  # the cameras carry the frame stack's axis
+                got_now, got_next = got_now[:, -1], got_next[:, -1]
+            same &= _rows_equal(got_now, now) & _rows_equal(got_next, succ)
+        bad += int((~same).sum())
+    expected = torch.ones(slots * streams, dtype=torch.int64)
+    expected.view(slots, streams)[newest] = 0
+    missed = int((seen != expected).sum())
+    if where is not None:
+        where["ring_rows"] = [f"{valid * streams} rows read back", f"{bad} bad",
+                              f"{missed} missed or twice"]
+    return bad + missed
+
+
+def _rows_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).reshape(a.shape[0], -1).all(1)
 
 
 def _row(tree, s):

@@ -13,7 +13,8 @@ encoder up to its dropout, shared by the policy's and the critic's passes.
 `drq_calls` gives one iteration of the loop at a traffic mix: the policy's
 forward over every env, and `updates_per_iter` calls of `update_high_utd`,
 each `utd_ratio` critic updates of `batch_size` rows, then the actor and
-temperature update of the whole batch. The kernel rooflines read the calls
+temperature update of the whole batch (none where the mix turns the learner
+off). The kernel rooflines read the calls
 of their kind (`dense_ln_tanh`: K5's shapes).
 """
 
@@ -162,5 +163,6 @@ def drq_calls(config: Dict, traffic: Dict, encoder: Encoder) -> Dict[str, List[C
     n = traffic["num_envs"]
     policy = frozen(n) + _encoder_calls(encoder, n, n_cams, proprio, train=False)
     policy += _policy_calls(n, feat, hidden, act, train=False)
-    iteration = policy + [c._replace(count=c.count * traffic["updates_per_iter"]) for c in update]
+    calls = traffic["updates_per_iter"] if traffic.get("learner", True) else 0
+    iteration = policy + [c._replace(count=c.count * calls) for c in update if calls]
     return {"policy": policy, "update": update, "iteration": iteration}

@@ -31,7 +31,8 @@ positions alone. Compared, each the worst over the copied steps:
                     render of the program's state by more than one level (the
                     K2 rule of tests/torch_k2.py allows 0.5%);
   pixels_off_edge   such pixels that lie on no edge of the reference's frame
-                    and on no border between two of its surfaces (the K2 rule
+                    and on no border between two of its surfaces, a surface
+                    being a primitive or one face of a box (the K2 rule
                     allows none).
 """
 
@@ -124,16 +125,48 @@ def _hit_distances(scene, rays) -> torch.Tensor:
     return torch.stack(ts)
 
 
+def _box_faces(scene, rays) -> torch.Tensor:
+    """(boxes, N, P): the face of each box that each ray enters, as the plain
+    renderer's slab test picks it for its shading (the axis with the largest
+    entry, the first of ties), 2 * axis + (the ray runs along the axis)."""
+    ox, oy, oz, dx, dy, dz = rays
+    faces = []
+    for i in range(rendering.N_BOX):
+        c, R, h = scene.box_c[:, i], scene.box_R[:, i], scene.box_h[i]
+        wx, wy, wz = ox - c[:, 0:1], oy - c[:, 1:2], oz - c[:, 2:3]
+        entries, along = [], []
+        for k in range(3):
+            r0, r1, r2 = R[:, 0, k:k + 1], R[:, 1, k:k + 1], R[:, 2, k:k + 1]
+            ol = r0 * wx + r1 * wy + r2 * wz
+            dl = r0 * dx + r1 * dy + r2 * dz
+            guard = torch.where(dl >= 0, 1e-9, -1e-9)
+            inv = 1.0 / torch.where(dl.abs() < 1e-9, guard, dl)
+            entries.append(torch.minimum((-h[k] - ol) * inv, (h[k] - ol) * inv))
+            along.append(dl > 0)
+        axis = torch.stack(entries).argmax(0)
+        faces.append(2 * axis + torch.stack(along).gather(0, axis[None])[0].long())
+    return torch.stack(faces)
+
+
 def surface_ids(phys, size: int):
-    """(front, wrist) (N, size, size): the primitive each pixel's ray meets
-    first in the plain renderer's float32 arithmetic, -1 for the sky."""
+    """(front, wrist) (N, size, size): the surface each pixel's ray meets
+    first in the plain renderer's float32 arithmetic, -1 for the sky: the
+    primitive, and for a box the face it enters (8 * primitive + face), as
+    two faces of one box are lit apart and may differ by a few levels only,
+    the edge of a box face that the K2 rule names beside silhouettes."""
     scene = rendering.build_scene(phys)
     pos, rot = rendering.camera_poses(phys)
     grid = rendering.pixel_grid(size, phys.qpos.device)
+    first_box = 1 + rendering.N_SPH + rendering.N_CAP  # the floor, spheres, capsules, boxes
     out = []
     for c in (0, 1):
-        t = _hit_distances(scene, rendering.camera_rays(pos[:, c], rot[:, c], grid[c]))
-        out.append(torch.where(t.amin(0) < rendering.BIG, t.argmin(0), -1).reshape(-1, size, size))
+        rays = rendering.camera_rays(pos[:, c], rot[:, c], grid[c])
+        t = _hit_distances(scene, rays)
+        prim = t.argmin(0)
+        box = (prim - first_box).clamp(0, rendering.N_BOX - 1)
+        face = torch.where(prim >= first_box, _box_faces(scene, rays).gather(0, box[None])[0], 0)
+        ids = torch.where(t.amin(0) < rendering.BIG, 8 * prim + face, -1)
+        out.append(ids.reshape(-1, size, size))
     return tuple(out)
 
 

@@ -3,6 +3,7 @@
   configs/<config>.json       the configuration as it is run
   traffic/<traffic>.json      the traffic mix's parameters
   flops/<config>.py           calls(config, traffic): the work, from shapes
+  reference/<config>.py       the reference's encoder and precisions (reference/drq.py)
   metrics/<metric>.py         read(run): one per-layer metric, or None
   rooflines/<kernel>.py       a kernel's name patterns and least time
 """
@@ -51,6 +52,11 @@ def roofline(name: str):
 @functools.lru_cache(maxsize=None)
 def flops(config: str):
     return _module("flops", config)
+
+
+@functools.lru_cache(maxsize=None)
+def reference(config: str):
+    return _module("reference", config)
 
 
 def config(name: str) -> Dict:

@@ -15,19 +15,23 @@ moves the target critic by polyak averaging. The optimizers are optax's Adam
 (b1 0.9, b2 0.999, eps 1e-8 outside the square root) behind a linear warmup
 whose first step has learning rate 0; per-step scalars are float32.
 
-Precision, as a cell's configuration states it (`Precision`): products of
-the MLPs, heads and bottlenecks in float32 with TF32 off; the small encoder's
-convolutions in bfloat16 (inputs, weights and bias cast, relu in bfloat16,
-then float32 pooling); the frozen ResNet-10 in float32 parameters with TF32
-convolutions and float32 GroupNorm. The control lowers each part one step:
-TF32 products, bfloat16 backbone convolutions, and float8 (e4m3, one scale
-per tensor) inputs and weights of the small encoder's convolutions.
+What depends on the configuration is its own file, `reference/<config>.py`,
+which the benchmark finds by the configuration's name (`manifest.reference`)
+and hands to `Learner` as its `Encoder(config, device)`: each camera's
+encoder from the uint8 frame to the input of its dropout, in plain torch
+with autograd, so that a trained backbone gets its gradients; what follows
+the dropout (`finish`); a frozen part's map, where the configuration has
+one (`frozen_map`, else None); and what it loads (the frozen ResNet-10's
+pickle, or nothing). Its `STATED` precision is the configuration's and its
+`CONTROL` one step below, each a NamedTuple with `tf32_products` (the
+MLPs', heads' and bottlenecks' float32 products in TF32 or not) and the
+encoder's own fields; everything here is shared by every configuration.
 
 Work that the update would compute twice on the same parameters and inputs is
-computed once: the frozen backbone's map of each cropped frame (one per
-update, for every pass and the target), and in the actor update the encoder
-up to its dropout, shared by the policy's pass and the critic's. The target
-backbone equals the online one but for the rounding of the polyak average.
+computed once: a frozen part's map of each cropped frame (one per update,
+for every pass and the target), and in the actor update the encoder up to
+its dropout, shared by the policy's pass and the critic's. A frozen part of
+the target equals the online one but for the rounding of the polyak average.
 """
 
 from __future__ import annotations
@@ -41,35 +45,16 @@ import torch
 import torch.nn.functional as F
 
 LN_EPS = 1e-6  # flax LayerNorm
-GN_EPS = 1e-5  # the ResNet's GroupNorm
-GN_GROUPS = 4
 DROPOUT_KEEP = 0.9
 CROP_PADDING = 4
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 STD_MIN, STD_MAX = 1e-5, 5.0
 _F32 = np.float32
-
-
-class Precision(NamedTuple):
-    """tf32_products: the MLPs', heads' and bottlenecks' products in TF32.
-    backbone: "tf32" or "bf16" convolutions of the frozen ResNet-10.
-    small_convs: "bf16" or "fp8" convolutions of the small encoder."""
-
-    tf32_products: bool = False
-    backbone: str = "tf32"
-    small_convs: str = "bf16"
-
-
-STATED = Precision()
-CONTROL = Precision(tf32_products=True, backbone="bf16", small_convs="fp8")
 
 
 class Spec(NamedTuple):
     """The recipe's constants that the update reads."""
 
-    encoder: str  # "small" or "resnet10"
     image_keys: tuple
     discount: float
     tau: float
@@ -81,7 +66,7 @@ class Spec(NamedTuple):
 
 
 @contextlib.contextmanager
-def products(prec: Precision):
+def products(prec):
     """The float32 products (matmul, einsum) in TF32 or not, as `prec` says."""
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = prec.tf32_products
@@ -114,83 +99,11 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.t()) + b
 
 
-def _fp8(x: torch.Tensor) -> torch.Tensor:
-    """x rounded through float8 e4m3 with one scale for the tensor; the
-    gradient passes to x as it is, and the convolution's own gradients read
-    the rounded values, as an fp8 convolution's would."""
-    scale = x.detach().abs().amax().float().clamp(min=1e-12) / 448.0
-    q = ((x.detach().float() / scale).to(torch.float8_e4m3fn).float() * scale).to(x.dtype)
-    return x + (q - x.detach())
-
-
-def small_encoder(img: torch.Tensor, p: Dict[str, torch.Tensor], prefix: str,
-                  prec: Precision) -> torch.Tensor:
-    """SERL's SmallEncoder: 4 x (3x3 stride-2 VALID conv, relu) in bfloat16,
-    then the spatial mean and the 256-wide bottleneck."""
-    x = (img.to(torch.bfloat16) / 255.0).permute(0, 3, 1, 2)
-    for i in range(4):
-        w = p[f"{prefix}.convs.{i}.weight"].to(torch.bfloat16)
-        b = p[f"{prefix}.convs.{i}.bias"].to(torch.bfloat16)
-        if prec.small_convs == "fp8":
-            x, w = _fp8(x), _fp8(w)
-        x = F.relu(F.conv2d(x, w, b, stride=2))
-    x = x.float().mean(dim=(-2, -1))
-    return bottleneck(x, p, prefix)
-
-
 def bottleneck(x: torch.Tensor, p: Dict[str, torch.Tensor], prefix: str) -> torch.Tensor:
     return dense_ln_tanh(x, p[f"{prefix}.bottleneck.dense.weight"].t(),
                          p[f"{prefix}.bottleneck.dense.bias"],
                          p[f"{prefix}.bottleneck.norm.weight"],
                          p[f"{prefix}.bottleneck.norm.bias"])
-
-
-def _same(size: int, k: int, s: int):
-    total = max((-(-size // s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _conv_same(x: torch.Tensor, w: torch.Tensor, stride: int, prec: Precision) -> torch.Tensor:
-    """flax "SAME" convolution (the odd pad after) in the backbone's precision."""
-    top, bottom = _same(x.shape[-2], w.shape[-1], stride)
-    left, right = _same(x.shape[-1], w.shape[-1], stride)
-    x = F.pad(x, (left, right, top, bottom))
-    if prec.backbone == "bf16":
-        return F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), stride=stride).float()
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
-        return F.conv2d(x, w, stride=stride)
-
-
-def resnet10_map(img: torch.Tensor, bb: Dict[str, torch.Tensor], prec: Precision) -> torch.Tensor:
-    """The frozen ResNet-10 (stages 1-1-1-1, widths 64-512, GroupNorm(4)):
-    (B, H, W, 3) uint8 -> the (B, 512, h, w) float32 map."""
-    mean = torch.tensor(IMAGENET_MEAN, device=img.device)
-    std = torch.tensor(IMAGENET_STD, device=img.device)
-    x = ((img.float() / 255.0 - mean) / std).permute(0, 3, 1, 2)
-    w = bb["conv_init"]
-    if prec.backbone == "bf16":
-        x = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), stride=2, padding=3).float()
-    else:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
-            x = F.conv2d(x, w, stride=2, padding=3)
-    x = F.relu(F.group_norm(x, GN_GROUPS, bb["norm_init.scale"], bb["norm_init.bias"], GN_EPS))
-    top, bottom = _same(x.shape[-2], 3, 2)
-    left, right = _same(x.shape[-1], 3, 2)
-    x = F.max_pool2d(F.pad(x, (left, right, top, bottom), value=float("-inf")), 3, 2)
-    for i in range(4):
-        blk = f"block{i}"
-        stride = 1 if i == 0 else 2
-        y = _conv_same(x, bb[f"{blk}.conv0"], stride, prec)
-        y = F.relu(F.group_norm(y, GN_GROUPS, bb[f"{blk}.gn0.scale"], bb[f"{blk}.gn0.bias"], GN_EPS))
-        y = _conv_same(y, bb[f"{blk}.conv1"], 1, prec)
-        y = F.group_norm(y, GN_GROUPS, bb[f"{blk}.gn1.scale"], bb[f"{blk}.gn1.bias"], GN_EPS)
-        residual = x
-        if f"{blk}.proj" in bb:
-            residual = F.group_norm(_conv_same(x, bb[f"{blk}.proj"], stride, prec), GN_GROUPS,
-                                    bb[f"{blk}.proj_norm.scale"], bb[f"{blk}.proj_norm.bias"],
-                                    GN_EPS)
-        x = F.relu(residual + y)
-    return x
 
 
 def learned_embeddings(fmap: torch.Tensor, p: Dict[str, torch.Tensor], prefix: str) -> torch.Tensor:
@@ -219,8 +132,7 @@ def crop(img: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
 
 class Encoded(NamedTuple):
     """An observation batch seen by one encoder: per camera, the input of its
-    dropout (the pooled features; None for the small encoder, which has
-    none) or its features; and the proprio features."""
+    dropout (or its features, where it has none); and the proprio features."""
 
     pre_dropout: Dict[str, torch.Tensor]
     proprio: torch.Tensor
@@ -229,30 +141,24 @@ class Encoded(NamedTuple):
 class Learner:
     """The reference learner's parameters, optimizer states and target."""
 
-    def __init__(self, spec: Spec, params: Dict[str, torch.Tensor],
-                 backbone: Optional[Dict[str, torch.Tensor]] = None):
+    def __init__(self, spec: Spec, params: Dict[str, torch.Tensor], encoder):
         self.spec = spec
         self.params = {k: v.detach().clone() for k, v in params.items()}
         self.target = {k: v.clone() for k, v in self.params.items() if group_of(k) == "critic"}
-        self.backbone = backbone
+        self.encoder = encoder  # the configuration's `reference/<config>.py` Encoder
         self.mu = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.count = {"actor": 0, "critic": 0, "temperature": 0}
 
     # -- encoders
 
-    def encode_start(self, obs: Dict, params: Dict[str, torch.Tensor], prec: Precision,
+    def encode_start(self, obs: Dict, params: Dict[str, torch.Tensor], prec,
                      maps: Optional[Dict[str, torch.Tensor]] = None) -> Encoded:
         """The encoder up to each camera's dropout; `maps` are the frozen
-        backbone's maps of these frames where the caller has them."""
-        pre = {}
-        for k in self.spec.image_keys:
-            prefix = f"encoder.encoders.{k}"
-            if self.spec.encoder == "small":
-                pre[k] = small_encoder(obs[k], params, prefix, prec)
-            else:
-                fmap = maps[k] if maps is not None else resnet10_map(obs[k], self.backbone, prec)
-                pre[k] = learned_embeddings(fmap, params, prefix)
+        part's maps of these frames where the caller has them."""
+        pre = {k: self.encoder.start(obs[k], params, f"encoder.encoders.{k}", prec,
+                                     None if maps is None else maps[k])
+               for k in self.spec.image_keys}
         proprio = dense_ln_tanh(obs["state"], params["encoder.proprio.weight"].t(),
                                 params["encoder.proprio.bias"],
                                 params["encoder.proprio_norm.weight"],
@@ -261,23 +167,20 @@ class Learner:
 
     def encode_finish(self, enc: Encoded, params: Dict[str, torch.Tensor],
                       masks: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
-        """The rest of the encoder: dropout and bottleneck per camera, then
-        the features of every camera and the proprio, concatenated."""
-        feats = []
-        for k in self.spec.image_keys:
-            x = enc.pre_dropout[k]
-            if self.spec.encoder != "small":
-                if masks is not None:
-                    x = dropout(x, masks[k])
-                x = bottleneck(x, params, f"encoder.encoders.{k}")
-            feats.append(x)
+        """The rest of the encoder per camera (its dropout and what follows),
+        then the features of every camera and the proprio, concatenated."""
+        feats = [self.encoder.finish(enc.pre_dropout[k], params, f"encoder.encoders.{k}",
+                                     None if masks is None else masks[k])
+                 for k in self.spec.image_keys]
         return torch.cat(feats + [enc.proprio], -1)
 
-    def maps(self, obs: Dict, prec: Precision) -> Optional[Dict[str, torch.Tensor]]:
-        if self.spec.encoder == "small":
+    def maps(self, obs: Dict, prec) -> Optional[Dict[str, torch.Tensor]]:
+        """The frozen part's maps of every camera's frames, or None where
+        the configuration has no frozen part."""
+        if self.encoder.frozen_map is None:
             return None
         with torch.no_grad():
-            return {k: resnet10_map(obs[k], self.backbone, prec) for k in self.spec.image_keys}
+            return {k: self.encoder.frozen_map(obs[k], prec) for k in self.spec.image_keys}
 
     # -- heads
 
@@ -355,7 +258,7 @@ def _trainable(learner: Learner, group: str) -> Dict[str, torch.Tensor]:
 
 
 def critic_update(learner: Learner, batch: Dict, draws: Dict, maps_obs, maps_next,
-                  prec: Precision) -> Dict[str, object]:
+                  prec) -> Dict[str, object]:
     """One critic update of a minibatch (the actor and temperature step with
     zero gradients): returns the loss and the critic group's gradients."""
     spec = learner.spec
@@ -388,7 +291,7 @@ def critic_update(learner: Learner, batch: Dict, draws: Dict, maps_obs, maps_nex
 
 
 def actor_temperature_update(learner: Learner, batch: Dict, draws: Dict, maps_obs, maps_next,
-                             prec: Precision) -> Dict[str, object]:
+                             prec) -> Dict[str, object]:
     """The actor and temperature update of the whole batch (the critic
     steps with zero gradients, its target stays)."""
     spec = learner.spec
@@ -443,7 +346,7 @@ def _rows(tree, rows: slice):
 
 
 def update_high_utd(learner: Learner, batch: Dict, draws: Dict, utd: int,
-                    prec: Precision = STATED) -> List[Dict[str, object]]:
+                    prec) -> List[Dict[str, object]]:
     """One DrQ `update_high_utd`: the crop, `utd` critic updates, then the
     actor and temperature update; returns each update's losses and grads."""
     with products(prec):
@@ -467,7 +370,7 @@ def _update_high_utd(learner, batch, draws, utd, prec):
 
 
 @torch.no_grad()
-def act(learner: Learner, obs: Dict, eps: torch.Tensor, prec: Precision = STATED) -> torch.Tensor:
+def act(learner: Learner, obs: Dict, eps: torch.Tensor, prec) -> torch.Tensor:
     """The policy's actions for the envs' observations (images (N, 1, H, W, C))
     and standard-normal noise, without dropout."""
     obs = {**obs, **{k: obs[k][:, 0] for k in learner.spec.image_keys}}

@@ -6,12 +6,15 @@ Set-up (timed as `setup_s`, from the process's start): build the nvcc
 kernels (once per checkout, into serl_tpu_torch/_build/), build the cell's
 loop, write the seed's weights, fill the ring with the loop's random-action
 steps, run the checked learning calls (their outputs kept for the check) and
-warm up. The window then calls `run_chunk` until `--seconds` have passed and
-ends on a device-to-host read; `env_steps_per_s` is every env step of the
-window over all its time. With `--trace 1` the window runs under
+warm up; with the learner off, the random sweeps, the policy's first step
+and the warm-up. The window then calls `run_chunk` until `--seconds` have
+passed and ends on a device-to-host read; `env_steps_per_s` is every env
+step of the window over all its time. With `--trace 1` the window runs under
 torch.profiler, with the benchmark's spans around each layer, and the result
-carries the per-layer metrics instead. After the window the program's state
-is freed and the reference follows the checked calls (`check.py`).
+carries the per-layer metrics instead. After the window (with the learner
+off, once the loop has written the whole ring again and it has been read
+back) the program's state is freed and the reference follows the checked
+calls (`check.py`).
 
 `--mode control` puts the reference, one step below the configuration's
 precision, in the program's place, and `--mode half_batch` a reference that
@@ -41,10 +44,12 @@ import torch  # noqa: E402
 
 from benchmark import cell as cells  # noqa: E402
 from benchmark import check, envcheck, manifest, trace  # noqa: E402
-from benchmark.reference import drq  # noqa: E402
 
 BANNED = ("jax", "jaxlib", "flax", "serl_tpu")  # compared with each module's top-level name
 MODES = ("program", "control", "half_batch")
+NOT_COMPARED_WITHOUT_LEARNER = {"loss_gap": "no learning call", "grad_gap": "no learning call",
+                                "change_gap": "no learning call",
+                                "draw_z": "the learner draws nothing"}
 
 
 def banned_modules():
@@ -83,6 +88,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device: tor
     config = {**manifest.load_json(f"{manifest.ROOT}/{entry['config_entry']['file']}"),
               **(config_overrides or {})}
     traffic = {**manifest.traffic(entry["traffic"]), **(traffic_overrides or {})}
+    learner = cells.learns(traffic)
+    if mode == "half_batch" and not learner:
+        raise ValueError(f"{workload}'s learner is off: it has no batch to halve")
     phases = {"imports": time.perf_counter() - PROCESS_START}
     if device.type == "cuda":
         from serl_tpu_torch.native.build import KERNEL_SOURCES, build_all
@@ -111,17 +119,24 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device: tor
         prof.start()
         with spans(trace.WINDOW):
             carry, iters, elapsed, losses, chunks = cells.window(run_chunk, carry, seconds,
-                                                                 traffic["chunk_iters"])
+                                                                 traffic["chunk_iters"], learner)
         prof.stop()
     else:
         carry, iters, elapsed, losses, chunks = cells.window(run_chunk, carry, seconds,
-                                                             traffic["chunk_iters"])
+                                                             traffic["chunk_iters"], learner)
     probe.remove()
     probe.objs = {}
     after = _host_counts(device)
     log("during the window: " + ", ".join(f"{k} {after[k] - before[k]}" for k in before))
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     failed = int((~torch.isfinite(losses).all(1)).sum())
+    where: Dict = {}
+    if not learner:  # the whole ring, written again after the window, read back
+        carry, shadow = cells.refill(rb, run_chunk, carry)
+        read_back = check.readback(rb, carry.rb_state, shadow, cells.sub_seed(seed, "readback"),
+                                   where)
+        del shadow
+    learner_ran = not learner and agent.state.step > 0  # optimizer steps with the learner off
     del carry, agent, env, rb, init_fn, run_chunk, losses
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -134,22 +149,27 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device: tor
                 None if policy is None else policy["actions"])
     else:
         side = check.follow(config, traffic, initial, probe.calls, policy, device,
-                            prec=drq.CONTROL if mode == "control" else drq.STATED,
+                            prec=check.precision(config, control=mode == "control"),
                             fault=None if mode == "control" else mode)
-    where: Dict = {}
     numbers = check.compare(initial, ref, side, where)
-    if mode == "program":
+    if learner:
         numbers["ring_rows"] = check.ring_rows(probe.inserts, probe.fill, probe.shapes, probe.calls,
                                                config["image_keys"], device)
         numbers["draw_z"] = check.draw_z(probe.calls, config, traffic, where)
+    else:
+        numbers["ring_rows"] = read_back
     numbers.update(envcheck.numbers(probe.env_records, config["image_keys"], config["image_size"],
                                     device, control=mode == "control", where=where))
     log(f"env steps checked: {[r['step'] for r in probe.env_records]}")
     for name, what in where.items():
         log(f"{name} set by {what}")
     limits = limits_of(workload)
-    checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
-    correct = (iters > 0 and failed == 0 and all(math.isfinite(v) for v in numbers.values())
+    checks = {k: {"value": v, "limit": limits.get(k)} for k, v in numbers.items()}
+    missing = sorted(set(limits) - set(numbers))
+    if missing or learner_ran:
+        log(f"limits with no number: {missing}; the learner ran with the learner off: {learner_ran}")
+    correct = (iters > 0 and failed == 0 and not missing and set(numbers) <= set(limits)
+               and not learner_ran and all(math.isfinite(v) for v in numbers.values())
                and all(v <= limits[k] for k, v in numbers.items()))
 
     device_info = {"platform": "gpu" if device.type == "cuda" else device.type,
@@ -160,8 +180,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device: tor
     q = statistics.quantiles(chunks, n=20) if len(chunks) > 1 else chunks * 19
     log(f"host s a chunk: min {min(chunks):.4f} p5 {q[0]:.4f} p50 {q[9]:.4f} p95 {q[18]:.4f} "
         f"max {max(chunks):.4f}")
+    steps = iters * traffic["updates_per_iter"] * traffic["utd_ratio"] if learner else 0
     log(f"window: {iters} iterations in {elapsed:.4f} s; set-up {setup_s:.4f} s; "
-        f"critic gradient steps/s {iters * traffic['updates_per_iter'] * traffic['utd_ratio'] / elapsed:.4f}")
+        f"critic gradient steps/s {steps / elapsed:.4f}")
     if traced:
         t = time.perf_counter()
         run = trace.reduce(prof, trace.Run(config=config, traffic=traffic,
@@ -179,7 +200,10 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device: tor
         rates = {"env_steps_per_s": iters * traffic["num_envs"] / elapsed, "setup_s": setup_s}
         for m in entry["end_to_end"]:
             metrics[m["name"]] = {"value": rates[m["name"]], "unit": m["unit"]}
-    result.update(metrics=metrics, device=device_info, checks=checks)
+    result.update(metrics=metrics, device=device_info)
+    if not learner:
+        result["not_compared"] = NOT_COMPARED_WITHOUT_LEARNER
+    result["checks"] = checks
     return result
 
 
@@ -208,6 +232,8 @@ def main(argv=None) -> int:
     if found:
         log(f"the run imported {found}: the JAX package or JAX itself; no result")
         return 3
+    for name, why in result.get("not_compared", {}).items():
+        log(f"check {name} not applicable: {why}")
     for name, c in result["checks"].items():
         log(f"check {name} {c['value']!r} limit {c['limit']!r}")
     print(json.dumps(result))

@@ -4,19 +4,23 @@ import torch
 
 from benchmark.reference.drq import DROPOUT_KEEP
 
-TINY_TRAFFIC = dict(num_envs=4, batch_size=8, utd_ratio=2, training_starts=16, random_steps=16,
-                    buffer_capacity=400, warmup_iters=1)
+TINY_TRAFFIC = {"learn": dict(num_envs=4, batch_size=8, utd_ratio=2, training_starts=16,
+                              random_steps=16, buffer_capacity=400, warmup_iters=1),
+                "collect": dict(num_envs=4, random_steps=4, buffer_capacity=32, warmup_iters=1)}
 TINY_CONFIG = {"image_size": 32}
-CELLS = ("resnet10.learn", "small.learn")
+LEARN_CELLS = ("resnet10.learn", "small.learn")
+COLLECT_CELLS = ("small.collect",)
+CELLS = LEARN_CELLS + COLLECT_CELLS
 
 
 def run_tiny(workload, mode="program", traced=False, seed=20260418, seconds=0.5):
-    from benchmark import run
+    from benchmark import manifest, run
 
     torch.manual_seed(0)
     torch.set_num_threads(2)
+    tiny = TINY_TRAFFIC[manifest.cell(workload)["traffic"]]
     return run.run_cell(workload, seed, seconds, traced, torch.device("cpu"), mode,
-                        TINY_TRAFFIC, TINY_CONFIG, log=lambda msg: None)
+                        tiny, TINY_CONFIG, log=lambda msg: None)
 
 
 def reference_params(config, g):

@@ -1,11 +1,14 @@
 """A whole run on the CPU at a tiny size, the harness's look for a card
 skipped: sound, it comes out correct; with the timed path broken underneath,
-or with the control in the program's place, `correct` comes out false."""
+or with the control in the program's place, `correct` comes out false. Each
+cell is broken in the ways it can be: a learning cell's step, batch, draws,
+actions, sampled rows and env; a collecting cell's (learner off) policy,
+ring and env."""
 
 import pytest
 import torch
 
-from benchmark.tests.helpers import CELLS, run_tiny
+from benchmark.tests.helpers import CELLS, COLLECT_CELLS, LEARN_CELLS, run_tiny
 
 
 def _failed(result):
@@ -18,6 +21,21 @@ def test_sound_run_is_correct(workload):
     assert result["correct"], result["checks"]
     assert result["checks"]["ring_rows"]["value"] == 0
     assert list(result)[-1] == "checks"
+
+
+@pytest.mark.parametrize("workload", COLLECT_CELLS)
+def test_learner_off_compares_no_learning_number(workload, monkeypatch):
+    """With the learner off nothing is drawn or learned, so those numbers are
+    left out, not passed as 0; a limit that no number meets fails the run."""
+    from benchmark import run
+
+    result = run_tiny(workload)
+    assert set(result["checks"]) == set(run.limits_of(workload))
+    assert not {"loss_gap", "grad_gap", "change_gap", "draw_z"} & set(result["checks"])
+    assert set(result["not_compared"]) == {"loss_gap", "grad_gap", "change_gap", "draw_z"}
+    limits = run.limits_of
+    monkeypatch.setattr(run, "limits_of", lambda w: {**limits(w), "draw_z": 7.0})
+    assert not run_tiny(workload)["correct"]
 
 
 def _unchanged_state(monkeypatch):
@@ -103,6 +121,19 @@ def _altered_frame(monkeypatch):
     monkeypatch.setattr(panda_pick, "render_cameras", altered)
 
 
+def _altered_reward(monkeypatch):
+    """An answer altered where it is produced: the env's reward, by 1e-3."""
+    from serl_tpu_torch.envs import panda_pick
+
+    step = panda_pick.PandaPickCubeEnv.step_auto_reset
+
+    def altered(self, *args, **kw):
+        state, obs, reward, done, info = step(self, *args, **kw)
+        return state, obs, reward + 1e-3, done, info
+
+    monkeypatch.setattr(panda_pick.PandaPickCubeEnv, "step_auto_reset", altered)
+
+
 def _fixed_crop(monkeypatch):
     """The crop's draws fixed: every window at the centre, as if no crop ran."""
     from serl_tpu_torch.agents import drq
@@ -113,14 +144,56 @@ def _fixed_crop(monkeypatch):
     monkeypatch.setattr(drq, "crop_offsets", centred)
 
 
+def _wrist_dropped(monkeypatch):
+    """The policy acting without its wrist camera (its frames zero)."""
+    from serl_tpu_torch.agents import sac
+
+    sample = sac.SACAgent.sample_actions
+
+    def blind(self, observations, **kw):
+        return sample(self, {**observations, "wrist": torch.zeros_like(observations["wrist"])}, **kw)
+
+    monkeypatch.setattr(sac.SACAgent, "sample_actions", blind)
+
+
+def _successor_off_by_one_env(monkeypatch):
+    """Each sampled row's successor taken from the next env's stream."""
+    from serl_tpu_torch.data import replay_buffer
+
+    sample = replay_buffer.ReplayBuffer.sample
+
+    def shifted(self, *args, **kw):
+        out = sample(self, *args, **kw)
+        out["next_observations"] = {k: v.roll(1, 0) for k, v in out["next_observations"].items()}
+        return out
+
+    monkeypatch.setattr(replay_buffer.ReplayBuffer, "sample", shifted)
+
+
+def _insert_unchanged(monkeypatch):
+    """A ring insert that returns its state unchanged: nothing is written."""
+    from serl_tpu_torch.data import replay_buffer
+
+    monkeypatch.setattr(replay_buffer.ReplayBuffer, "insert",
+                        lambda self, state, transitions, ep_ids: state)
+
+
 FAULTS = {"unchanged_state": _unchanged_state, "half_batch": _half_batch,
           "altered_action": _altered_action, "altered_row": _altered_row,
           "altered_physics": _altered_physics, "altered_frame": _altered_frame,
-          "fixed_crop": _fixed_crop}
+          "fixed_crop": _fixed_crop, "altered_reward": _altered_reward,
+          "wrist_dropped": _wrist_dropped,
+          "successor_off_by_one_env": _successor_off_by_one_env,
+          "insert_unchanged": _insert_unchanged}
+LEARN_FAULTS = ("altered_action", "altered_frame", "altered_physics", "altered_reward", "altered_row",
+                "fixed_crop", "half_batch", "unchanged_state")
+COLLECT_FAULTS = ("altered_action", "altered_frame", "altered_physics", "altered_reward",
+                  "altered_row", "insert_unchanged", "successor_off_by_one_env", "wrist_dropped")
+BROKEN = ([(w, f) for w in LEARN_CELLS for f in LEARN_FAULTS]
+          + [(w, f) for w in COLLECT_CELLS for f in COLLECT_FAULTS])
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload, fault", BROKEN, ids=[f"{w}-{f}" for w, f in BROKEN])
 def test_broken_timed_path_is_not_correct(workload, fault, monkeypatch):
     FAULTS[fault](monkeypatch)
     result = run_tiny(workload)

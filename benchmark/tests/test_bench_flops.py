@@ -37,20 +37,19 @@ def test_count_equals_flop_counter_over_the_reference(name, size):
     traffic = {**manifest.traffic("learn"), **SMALL}
     g = torch.Generator().manual_seed(0)
     params = reference_params(config, g)
-    backbone = None
-    if config["encoder_type"] != "small":
-        from benchmark.reference import resnet10
-        backbone = resnet10.load(f"{manifest.ROOT}/resnet10_params.pkl")
-    learner = drq.Learner(check.spec_of(config), params, backbone)
+    learner = check.make_learner(config, params, "cpu")
+    prec = check.precision(config)
     batch, obs = _inputs(config, traffic, g)
     draws = update_draws(config, traffic, g, "cpu")
     calls = manifest.flops(name).calls(config, traffic)
     with FlopCounterMode(display=False) as counter:
-        drq.update_high_utd(learner, batch, draws, traffic["utd_ratio"])
+        drq.update_high_utd(learner, batch, draws, traffic["utd_ratio"], prec)
     assert total_flops(calls["update"]) == counter.get_total_flops()
     eps = torch.randn(traffic["num_envs"], config["action_dim"], generator=g)
     with FlopCounterMode(display=False) as counter:
-        drq.act(learner, obs, eps)
+        drq.act(learner, obs, eps, prec)
     assert total_flops(calls["policy"]) == counter.get_total_flops()
     assert total_flops(calls["iteration"]) == (total_flops(calls["policy"])
                                                + 2 * total_flops(calls["update"]))
+    off = manifest.flops(name).calls(config, {**traffic, "learner": False})
+    assert total_flops(off["iteration"]) == total_flops(calls["policy"])  # the policy pass alone

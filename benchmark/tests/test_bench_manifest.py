@@ -43,7 +43,9 @@ def test_benchmark_json_keeps_its_shape():
     configs = {c["name"]: c for c in bench["configs"]}
     for c in configs.values():
         assert c["file"].startswith("benchmark/") and os.path.isfile(os.path.join(manifest.ROOT, c["file"]))
-        assert manifest.load_json(os.path.join(manifest.ROOT, c["file"]))["reduced"] == c["reduced"]
+        config = manifest.load_json(os.path.join(manifest.ROOT, c["file"]))
+        assert config["reduced"] == c["reduced"] and config["name"] == c["name"]
+        assert callable(manifest.reference(c["name"]).Encoder)
     for w in bench["workloads"]:
         assert w["config"] in configs and w["chips"] in (1, 4) and len(w["why"]) <= 200
     cells = {w["name"] for w in bench["workloads"]}
