@@ -13,7 +13,9 @@ update's draws, so the tests can feed the JAX package's.
 
 The registry's "resnet" is a ResNet-10 per camera (bf16 convolutions,
 trained, a learned-spatial-embedding head with dropout and a 256-wide
-bottleneck); "resnet-pretrained" a frozen fp32 ResNet-10 backbone per
+bottleneck); "resnet50" the same with ResNet-v1-50's bottleneck blocks
+(stages 3-4-6-3, a 2048-channel map), which the JAX package's registry does
+not have; "resnet-pretrained" a frozen fp32 ResNet-10 backbone per
 camera (one instance per key, as the JAX package's flax tree has it) under
 a trained head of the same kind, grafted from `resnet10_params.pkl` by
 `create_drq` (strict: no file, no agent).
@@ -38,6 +40,9 @@ from serl_tpu_torch.vision.encoders import PreTrainedResNetEncoder, SmallEncoder
 from serl_tpu_torch.vision.encoding import ObsEncoder
 
 CROP_PADDING = 4
+# the trained ResNets of the registry: encoder type -> backbone, each under
+# the learned-embedding head (8 features, dropout) and a 256-wide bottleneck
+TRAINED_RESNETS = {"resnet": "resnetv1-10", "resnet50": "resnetv1-50"}
 
 
 def make_image_encoders(encoder_type: str, image_keys: Iterable[str], shared: bool = False,
@@ -59,9 +64,9 @@ def make_image_encoders(encoder_type: str, image_keys: Iterable[str], shared: bo
             enc = small()
             return {key: enc for key in image_keys}
         return {key: small() for key in image_keys}
-    if encoder_type == "resnet":
+    if encoder_type in TRAINED_RESNETS:
         def resnet():
-            return resnetv1_configs["resnetv1-10"](
+            return resnetv1_configs[TRAINED_RESNETS[encoder_type]](
                 pooling_method="spatial_learned_embeddings", num_spatial_blocks=8,
                 bottleneck_dim=256, compute_dtype=torch.bfloat16, in_channels=in_channels,
                 image_size=image_size, generator=generator)

@@ -238,7 +238,8 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     add_common_args(p)
     p.add_argument("--image_size", type=int, default=128)
-    p.add_argument("--encoder_type", default="small")
+    p.add_argument("--encoder_type", default="small",
+                   help="small | resnet | resnet50 | resnet-pretrained")
     p.add_argument("--critic_actor_ratio", type=int, default=4)
     p.add_argument("--publish_period", type=int, default=30)
     p.add_argument("--log_period", type=int, default=50)

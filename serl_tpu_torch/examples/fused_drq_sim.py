@@ -8,9 +8,9 @@ every batch: the scripted expert's, pixel observations rendered as the
 loop renders them, collected first (num_demos + 10 episodes, noise 0.02 shared
 by every env, generator seeded with seed + 7), the successful ones selected
 on the device. `--encoder_type` picks the encoders: "small" (the default),
-"resnet" (ResNet-10, bf16, trained) or "resnet-pretrained" (the frozen
-ResNet-10 grafted from `resnet10_params.pkl`, with a trained pooling head;
-a missing file raises).
+"resnet" (ResNet-10, bf16, trained), "resnet50" (ResNet-v1-50, bf16,
+trained) or "resnet-pretrained" (the frozen ResNet-10 grafted from
+`resnet10_params.pkl`, with a trained pooling head; a missing file raises).
 
     python -m serl_tpu_torch.examples.fused_drq_sim --preset drq_rlpd --seed 0 \\
         --total_env_steps 96000 --success_stop 0.9

@@ -57,7 +57,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--pixels", action="store_true",
                    help="DrQ from the front and wrist cameras (the reference's E3 class)")
     p.add_argument("--image_size", type=int, default=128)
-    p.add_argument("--encoder_type", default="small")
+    p.add_argument("--encoder_type", default="small",
+                   help="small | resnet | resnet50 | resnet-pretrained")
     p.add_argument("--num_envs", type=int, default=16)
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--utd_ratio", type=int, default=4)

@@ -32,7 +32,7 @@ class WorkloadConfig:
     image_keys: Tuple[str, ...] = ("front", "wrist")
 
     # agent (reference launcher.py:50-116 defaults)
-    encoder_type: str = "small"  # small | resnet | resnet-pretrained
+    encoder_type: str = "small"  # small | resnet | resnet50 | resnet-pretrained
     discount: float = 0.99
     critic_ensemble_size: int = 10
     critic_subsample_size: int = 2
